@@ -94,7 +94,7 @@ class ParityEngine:
         )
         action = piece_index * 64 + row * BOARD_SIZE + col
         (valid, _piece, nblocks, new_board, lines, _rows, _cols, _cleared,
-         streak, _mult, gained, used) = _move_core(
+         streak, _mult, gained, used, *_stats) = _move_core(
             state, torch.tensor([action], device=self.device))
         if not bool(valid[0]):
             return False

@@ -1,5 +1,12 @@
 """The batched game step: place -> clear -> score -> regen -> game over.
 
+The move core (validity, placement, clears, score, and the new board's
+holes / centre / fill) dispatches on the device of the state: the plain
+PyTorch version for CPU tensors, the CUDA kernel K6 (`csrc/move.cu`) for
+CUDA tensors, counting its launches in ``_move_core.launches``.  Regen,
+the game-over test (K1), the reward sum and the auto-reset stay tensor
+code.
+
 Counterpart of `bbx/engine/step.py`, with its quirks kept exactly:
   * invalid action: reward -10, state unchanged, episode does NOT end;
   * ``blocks_in_lines = lines_cleared * 8`` ignores row/col intersections;
@@ -13,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import build
 from . import kernel as K
 from . import solvability as S
 from .state import EnvState, fresh_pieces, regen_pieces
@@ -67,8 +75,12 @@ def observe(state: EnvState, valid3: Optional[torch.Tensor] = None) -> dict:
     }
 
 
-def _move_core(state: EnvState, actions: torch.Tensor):
-    """Pure move mechanics for all lanes (validity, placement, clears, score)."""
+# ---------------------------------------------------------------------------
+# K6: the move core.
+# ---------------------------------------------------------------------------
+
+def _move_core_plain(state: EnvState, actions: torch.Tensor):
+    """Plain version of `_move_core`."""
     tb = tables(state.device)
     n = state.num_envs
     slot, anchor = K.decode_action(actions.long())
@@ -107,7 +119,74 @@ def _move_core(state: EnvState, actions: torch.Tensor):
     return (
         valid, piece, nblocks, new_board, lines, rows_c, cols_c,
         cleared_any, streak_after, combo_mult, score_gained, used_after,
+        K.count_holes(new_board), K.center_openness(new_board),
+        K.total_blocks(new_board),
     )
+
+
+def _move_core(state: EnvState, actions: torch.Tensor):
+    """Pure move mechanics for all lanes (validity, placement, clears,
+    score) and the statistics of the new board.
+
+    Args:
+      state: batched EnvState (boards 0/1).
+      actions: [N] integer flat actions in [0, 192).
+    Returns:
+      (valid [N] bool, piece [N] i32, nblocks [N] i32, new_board [N,8,8]
+      uint8, lines [N] i32, rows_cleared [N] i32, cols_cleared [N] i32,
+      cleared_any [N] bool, streak_after [N] i32, combo_mult [N] i32,
+      score_gained [N] i32, used_after [N,3] bool, holes [N] i32,
+      center [N] f32, filled [N] i32): the twelve outputs of
+      `bbx/engine/step.py:_move_core`, then `count_holes`,
+      `center_openness` and `total_blocks` of the new board.
+    """
+    if not state.board.is_cuda:
+        return _move_core_plain(state, actions)
+    return _move_core_cuda(state, actions)
+
+
+# Rows of the kernel's int32 and bool output blocks (`csrc/move.cu`).
+(_MV_PIECE, _MV_NBLOCKS, _MV_LINES, _MV_ROWS, _MV_COLS, _MV_STREAK, _MV_COMBO,
+ _MV_SCORE, _MV_HOLES, _MV_FILL) = range(10)
+
+
+def _move_core_cuda(state: EnvState, actions: torch.Tensor):
+    n = state.num_envs
+    build.require("_move_core: board", state.board, torch.uint8,
+                  (n, BOARD_SIZE, BOARD_SIZE))
+    build.require("_move_core: piece_ids", state.piece_ids, torch.int32,
+                  (n, PIECES_PER_TURN))
+    build.require("_move_core: used", state.used, torch.bool, (n, PIECES_PER_TURN))
+    build.require("_move_core: done", state.done, torch.bool, (n,))
+    build.require("_move_core: streak", state.streak, torch.int32, (n,))
+    actions = actions.to(torch.int32).contiguous()
+    build.require("_move_core: actions", actions, torch.int32, (n,))
+    tb = tables(state.device)
+    dev = state.device
+    new_board = torch.empty((n, BOARD_SIZE, BOARD_SIZE), dtype=torch.uint8,
+                            device=dev)
+    ints = torch.empty((10, n), dtype=torch.int32, device=dev)
+    flags = torch.empty((2, n), dtype=torch.bool, device=dev)
+    used_after = torch.empty((n, PIECES_PER_TURN), dtype=torch.bool, device=dev)
+    center = torch.empty(n, dtype=torch.float32, device=dev)
+    err = build.function("move")(
+        state.board.data_ptr(), state.piece_ids.data_ptr(),
+        state.used.data_ptr(), state.done.data_ptr(), state.streak.data_ptr(),
+        actions.data_ptr(), tb.PLACE_U64.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
+        tb.PIECE_NBLOCKS.data_ptr(), new_board.data_ptr(), ints.data_ptr(),
+        flags.data_ptr(), used_after.data_ptr(), center.data_ptr(), n,
+        build.stream_of(state.board))
+    build.check("move", err)
+    _move_core.launches += 1
+    return (
+        flags[0], ints[_MV_PIECE], ints[_MV_NBLOCKS], new_board, ints[_MV_LINES],
+        ints[_MV_ROWS], ints[_MV_COLS], flags[1], ints[_MV_STREAK],
+        ints[_MV_COMBO], ints[_MV_SCORE], used_after, ints[_MV_HOLES], center,
+        ints[_MV_FILL],
+    )
+
+
+_move_core.launches = 0
 
 
 def step(state: EnvState, actions: torch.Tensor,
@@ -130,6 +209,7 @@ def step(state: EnvState, actions: torch.Tensor,
     (
         valid, piece, nblocks, new_board, lines, rows_c, cols_c,
         cleared_any, streak_after, combo_mult, score_gained, used_after,
+        holes_now, center_now, filled,
     ) = _move_core(state, actions)
 
     score_after = state.score + score_gained
@@ -152,8 +232,6 @@ def step(state: EnvState, actions: torch.Tensor,
 
     # ---- Shaped reward (`block_blast_env.py:148-193`) ----
     rc = reward_config
-    holes_now = K.count_holes(new_board)
-    center_now = K.center_openness(new_board)
     hole_delta = holes_now - state.prev_holes
     combo_mult_f = combo_mult.to(torch.float32)
     f32 = torch.float32
@@ -202,7 +280,7 @@ def step(state: EnvState, actions: torch.Tensor,
         "lines_cleared": lines_total_after,
         "max_combo": max_streak_after,
         "blocks_placed": blocks_total_after,
-        "board_fill": K.total_blocks(new_board).to(f32) / NUM_CELLS,
+        "board_fill": filled.to(f32) / NUM_CELLS,
         "holes": holes_now,
         "invalid_action": ~valid,
         # last-move details

@@ -6,7 +6,8 @@ Counterpart of `bbx/models/afterstate.py`.  The forward pass
      parameter-free map (shift -> union -> simultaneous row/col clears):
      `afterstate_planes`, the CUDA kernel K4 on the card;
   2. scores every afterboard with one shared evaluator (small CNN + per-move
-     scalar features + a remaining-pieces context);
+     scalar features + a remaining-pieces context), under activation
+     checkpointing when gradients are on (bbx's ``nn.remat``);
   3. returns those scores as the 192 policy logits (masked), plus a value
      head on the current state.
 
@@ -25,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import build
 from .distributions import mask_logits
@@ -220,8 +222,16 @@ class AfterstateNetwork(nn.Module):
         ], dim=-1)                                                  # [B, 192, F]
 
         m = b * NUM_ACTIONS
-        scores = self.evaluator(planes.reshape(m, 2, BOARD, BOARD),
-                                feats.reshape(m, feats.shape[-1]), dt)
+        boards = planes.reshape(m, 2, BOARD, BOARD)
+        feats = feats.reshape(m, feats.shape[-1])
+        if torch.is_grad_enabled():
+            # bbx's nn.remat: keep only the evaluator's inputs for the
+            # backward and recompute its activations (each conv activation
+            # is [B*192, C, 8, 8]); the math is unchanged.
+            scores = checkpoint(self.evaluator, boards, feats, dt,
+                                use_reentrant=False)
+        else:
+            scores = self.evaluator(boards, feats, dt)
         logits = scores.reshape(b, NUM_ACTIONS).to(torch.float32)
 
         # Value head on the current state.

@@ -4,7 +4,9 @@ The input is the nested dict of NumPy arrays that Flax's ``params`` holds
 (no JAX objects).  Conv kernels go from HWIO to OIHW and Dense kernels are
 transposed.  Flax flattens NHWC activations before a Dense; the port
 flattens NCHW, so the rows of a Dense that follows a conv flatten are
-permuted from (h, w, c) to (c, h, w) order here, once.
+permuted from (h, w, c) to (c, h, w) order here, once.  Adam's moments
+(`adam_state_from_optax`) are permuted the same way, so a bbx train state
+carries over whole.
 """
 from __future__ import annotations
 
@@ -59,3 +61,57 @@ def afterstate_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.T
     put("value_dense0", _dense(params["Dense_1"], flat_channels=last_value))
     put("value_dense1", _dense(params["Dense_2"]))
     return out
+
+
+def _adam_moments(opt_state):
+    """The ``ScaleByAdamState(count, mu, nu)`` inside an optax chain state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _adam_moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, params: Dict[str, Any]) -> Dict[str, Any]:
+    """bbx's optimizer state -> the port's Adam state.
+
+    Args:
+      opt_state: the state of `bbx.agent.ppo.make_optimizer`'s chain
+        (``clip_by_global_norm`` then ``adam``), with ``mu``/``nu`` as
+        trees of NumPy arrays.
+      params: the Flax AfterstateNetwork params the state belongs to.
+    Returns:
+      ``{"step": count, "exp_avg": {name: tensor}, "exp_avg_sq": {name:
+      tensor}}``, keyed by the port's parameter names, with the moments
+      permuted as the weights are (`afterstate_state_dict_from_flax`).
+    """
+    found = _adam_moments(opt_state)
+    if found is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in the optax state")
+    count, mu, nu = found
+    want = afterstate_state_dict_from_flax(params)
+    out = {"step": int(np.asarray(count))}
+    for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        moments = afterstate_state_dict_from_flax(tree)
+        for name, w in want.items():
+            if moments[name].shape != w.shape:
+                raise ValueError(f"{key} {name}: shape {tuple(moments[name].shape)}"
+                                 f" != the parameter's {tuple(w.shape)}")
+        out[key] = moments
+    return out
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, network: torch.nn.Module,
+                    adam: Dict[str, Any]) -> None:
+    """Put `adam_state_from_optax`'s state into a `torch.optim.Adam` over
+    ``network.parameters()``."""
+    state = {}
+    for i, (name, p) in enumerate(network.named_parameters()):
+        state[i] = {"step": torch.tensor(float(adam["step"])),
+                    "exp_avg": adam["exp_avg"][name].to(p.device).clone(),
+                    "exp_avg_sq": adam["exp_avg_sq"][name].to(p.device).clone()}
+    sd = optimizer.state_dict()
+    optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})

@@ -29,6 +29,8 @@ SOURCES = {
     "solvable_disjoint": "solvable_disjoint.cu",
     "solvable_exact": "solvable_exact.cu",
     "afterstate": "afterstate.cu",
+    "gae": "gae.cu",
+    "move": "move.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,6 +39,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each library's entry point: (symbol, argtypes).
 SIGNATURES = {
     # bits, ids, shifts, anchor_ok, out, k, stream
@@ -48,6 +51,12 @@ SIGNATURES = {
                        [_P, _P, _P, _P, _P, _P, _P, _I, _P]),
     # board, pieces, planes, lines, overlap, b, stream
     "afterstate": ("bbx_afterstate", [_P, _P, _P, _P, _P, _I, _P]),
+    # rewards, dones, values, last_value, adv, ret, gamma, gamma*lambda,
+    # t, n, stream
+    "gae": ("bbx_gae", [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _P]),
+    # board, ids, used, done, streak, action, place, anchor_ok, nblocks,
+    # new_board, ints, flags, used_after, center, n, stream
+    "move": ("bbx_move", [_P] * 14 + [_I, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -39,3 +39,22 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.isfile(path)
+
+
+def latest_step_checkpoint(directory: str) -> Optional[str]:
+    """The highest-step ``checkpoint_<step>`` file in `directory` (its
+    ``.config.json`` sidecar aside), or None."""
+    if not os.path.isdir(directory):
+        return None
+    best, best_step = None, -1
+    for entry in os.listdir(directory):
+        head, _, step = entry.rpartition("_")
+        if head != "checkpoint" or not step.isdigit():
+            continue
+        if int(step) > best_step:
+            best, best_step = entry, int(step)
+    return os.path.join(directory, best) if best else None

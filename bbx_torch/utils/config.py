@@ -1,11 +1,14 @@
 """Configuration: the same schema and defaults as `bbx/utils/config.py`.
 
-YAML is read only when a config file is given, with `yaml` imported inside
-`load_config`: the port does not need PyYAML otherwise.
+YAML is read only when a ``.yaml`` config file is given, with `yaml`
+imported inside `load_config`: the port does not need PyYAML otherwise.  A
+``.json`` config is read with `json`; JSON is YAML, so the same file means
+the same thing to `bbx`.
 """
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import Any, Dict, Optional
 
@@ -77,15 +80,18 @@ def _deep_update(base: Dict, override: Dict) -> Dict:
 
 
 def load_config(path: Optional[str] = None) -> Dict[str, Any]:
-    """A YAML config merged over the defaults; the defaults alone if `path`
-    is None or missing."""
+    """A YAML or JSON (by the ``.json`` suffix) config merged over the
+    defaults; the defaults alone if `path` is None or missing."""
     cfg = copy.deepcopy(DEFAULT_CONFIG)
     if path and os.path.exists(path):
-        import yaml
-
         with open(path) as f:
-            user = yaml.safe_load(f) or {}
-        cfg = _deep_update(cfg, user)
+            if path.endswith(".json"):
+                user = json.load(f)
+            else:
+                import yaml
+
+                user = yaml.safe_load(f)
+        cfg = _deep_update(cfg, user or {})
     return cfg
 
 

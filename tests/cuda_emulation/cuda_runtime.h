@@ -28,6 +28,12 @@ inline int cudaGetLastError() { return 0; }
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
+// Float intrinsics with one rounding per operation (the host compiler runs
+// without FMA contraction: -std=c++20 sets -ffp-contract=off).
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+
 inline std::barrier<>* bbx_block_barrier;
 inline std::atomic<int> bbx_block_or{0};
 

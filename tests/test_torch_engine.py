@@ -260,8 +260,14 @@ def test_move_core_and_observe_equal(reachable):
     acts = np.random.default_rng(8).integers(0, 192, state.num_envs).astype(np.int32)
     jout = _j_move(js, jnp.asarray(acts))
     tout = t_move_core(ts, torch.from_numpy(acts))
+    # The port's move core also returns the new board's holes, centre
+    # openness and fill, which bbx's step computes right after it.
+    new_board = jout[3]
+    jout = (*jout, _j_holes(new_board), _j_center(new_board), _j_total(new_board))
+    assert len(tout) == len(jout) == 15
     for i, (got, want) in enumerate(zip(tout, jout)):
         np.testing.assert_array_equal(_np(got), np.asarray(want), err_msg=f"output {i}")
+        assert _np(got).dtype == np.asarray(want).dtype, f"output {i}"
     valid = np.asarray(jout[0])
     assert valid.any() and (~valid).any()
     jo, to = _j_observe(js), t_observe(ts)

@@ -170,3 +170,24 @@ def test_smoke_run_uses_run9_widths():
     run9 = load_config(os.path.join(ROOT, "config", "run9.yaml"))["network"]
     for key, value in chip_smoke.RUN9_NETWORK.items():
         assert run9.get(key, {"ctx_dim": 32}.get(key)) == value, key
+
+
+def test_import_scan_covers_the_training_modules():
+    files = set(_port_files())
+    for path in ("bbx_torch/agent/ppo.py", "bbx_torch/agent/trainer.py",
+                 "bbx_torch/cli/train.py", "bbx_torch/utils/logging.py"):
+        assert path in files, path
+
+
+def test_smoke_run_uses_run9_recipe():
+    """`chip_smoke.py`'s training sections are config/run9.yaml's, and its
+    rewards are the defaults run9 leaves in place."""
+    import chip_smoke
+
+    run9 = load_config(os.path.join(ROOT, "config", "run9.yaml"))
+    assert chip_smoke.RUN9_PPO == {k: run9["ppo"][k] for k in chip_smoke.RUN9_PPO}
+    assert set(chip_smoke.RUN9_PPO) == set(run9["ppo"])
+    assert chip_smoke.RUN9_TRAINING == run9["training"]
+    assert chip_smoke.RUN9_REWARDS == run9["rewards"] == DEFAULT_CONFIG["rewards"]
+    n, t = run9["training"]["num_envs"], run9["training"]["rollout_steps"]
+    assert chip_smoke.TRAIN_TIMESTEPS == 3 * n * t

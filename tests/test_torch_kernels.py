@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from bbx_torch.agent import ppo as P
+from bbx_torch.agent.trainer import PPOTrainer
 from bbx_torch.cli import evaluate as TE
 from bbx_torch.engine import solvability as S
+from bbx_torch.engine import step as TStep
 from bbx_torch.engine import state as TState
 from bbx_torch.engine.parity import ParityEngine
 from bbx_torch.engine.step import observe, step
@@ -150,3 +153,68 @@ def test_evaluate_main_on_card_launches_every_kernel(cuda, tmp_path):
     with open(out) as f:
         assert json.load(f)["completed"] == 64
     assert all(fn.launches > 0 for fn in counters), [fn.launches for fn in counters]
+
+
+@pytest.mark.gpu
+def test_move_kernel_matches_plain(cuda):
+    """K6: every output equal to the plain version, dtypes included, with
+    used slots, finished lanes, streaks, and valid and random actions."""
+    state, obs, _ = _midgame(cuda, n=512)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    n = state.num_envs
+    state = state.replace(
+        used=torch.rand((n, 3), generator=g, device=cuda) < 0.3,
+        done=torch.rand(n, generator=g, device=cuda) < 0.1,
+        streak=torch.randint(0, 9, (n,), generator=g, device=cuda,
+                             dtype=torch.int32))
+    u = torch.rand((n, 192), generator=g, device=cuda)
+    acts = torch.where(torch.arange(n, device=cuda) % 4 == 0,
+                       torch.randint(0, 192, (n,), generator=g, device=cuda),
+                       torch.where(obs["action_mask"], u, -1.0).argmax(1))
+    before = TStep._move_core.launches
+    got = TStep._move_core(state, acts)
+    want = TStep._move_core_plain(state, acts)
+    assert TStep._move_core.launches == before + 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    assert (want[4] > 0).any() and (~want[0]).any()
+
+
+@pytest.mark.gpu
+def test_gae_kernel_matches_plain_bit_for_bit(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t_len, n = 128, 512
+    args = (torch.randn((t_len, n), generator=g, device=cuda),
+            torch.rand((t_len, n), generator=g, device=cuda) < 0.02,
+            torch.randn((t_len, n), generator=g, device=cuda),
+            torch.randn(n, generator=g, device=cuda))
+    cfg = P.PPOConfig()
+    for a, b in zip(P.compute_gae(cfg, *args), P.compute_gae_plain(cfg, *args)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="float32"):
+        P.compute_gae(cfg, args[0].double(), *args[1:])
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
+    """Two tiny PPO iterations on the card launch all six kernels; a saved
+    run loads and runs one more finite iteration."""
+    cfg = {"training": {"num_envs": 16, "rollout_steps": 8, "batch_size": 64},
+           "ppo": {"num_epochs": 2, "final_learning_rate": 1e-4},
+           "network": dict(TINY_NET)}
+    counters = (S.valid3_bits, S.solvable_disjoint_bits, S.solvable_exact_bits,
+                A.afterstate_buffer, P.compute_gae, TStep._move_core)
+    for fn in counters:
+        fn.launches = 0
+    tr = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
+    for _ in range(2):
+        m = {k: float(v) for k, v in tr.iterate().items()}
+        assert all(np.isfinite(v) for v in m.values()), m
+    assert P.compute_gae.launches == 2
+    assert all(fn.launches > 0 for fn in counters), [fn.launches for fn in counters]
+    path = tr.save(str(tmp_path), "mid")
+    tr2 = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
+    tr2.load(path)
+    assert tr2.global_step == 2 * 128
+    m = {k: float(v) for k, v in tr2.iterate().items()}
+    assert all(np.isfinite(v) for v in m.values()), m

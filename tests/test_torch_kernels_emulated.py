@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from bbx_torch.agent import ppo as P
 from bbx_torch.engine import solvability as S
 from bbx_torch.engine import state as TState
+from bbx_torch.engine import step as TStep
 from bbx_torch.engine.step import observe, step
 from bbx_torch.models import afterstate as A
 from bbx_torch.ops import build
@@ -82,7 +84,7 @@ def _reachable(n=96, moves=14, seed=5):
         out = step(state, acts, auto_reset=True)
         state, obs = out.state, out.obs
     ids = torch.from_numpy(rng.integers(0, 37, (n, 3)).astype(np.int32))
-    return state.board, obs, ids
+    return state, obs, ids
 
 
 def _random(n=96, seed=1):
@@ -98,7 +100,8 @@ def test_emulated_verdict_kernels_match_plain(kernels, which):
     if which == "random":
         board, ids = _random()
     else:
-        board, _, ids = _reachable()
+        state, _, ids = _reachable()
+        board = state.board
     bits = S.board_bits(board)
     before = (S.valid3_bits.launches, S.solvable_disjoint_bits.launches,
               S.solvable_exact_bits.launches)
@@ -141,3 +144,57 @@ def test_emulated_kernels_take_empty_batches(kernels):
     planes, lines, overlap = A._afterstate_buffer_cuda(torch.zeros((0, 8, 8)),
                                                        torch.zeros((0, 3, 8, 8)))
     assert planes.shape == (0, 192, 2, 8, 8) and lines.shape == (0, 192)
+    empty = TState.reset(0, TState.make_generator(0, "cpu"), "cpu")
+    out = TStep._move_core_cuda(empty, torch.zeros(0, dtype=torch.int32))
+    assert out[3].shape == (0, 8, 8) and out[11].shape == (0, 3)
+    adv, ret = P._compute_gae_cuda(P.PPOConfig(), torch.zeros((4, 0)),
+                                   torch.zeros((4, 0), dtype=torch.bool),
+                                   torch.zeros((4, 0)), torch.zeros(0))
+    assert adv.shape == ret.shape == (4, 0)
+
+
+def test_emulated_move_kernel_matches_plain(kernels):
+    """K6 on reachable boards with used slots, finished lanes, streaks, and
+    actions that are valid, invalid, or on a used slot: every output equal,
+    dtypes included."""
+    state, _, _ = _reachable(n=96, moves=18, seed=6)
+    rng = np.random.default_rng(11)
+    n = state.num_envs
+    state = state.replace(
+        used=torch.from_numpy(rng.random((n, 3)) < 0.3),
+        done=torch.from_numpy(rng.random(n) < 0.1),
+        streak=torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)))
+    mask = observe(state.replace(done=torch.zeros(n, dtype=torch.bool)))
+    mask = mask["action_mask"].numpy()
+    acts = np.array([rng.choice(np.flatnonzero(m)) if m.any() and i % 4 else
+                     rng.integers(192) for i, m in enumerate(mask)], np.int32)
+    before = TStep._move_core.launches
+    got = TStep._move_core_cuda(state, torch.from_numpy(acts))
+    want = TStep._move_core_plain(state, torch.from_numpy(acts))
+    assert TStep._move_core.launches == before + 1
+    assert len(got) == len(want) == 15
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype, i
+        assert torch.equal(g, w), i
+    valid, lines = want[0], want[4]
+    assert valid.any() and (~valid).any() and (lines > 0).any()
+
+
+def test_emulated_gae_kernel_matches_plain(kernels):
+    """K5 equals the plain version bit for bit (both round every float
+    operation on its own, in bbx's order)."""
+    rng = np.random.default_rng(12)
+    t_len, n = 16, 40
+    dones = rng.random((t_len, n)) < 0.1
+    dones[-1, ::3] = True
+    args = [torch.from_numpy(a) for a in (
+        rng.normal(size=(t_len, n)).astype(np.float32), dones,
+        rng.normal(size=(t_len, n)).astype(np.float32),
+        rng.normal(size=n).astype(np.float32))]
+    cfg = P.PPOConfig(gamma=0.99, gae_lambda=0.95)
+    before = P.compute_gae.launches
+    got = P._compute_gae_cuda(cfg, *args)
+    want = P.compute_gae_plain(cfg, *args)
+    assert P.compute_gae.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
