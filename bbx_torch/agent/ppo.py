@@ -115,14 +115,13 @@ class PPOConfig:
 
 @dataclass
 class TrainState:
-    """The network, its Adam optimizer, and two counters: PPO iterations
-    done (`update_step`, the entropy schedule's clock) and optimizer steps
-    taken (`opt_step`, the lr schedule's clock, optax's ``count``)."""
+    """The network, its Adam optimizer, and the PPO iterations done
+    (`update_step`, the entropy schedule's clock).  The lr schedule's clock
+    is Adam's own step count (`optimizer_steps`, optax's ``count``)."""
 
     network: torch.nn.Module
     optimizer: torch.optim.Optimizer
     update_step: int = 0
-    opt_step: int = 0
 
 
 def make_optimizer(config: PPOConfig, network: torch.nn.Module):
@@ -130,6 +129,14 @@ def make_optimizer(config: PPOConfig, network: torch.nn.Module):
     and the lr schedule are applied by `update` around each step."""
     return torch.optim.Adam(network.parameters(), lr=config.learning_rate,
                             eps=ADAM_EPS)
+
+
+def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
+    """Optimizer steps taken: the ``step`` Adam keeps with each parameter's
+    moments (all alike), 0 before the first step."""
+    for state in optimizer.state.values():
+        return int(state["step"])
+    return 0
 
 
 def learning_rate_at(config: PPOConfig, opt_step: int) -> float:
@@ -373,8 +380,8 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
            generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """`num_epochs` of shuffled minibatch PPO updates (`bbx/agent/ppo.py:387`).
 
-    Trains `ts.network` in place through `ts.optimizer` and advances
-    `ts.opt_step` per minibatch and `ts.update_step` once.  Returns the
+    Trains `ts.network` in place through `ts.optimizer` (one Adam step per
+    minibatch) and advances `ts.update_step` once.  Returns the
     metrics averaged over every minibatch step, as 0-dim tensors.
     """
     total, mb = config.batch_size, config.minibatch_size
@@ -400,11 +407,10 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             clip_by_global_norm_([p.grad for p in params], config.max_grad_norm)
-            lr = learning_rate_at(config, ts.opt_step)
+            lr = learning_rate_at(config, optimizer_steps(ts.optimizer))
             for group in ts.optimizer.param_groups:
                 group["lr"] = lr
             ts.optimizer.step()
-            ts.opt_step += 1
             for k, v in aux.items():
                 v = v.detach()
                 sums[k] = sums[k] + v if k in sums else v

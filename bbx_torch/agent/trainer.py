@@ -149,7 +149,6 @@ class PPOTrainer:
             "params": ts.network.state_dict(),
             "optimizer": ts.optimizer.state_dict(),
             "update_step": ts.update_step,
-            "opt_step": ts.opt_step,
             "global_step": self.global_step,
             "env_state": env,
             "rng_states": {k: g.get_state() for k, g in self.rngs.items()},
@@ -173,7 +172,6 @@ class PPOTrainer:
         ts.network.load_state_dict(payload["params"])
         ts.optimizer.load_state_dict(payload["optimizer"])
         ts.update_step = int(payload["update_step"])
-        ts.opt_step = int(payload["opt_step"])
         self.global_step = int(payload["global_step"])
         for name, g in self.rngs.items():
             g.set_state(payload["rng_states"][name])

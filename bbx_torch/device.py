@@ -6,6 +6,8 @@ fallback to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,11 +23,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def set_float32_exact() -> None:
-    """Keep float32 convolutions and matmuls in full float32 on the card.
+@contextlib.contextmanager
+def float32_exact():
+    """Run the block with float32 convolutions and matmuls in full float32
+    on the card, and put the backend flags back as they were after it.
 
     cuDNN runs float32 convolutions in TF32 by default (about three decimal
     digits); comparisons against a float32 reference switch that off.
     """
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -9,8 +9,9 @@ Phases, each of which must pass (exit code 1 otherwise):
 2. build the CUDA kernels K1-K6 from `bbx_torch/csrc/` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (outputs must be exactly equal; K5's floats too, to
-   the last bit), on reachable mid-game boards made by the port's own
-   engine from a seed, and time both with CUDA events;
+   the last bit; K4 at the rollout's 512 lanes and at the update's 2048),
+   on reachable mid-game boards made by the port's own engine from a
+   seed, and time both with CUDA events;
 4. the eval path: a 512-episode greedy eval of a seeded, freshly
    initialised AfterstateNetwork at the widths of `config/run9.yaml`
    (bf16) through `bbx_torch.cli.evaluate.main`, with every kernel's
@@ -244,24 +245,44 @@ def kernel_phase(device, report):
         shape=f"bits [{k},2], ids [{k},3], valid3 [{k},3,64] -> [{k}] "
               f"(the {k} of {FLEET} draws the disjoint tier leaves)"))
 
-    # K4 at B = 512 lanes.
-    bd = obs["board"][:K4_LANES].contiguous()
-    pc = obs["pieces"][:K4_LANES].contiguous()
-    got, want = A.afterstate_buffer(bd, pc), A.afterstate_buffer_plain(bd, pc)
-    b = K4_LANES
-    rows.append(dict(
-        name="afterstate_buffer", source="bbx_torch/csrc/afterstate.cu",
-        replaces="bbx/models/afterstate.py:52 (afterstate_planes)",
-        equal=all(torch.equal(x, y) for x, y in zip(got, want)),
-        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-        ms=time_ms(lambda: A.afterstate_buffer(bd, pc)),
-        plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc)),
-        nbytes=b * 256 + b * 768 + b * 192 * (2 * 64 * 4 + 4 + 1),
-        ops=b * 192 * 2 * 64, shape=f"board [{b},8,8], pieces [{b},3,8,8] "
-                                    f"-> planes [{b},192,2,8,8], lines, overlap"))
-    # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
+    # K4 at the rollout's B = 512 (observations) and at the update's
+    # B = 2048 (planes rebuilt from the compact buffer by the update's own
+    # `_minibatch_obs`, used slots zeroed): both exactly equal.
     from bbx_torch.agent import ppo as P
 
+    def k4_row(bd, pc):
+        got, want = A.afterstate_buffer(bd, pc), A.afterstate_buffer_plain(bd, pc)
+        b = bd.shape[0]
+        return dict(
+            equal=all(torch.equal(x, y) for x, y in zip(got, want)),
+            max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+            ms=time_ms(lambda: A.afterstate_buffer(bd, pc)),
+            plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc)),
+            nbytes=b * 256 + b * 768 + b * 192 * (2 * 64 * 4 + 4 + 1),
+            ops=b * 192 * 2 * 64)
+
+    b = K4_LANES
+    row = k4_row(obs["board"][:b].contiguous(), obs["pieces"][:b].contiguous())
+    b2 = RUN9_TRAINING["batch_size"]
+    mb = P._minibatch_obs({"board": state.board[:b2], "mask": obs["action_mask"][:b2],
+                           "piece_ids": state.piece_ids[:b2].to(torch.int8),
+                           "used": state.used[:b2]})
+    at_update = k4_row(mb["board"].contiguous(), mb["pieces"].contiguous())
+    at_update["bound_ms"], at_update["bound_by"] = bound_ms(
+        at_update.pop("nbytes"), at_update.pop("ops"))
+    at_update["lanes"] = b2
+    row.update(
+        name="afterstate_buffer", source="bbx_torch/csrc/afterstate.cu",
+        replaces="bbx/models/afterstate.py:52 (afterstate_planes)",
+        equal=row["equal"] and at_update["equal"],
+        max_abs_err=max(row["max_abs_err"], at_update["max_abs_err"]),
+        at_update_shape=at_update,
+        shape=f"board [{b},8,8], pieces [{b},3,8,8] -> planes [{b},192,2,8,8], "
+              f"lines, overlap; also at the update's B = {b2} "
+              f"(equal={at_update['equal']}, {at_update['ms']:.4f} ms, plain "
+              f"{at_update['plain_ms']:.4f} ms, bound {at_update['bound_ms']:.6f} ms)")
+    rows.append(row)
+    # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
     g = torch.Generator(device=device).manual_seed(SEED)
     t, n = GAE_T, GAE_N
     gae_in = (torch.randn((t, n), generator=g, device=device),
@@ -444,19 +465,18 @@ def reference_phase(device, report):
     import numpy as np
     import torch
 
-    from bbx_torch.device import set_float32_exact
+    from bbx_torch.device import float32_exact
     from bbx_torch.engine.parity import ParityEngine
     from bbx_torch.engine.state import make_generator, reset
     from bbx_torch.engine.step import observe
     from bbx_torch.models import network_from_config
 
     # float32 forward at run9 widths, card vs CPU, with TF32 off.
-    set_float32_exact()
     cfg = dict(RUN9_NETWORK, compute_dtype="float32")
     net = network_from_config(cfg, generator=torch.Generator().manual_seed(SEED))
     state = reset(8, make_generator(SEED, "cpu"), "cpu")
     obs = observe(state)
-    with torch.inference_mode():
+    with float32_exact(), torch.inference_mode():
         l_cpu, v_cpu = net(obs["board"], obs["pieces"], obs["action_mask"])
         net_gpu = net.to(device)
         l_gpu, v_gpu = net_gpu(*(obs[k].to(device) for k in
@@ -775,12 +795,11 @@ def update_reference_phase(device, report):
     import torch
 
     from bbx_torch.agent import ppo as P
-    from bbx_torch.device import set_float32_exact
+    from bbx_torch.device import float32_exact
     from bbx_torch.engine.state import make_generator, reset
     from bbx_torch.engine.step import observe, step
     from bbx_torch.models import network_from_config
 
-    set_float32_exact()
     t_len, n = 4, 64
     cfg = P.PPOConfig(**dict(RUN9_PPO, num_epochs=1), minibatch_size=t_len * n,
                       rollout_steps=t_len, num_envs=n)
@@ -811,9 +830,10 @@ def update_reference_phase(device, report):
     for dev in ("cpu", device):
         net_d = copy.deepcopy(net).to(dev)
         ts = P.TrainState(net_d, P.make_optimizer(cfg, net_d))
-        metrics = P.update(cfg, ts, {k: v.to(dev) for k, v in traj.items()},
-                           adv.to(dev), ret.to(dev),
-                           torch.Generator(device=dev).manual_seed(SEED))
+        with float32_exact():
+            metrics = P.update(cfg, ts, {k: v.to(dev) for k, v in traj.items()},
+                               adv.to(dev), ret.to(dev),
+                               torch.Generator(device=dev).manual_seed(SEED))
         res[str(dev)] = ({k: float(v) for k, v in metrics.items()},
                          {k: p.detach().cpu() for k, p in net_d.named_parameters()})
     (m_cpu, p_cpu), (m_gpu, p_gpu) = res["cpu"], res[str(device)]
@@ -903,7 +923,8 @@ def main() -> int:
             "name", "route", "source", "replaces")} | {
             "launches": sum(split.values()), "launches_by_path": split} | {
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms", "shape")})
+                                  "bound_by", "library_ms", "shape")} | {
+                k: r[k] for k in ("at_update_shape", "ms_at_fleet") if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)

@@ -89,6 +89,21 @@ def test_afterstate_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_afterstate_kernel_matches_plain_at_update_minibatch(cuda):
+    """At run9's minibatch of 2048, on the planes the update rebuilds from
+    its compact buffer (used slots zeroed)."""
+    state, obs, _ = _midgame(cuda, n=2048)
+    mb = P._minibatch_obs({"board": state.board, "mask": obs["action_mask"],
+                           "piece_ids": state.piece_ids.to(torch.int8),
+                           "used": state.used})
+    board, pieces = mb["board"].contiguous(), mb["pieces"].contiguous()
+    assert not pieces.flatten(2).any(2).all()
+    for got, want in zip(A.afterstate_buffer(board, pieces),
+                         A.afterstate_buffer_plain(board, pieces)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bits = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
     ids = torch.zeros((4, 3), dtype=torch.int32, device=cuda)

@@ -205,7 +205,6 @@ def _torch_update(net, adam, update_step, traj, adv, ret):
     ts = TP.TrainState(net, TP.make_optimizer(T_CFG, net), update_step=update_step)
     if adam is not None:
         load_adam_state(ts.optimizer, net, adam)
-        ts.opt_step = adam["step"]
     metrics = TP.update(T_CFG, ts, {k: torch.from_numpy(v) for k, v in traj.items()},
                         torch.tensor(adv), torch.tensor(ret),
                         torch.Generator().manual_seed(0))
@@ -229,7 +228,7 @@ def _assert_update_equal(ts, metrics, jts, jmetrics):
                if name == "evaluator.dense1.bias" else atol)
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    rtol=0, atol=tol, err_msg=name)
-    assert ts.opt_step == int(jts.opt_state[1][0].count)
+    assert TP.optimizer_steps(ts.optimizer) == int(jts.opt_state[1][0].count)
     assert ts.update_step == int(jts.update_step)
 
 
