@@ -24,7 +24,15 @@ rollouts, distillation) and `adam_mu_dtype` are fields here so that every
 config maps onto the class, but any non-default value raises
 NotImplementedError: they are still to port (ROADMAP.md, Queue 1).
 Random draws come from explicit `torch.Generator`s: one for the actions,
-one for the minibatch shuffle.
+one for the minibatch shuffle and one for the dropout masks.
+
+The flat CNN (`BlockBlastNetwork`) has BatchNorm and dropout, so the mode
+matters, as in `bbx`: with ``rollout_train_mode`` the rollout runs it in
+train mode (batch statistics, its running statistics moving step to step,
+live dropout), the bootstrap value of the last observation in eval mode
+(running statistics), and the update in train mode with the running
+statistics carried from minibatch to minibatch.  The AfterstateNetwork has
+neither, so the mode changes nothing for it.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from ..engine.state import EnvState
 from ..engine.step import RewardConfig, observe, step
 from ..engine.tables import tables
 from ..models import distributions as D
+from ..models.utils import clip_by_global_norm_
 from ..ops import build
 
 # Default values of the fields this port does not implement yet.
@@ -73,9 +82,9 @@ class PPOConfig:
     minibatch_size: int = 2048
     rollout_steps: int = 128
     num_envs: int = 64
-    # The AfterstateNetwork has no BatchNorm or dropout, so the network is
-    # the same function in train and eval mode and this flag changes
-    # nothing here (bbx's flat CNN, which it matters for, is not ported).
+    # Run the policy in train mode in the rollout (BatchNorm batch
+    # statistics and live dropout, as torch's default mode does in the
+    # reference); changes nothing for the AfterstateNetwork.
     rollout_train_mode: bool = True
     rollout_search_frac: float = 0.0
     final_rollout_search_frac: Optional[float] = None
@@ -168,16 +177,6 @@ def entropy_coef_at(config: PPOConfig, update_step: int) -> float:
                       config.schedule_updates, update_step)
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> None:
-    """optax's `clip_by_global_norm`, in place and without a host sync:
-    each g becomes ``(g / ||g||) * max_norm`` unless ``||g|| < max_norm``
-    (the norm in float32, as the grads are)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
-
-
 # ---------------------------------------------------------------------------
 # Rollout.
 # ---------------------------------------------------------------------------
@@ -207,15 +206,17 @@ _FINAL = {
 
 def rollout(network: torch.nn.Module, config: PPOConfig,
             reward_config: RewardConfig, env_state: EnvState,
-            generator: torch.Generator):
+            generator: torch.Generator,
+            dropout_rng: Optional[torch.Generator] = None):
     """Collect `rollout_steps` transitions for every env (auto-reset on).
 
+    `generator` samples the actions and `dropout_rng` draws the dropout
+    masks of a train-mode rollout (needed when the network has dropout).
     Returns (env_state, traj, last_value, ep_stats): `traj` is a dict of
     [T, N, ...] tensors (the compact buffer of `bbx/agent/ppo.py:297-307`),
-    `last_value` [N] the bootstrap value of the final observation, and
-    `ep_stats` 0-dim tensors over the episodes that ended in the rollout.
-    Nothing here synchronises with the host except the regen inside
-    `step`.
+    `last_value` [N] the bootstrap value of the final observation (eval
+    mode), and `ep_stats` 0-dim tensors over the episodes that ended in the
+    rollout.  Nothing here synchronises with the host.
     """
     t_len, n, dev = config.rollout_steps, env_state.num_envs, env_state.device
     traj = {k: torch.empty((t_len, n, *shape), dtype=dt, device=dev)
@@ -223,10 +224,11 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     final = {k: torch.empty((t_len, n), dtype=dt, device=dev)
              for k, dt in _FINAL.items()}
     obs = observe(env_state)
+    network.train(config.rollout_train_mode)
     with torch.no_grad():
         for t in range(t_len):
             logits, value = network(obs["board"], obs["pieces"],
-                                    obs["action_mask"])
+                                    obs["action_mask"], generator=dropout_rng)
             action = D.sample(generator, logits)
             out = step(env_state, action, reward_config, auto_reset=True)
             traj["board"][t] = env_state.board
@@ -241,6 +243,7 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
             for k in final:
                 final[k][t] = out.info[k]
             env_state, obs = out.state, out.obs
+        network.eval()
         _, last_value = network(obs["board"], obs["pieces"],
                                 obs["action_mask"])
 
@@ -377,12 +380,15 @@ _BATCH_KEYS = ("board", "piece_ids", "used", "mask", "action", "logp")
 
 
 def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
-           generator: torch.Generator) -> Dict[str, torch.Tensor]:
+           generator: torch.Generator,
+           dropout_rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """`num_epochs` of shuffled minibatch PPO updates (`bbx/agent/ppo.py:387`).
 
-    Trains `ts.network` in place through `ts.optimizer` (one Adam step per
-    minibatch) and advances `ts.update_step` once.  Returns the
-    metrics averaged over every minibatch step, as 0-dim tensors.
+    Trains `ts.network` in place, in train mode, through `ts.optimizer`
+    (one Adam step per minibatch) and advances `ts.update_step` once;
+    `generator` shuffles and `dropout_rng` draws the dropout masks.
+    Returns the metrics averaged over every minibatch step, as 0-dim
+    tensors.
     """
     total, mb = config.batch_size, config.minibatch_size
     if total % mb:
@@ -393,6 +399,7 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
     ret = returns.reshape(total)
     ent_coef = entropy_coef_at(config, ts.update_step)
     params = [p for p in ts.network.parameters()]
+    ts.network.train()
     sums: Dict[str, torch.Tensor] = {}
     for _ in range(config.num_epochs):
         perm = torch.randperm(total, generator=generator, device=adv.device)
@@ -402,7 +409,7 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
             batch["adv"], batch["ret"] = adv[idx], ret[idx]
             obs = _minibatch_obs(batch)
             logits, value = ts.network(obs["board"], obs["pieces"],
-                                       obs["action_mask"])
+                                       obs["action_mask"], generator=dropout_rng)
             loss, aux = ppo_loss(config, logits, value, batch, ent_coef)
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -421,16 +428,18 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
 
 def train_iteration(config: PPOConfig, reward_config: RewardConfig,
                     ts: TrainState, env_state: EnvState,
-                    action_rng: torch.Generator, shuffle_rng: torch.Generator):
+                    action_rng: torch.Generator, shuffle_rng: torch.Generator,
+                    dropout_rng: Optional[torch.Generator] = None):
     """One PPO iteration: rollout + GAE + update (`bbx/agent/ppo.py:533`).
 
     `ts` is trained in place and returned.  Returns (ts, env_state,
     metrics), the metrics as 0-dim tensors on the device.
     """
     env_state, traj, last_value, ep_stats = rollout(
-        ts.network, config, reward_config, env_state, action_rng)
+        ts.network, config, reward_config, env_state, action_rng, dropout_rng)
     advantages, returns = compute_gae(config, traj["reward"], traj["done"],
                                       traj["value"], last_value)
-    metrics = update(config, ts, traj, advantages, returns, shuffle_rng)
+    metrics = update(config, ts, traj, advantages, returns, shuffle_rng,
+                     dropout_rng)
     metrics.update(ep_stats)
     return ts, env_state, metrics

@@ -5,9 +5,11 @@ asked).  `bbx` places the fleet and the train state on a device mesh; the
 port has no mesh yet (`parallel/` is ROADMAP.md Queue 1), so a config's
 ``mesh:`` section is ignored.  A checkpoint is one `torch.save` file
 holding the params, the Adam state, both step counters, the env fleet and
-the state of every generator (the fleet's, the action sampler's and the
-minibatch shuffler's), so a resumed run continues the exact trajectory of
-an uninterrupted one on the CPU.  (On the card, cuDNN's convolution
+the state of every generator (the fleet's, the action sampler's, the
+minibatch shuffler's and the dropout masks'), so a resumed run continues
+the exact trajectory of an uninterrupted one on the CPU.  The params entry
+is the network's state dict, so the flat CNN's BatchNorm running
+statistics travel with it.  (On the card, cuDNN's convolution
 backward sums with atomics, so two runs need not agree bit for bit.)
 """
 from __future__ import annotations
@@ -28,6 +30,10 @@ from ..models import network_from_config
 from ..utils.checkpoints import load_checkpoint, save_checkpoint
 from ..utils.logging import Logger, MetricsTracker, TensorBoardLogger
 from .ppo import PPOConfig, TrainState, make_optimizer, train_iteration
+
+
+# The trainer's generators, seeded seed + their index.
+RNG_NAMES = ("fleet", "action", "shuffle", "dropout")
 
 
 def ppo_config_from(config: Dict[str, Any],
@@ -80,9 +86,9 @@ class PPOTrainer:
     """Owns the network, the optimizer, the env fleet and the generators.
 
     Generators, all on the trainer's device: the fleet's (piece draws,
-    seeded `seed`), the action sampler's (`seed + 1`) and the minibatch
-    shuffler's (`seed + 2`); the initial weights come from a CPU generator
-    seeded `seed`.
+    seeded `seed`), the action sampler's (`seed + 1`), the minibatch
+    shuffler's (`seed + 2`) and the dropout masks' (`seed + 3`); the
+    initial weights come from a CPU generator seeded `seed`.
     """
 
     def __init__(self, config: Dict[str, Any], seed: int = 42,
@@ -96,7 +102,7 @@ class PPOTrainer:
             generator=torch.Generator().manual_seed(seed)).to(self.device)
         self.train_state = TrainState(network, make_optimizer(self.ppo, network))
         self.rngs = {name: make_generator(seed + i, self.device)
-                     for i, name in enumerate(("fleet", "action", "shuffle"))}
+                     for i, name in enumerate(RNG_NAMES)}
         self.env_state = reset(self.ppo.num_envs, self.rngs["fleet"], self.device)
         self.global_step = 0
         self._loaded_extra: Dict[str, Any] = {}
@@ -136,7 +142,7 @@ class PPOTrainer:
         0-dim tensors on the device."""
         _, self.env_state, metrics = train_iteration(
             self.ppo, self.rewards, self.train_state, self.env_state,
-            self.rngs["action"], self.rngs["shuffle"])
+            self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"])
         self.global_step += self.ppo.batch_size
         return metrics
 

@@ -13,6 +13,7 @@
 
 #include "bitboard.cuh"
 #include "launch.cuh"
+#include "verdict.cuh"
 
 __global__ void disjoint_kernel(const int* __restrict__ ids,
                                 const unsigned char* __restrict__ valid3,
@@ -24,19 +25,10 @@ __global__ void disjoint_kernel(const int* __restrict__ ids,
     const unsigned char* v = valid3 + 192 * (size_t)lane;
     int hit = 0;
     if (bb_ids_ok(id) && v[a0]) {
-        const u64* nc = (const u64*)no_conflict;
-        const u64* nc01 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[1]) * 64;
-        const u64* nc02 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[2]) * 64;
-        const u64* nc12 = nc + (size_t)(id[1] * BB_NUM_PIECES + id[2]) * 64;
-        const u64 v1 = bb_pack_bytes(v + 64);
-        const u64 v2 = bb_pack_bytes(v + 128);
-        u64 m01 = nc01[a0] & v1;  // anchors of piece 1 valid, disjoint from p0@a0
-        u64 t = 0;
-        while (m01) {
-            t |= nc12[BB_LOWEST(m01)];
-            m01 &= m01 - 1;
-        }
-        hit = (t & nc02[a0] & v2) != 0;
+        const u64 *nc01, *nc02, *nc12;
+        bb_conflict_rows(no_conflict, id, &nc01, &nc02, &nc12);
+        hit = bb_disjoint_hit(a0, bb_pack_bytes(v + 64), bb_pack_bytes(v + 128),
+                              nc01, nc02, nc12);
     }
     int any = __syncthreads_or(hit);
     if (a0 == 0) out[lane] = any ? 1 : 0;

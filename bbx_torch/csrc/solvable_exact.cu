@@ -10,12 +10,13 @@
 // shared flag lets every thread of the block stop once any thread has
 // found a solution -- the early exit XLA could not express.  Bound by
 // integer ALU work (a clear and a 9-shift fit per candidate), not bytes.
+// The search itself is `bb_exact_hit` of verdict.cuh, which the fused
+// regen kernel K7 runs too.
 #include <cuda_runtime.h>
 
 #include "bitboard.cuh"
 #include "launch.cuh"
-
-#define EXACT_THREADS 384  // 6 orders x 64 first anchors
+#include "verdict.cuh"
 
 __global__ void exact_kernel(const long long* __restrict__ bits,
                              const int* __restrict__ ids,
@@ -24,9 +25,7 @@ __global__ void exact_kernel(const long long* __restrict__ bits,
                              const int* __restrict__ shifts,
                              const long long* __restrict__ anchor_ok,
                              unsigned char* __restrict__ out) {
-    __shared__ u64 s_place[3][64];
-    __shared__ int s_shift[3][BB_SHIFTS];
-    __shared__ u64 s_aok[3];
+    __shared__ bb_triple s;
     __shared__ int s_found;
 
     const int lane = blockIdx.x;
@@ -34,36 +33,12 @@ __global__ void exact_kernel(const long long* __restrict__ bits,
     const int* id = ids + 3 * lane;
     const bool ids_ok = bb_ids_ok(id);
     if (t == 0) s_found = 0;
-    if (ids_ok) {
-        if (t < 192) s_place[t / 64][t % 64] = (u64)place[id[t / 64] * 64 + t % 64];
-        if (t < 3 * BB_SHIFTS)
-            s_shift[t / BB_SHIFTS][t % BB_SHIFTS] =
-                shifts[id[t / BB_SHIFTS] * BB_SHIFTS + t % BB_SHIFTS];
-        if (t < 3) s_aok[t] = (u64)anchor_ok[id[t]];
-    }
+    if (ids_ok) bb_stage_triple(&s, t, id, place, shifts, anchor_ok);
     __syncthreads();
 
     int hit = 0;
-    const int order = t / 64;
-    const int a1 = t % 64;
-    // Orders as (first, second) with third = 3 - first - second.
-    const int i = order / 2;
-    const int j = (order % 2 == 0) ? (i == 0 ? 1 : 0) : (i == 2 ? 1 : 2);
-    const int h = 3 - i - j;
-    if (ids_ok && valid3[192 * (size_t)lane + 64 * i + a1]) {
-        const u64 b1 = bb_clear_lines(bb_load(bits + 2 * lane) | s_place[i][a1]);
-        u64 f2 = bb_fit(b1, s_shift[j], s_aok[j]);
-        while (f2 && !*(volatile int*)&s_found) {
-            const int a2 = BB_LOWEST(f2);
-            f2 &= f2 - 1;
-            const u64 b2 = bb_clear_lines(b1 | s_place[j][a2]);
-            if (bb_fit(b2, s_shift[h], s_aok[h])) {
-                hit = 1;
-                s_found = 1;
-                break;
-            }
-        }
-    }
+    if (ids_ok && valid3[192 * (size_t)lane + 64 * bb_exact_first(t) + t % 64])
+        hit = bb_exact_hit(t, bb_load(bits + 2 * lane), &s, &s_found);
     int any = __syncthreads_or(hit);
     if (t == 0) out[lane] = any ? 1 : 0;
 }
@@ -73,7 +48,7 @@ extern "C" int bbx_solvable_exact(const void* bits, const void* ids,
                                   const void* shifts, const void* anchor_ok,
                                   void* out, int k, void* stream) {
     if (k > 0)
-        BBX_LAUNCH(exact_kernel, k, EXACT_THREADS, stream,
+        BBX_LAUNCH(exact_kernel, k, BB_TRIPLE_THREADS, stream,
                    (const long long*)bits, (const int*)ids,
                    (const unsigned char*)valid3, (const long long*)place,
                    (const int*)shifts, (const long long*)anchor_ok,

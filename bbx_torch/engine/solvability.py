@@ -1,11 +1,13 @@
 """Piece-triple solvability on bitboards: can all 3 drawn pieces be placed
 in some order, with line clears between placements?
 
-Counterpart of `bbx/engine/solvability.py` (the bitboard functions; the
-dense oracles `solvable_disjoint`/`solvable_full` are not ported).  Two
-tiers, as in `bbx`: `solvable_disjoint_bits` is sufficient (pairwise-
-disjoint valid placements exist, so any order works), `solvable_exact_bits`
-is the exhaustive search; ``fast | exact`` is the game's predicate.
+Counterpart of `bbx/engine/solvability.py`.  Two tiers, as in `bbx`:
+`solvable_disjoint_bits` is sufficient (pairwise-disjoint valid placements
+exist, so any order works), `solvable_exact_bits` is the exhaustive search;
+``fast | exact`` is the game's predicate.  The dense formulations
+`solvable_disjoint` and `solvable_full` (unpacked boards, float32 products
+of 0/1 planes, exact) are the test oracles of the verdict, off the step
+path.
 
 Boards are two words ``[..., 2]`` int64 holding u32 values (cell i -> word
 i // 32, bit i % 32): PyTorch on the CPU has no shifts for unsigned types,
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import build
+from .kernel import clear_lines_flat
 from .tables import MAX_PIECE_CELLS, NUM_CELLS, PIECES_PER_TURN, tables
 
 _M32 = 0xFFFFFFFF
@@ -288,3 +291,73 @@ def _solvable_exact_bits_cuda(bits, piece_ids, valid3) -> torch.Tensor:
 
 
 solvable_exact_bits.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dense oracles (`bbx/engine/solvability.py:286,337`).
+# ---------------------------------------------------------------------------
+
+def solvable_disjoint(valid3: torch.Tensor, piece_ids: torch.Tensor) -> torch.Tensor:
+    """Sufficient check: three pairwise-disjoint valid placements exist.
+
+    Args:
+      valid3: [N, 3, 64] bool validity of each drawn piece on the board.
+      piece_ids: [N, 3] int32.
+    Returns:
+      [N] bool.
+    """
+    tb = tables(piece_ids.device)
+    pid = piece_ids.long()
+    p0, p1, p2 = pid[:, 0], pid[:, 1], pid[:, 2]
+    v0, v1, v2 = valid3[:, 0], valid3[:, 1], valid3[:, 2]
+    m01 = v0[:, :, None] & v1[:, None, :] & ~tb.PAIR_CONFLICT[p0, p1]
+    nc12 = ~tb.PAIR_CONFLICT[p1, p2]
+    t = torch.bmm(m01.float(), nc12.float())                 # [N, a0, a2]
+    ok = (t > 0.5) & v2[:, None, :] & ~tb.PAIR_CONFLICT[p0, p2]
+    return ok.any(dim=2).any(dim=1)
+
+
+def _valid_on_flat(flat: torch.Tensor, piece_id: torch.Tensor) -> torch.Tensor:
+    """Validity [N, 64] of one piece per flat board [N, 64]."""
+    tb = tables(flat.device)
+    pid = piece_id.long()
+    overlap = torch.bmm(tb.PLACEMENT[pid].float(), flat.float()[:, :, None])[..., 0]
+    return tb.ANCHOR_OK[pid] & (overlap < 0.5)
+
+
+def solvable_full(board: torch.Tensor, piece_ids: torch.Tensor) -> torch.Tensor:
+    """Exact check with simulated line clears between placements: for each
+    ordered (first, second) slot pair, place the first piece at every
+    anchor and clear, place the second at every anchor and clear, and ask
+    whether the third piece has any valid anchor left.  Evaluated in full
+    ([N, 64, 64, 64] overlap counts per order).
+
+    Args:
+      board: [N, 8, 8] uint8.
+      piece_ids: [N, 3] int32.
+    Returns:
+      [N] bool.
+    """
+    tb = tables(board.device)
+    n = board.shape[0]
+    pid = piece_ids.long()
+    flat = board.reshape(n, NUM_CELLS).to(torch.uint8)
+    ok = torch.zeros(n, dtype=torch.bool, device=board.device)
+    for i in range(3):
+        p = pid[:, i]
+        v1 = _valid_on_flat(flat, p)                               # [N, a1]
+        b1 = clear_lines_flat(flat[:, None, :] | tb.PLACEMENT[p].to(torch.uint8))
+        rest = [j for j in range(3) if j != i]
+        for j in rest:
+            k = rest[0] if rest[1] == j else rest[1]
+            q, r = pid[:, j], pid[:, k]
+            occ2 = tb.PLACEMENT[q]                                 # [N, a2, 64]
+            ov2 = torch.bmm(b1.float(), occ2.float().transpose(1, 2))  # [N, a1, a2]
+            v2 = tb.ANCHOR_OK[q][:, None, :] & (ov2 < 0.5) & v1[:, :, None]
+            b2 = clear_lines_flat(b1[:, :, None, :] | occ2[:, None].to(torch.uint8))
+            ov3 = torch.bmm(b2.reshape(n, NUM_CELLS * NUM_CELLS, NUM_CELLS).float(),
+                            tb.PLACEMENT[r].float().transpose(1, 2))
+            ov3 = ov3.reshape(n, NUM_CELLS, NUM_CELLS, NUM_CELLS)  # [N, a1, a2, a3]
+            fits3 = (tb.ANCHOR_OK[r][:, None, None, :] & (ov3 < 0.5)).any(dim=3)
+            ok = ok | (v2 & fits3).any(dim=2).any(dim=1)
+    return ok

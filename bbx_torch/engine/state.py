@@ -4,6 +4,17 @@ Counterpart of `bbx/engine/state.py`.  `EnvState` is a dataclass of tensors
 with a leading ``[N]`` lane dimension on one device, plus the fleet's
 `torch.Generator` (on the same device) that every piece draw comes from.
 The draws match `bbx`'s threefry streams in distribution, not bit for bit.
+
+Regen (`regen_pieces`) dispatches on the device of its input: the plain
+round loop `regen_pieces_plain` for CPU tensors, the fused CUDA kernel K7
+(`csrc/regen.cu`) for CUDA tensors, counting its launches in
+``regen_pieces.launches``.  Its draws are a counter-based hash of (seed,
+lane, attempt), `regen_draw`, which both versions compute: one seed per
+`step` comes from the fleet's generator as a device tensor, so a resumed
+generator resumes the draws.  The hash is a 32-bit xorshift-multiply mix
+with multipliers below 2**31, because PyTorch on the CPU has no right
+shift for unsigned types and the plain version must keep its int64
+products below 2**63; a word becomes a shape by ``(w * 37) >> 32``.
 """
 from __future__ import annotations
 
@@ -12,14 +23,14 @@ from typing import Optional
 
 import torch
 
+from ..ops import build
 from .kernel import empty_boards
 from .solvability import (
-    board_bits,
-    solvable_disjoint_bits,
-    solvable_exact_bits,
-    valid3_bits,
+    solvable_disjoint_bits_plain,
+    solvable_exact_bits_plain,
+    valid3_bits_plain,
 )
-from .tables import NUM_PIECE_TYPES, PIECES_PER_TURN
+from .tables import NUM_PIECE_TYPES, PIECES_PER_TURN, tables
 
 MAX_REGEN_ATTEMPTS = 100  # reference cap, `engine.py:161`
 
@@ -80,49 +91,147 @@ def fresh_pieces(n: int, rng: torch.Generator, device) -> torch.Tensor:
     return _draw(n, rng, device)
 
 
-def _verdict(bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Regen draws: a counter-based hash of (seed, lane, attempt).
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+# Odd multipliers below 2**31: a 32-bit word times one stays below 2**63,
+# so the int64 arithmetic of the plain version never overflows.
+_MIX1, _MIX2 = 0x2C1B3C6D, 0x297A2D39
+_SLOT_SALTS = (0x9E3779B9, 0x3C6EF372, 0xDAA66D2B)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit xorshift-multiply mixing hash (a bijection) on int64
+    tensors holding values in [0, 2**32); the same function as
+    `regen_mix32` in `csrc/regen.cu`, bit for bit."""
+    x = x ^ (x >> 15)
+    x = (x * _MIX1) & _M32
+    x = x ^ (x >> 12)
+    x = (x * _MIX2) & _M32
+    return x ^ (x >> 15)
+
+
+def _lane_keys(seed: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """The 32-bit key of each lane's regen event under `seed`."""
+    return _mix32(_mix32(seed.to(torch.int64) & _M32) ^ lanes.to(torch.int64))
+
+
+def _attempt_draws(lane_keys: torch.Tensor, attempt) -> torch.Tensor:
+    """Draw `attempt` of each lane key: [..., 3] int32 piece ids, each slot
+    word mapped to [0, 37) by ``(w * 37) >> 32`` (bias below 1e-8)."""
+    k = _mix32(lane_keys ^ attempt)
+    slots = [((_mix32(k ^ salt) * NUM_PIECE_TYPES) >> 32)
+             for salt in _SLOT_SALTS]
+    return torch.stack(slots, dim=-1).to(torch.int32)
+
+
+def regen_draw(seed: torch.Tensor, lane, attempt) -> torch.Tensor:
+    """Draw `attempt` of `lane`'s regen event under `seed`: [..., 3] int32
+    piece ids, uniform over the 37 shapes, a pure function of its inputs.
+
+    `seed` is an int64 tensor (one per `step`, drawn from the fleet's
+    generator); `lane` and `attempt` are integers or int64 tensors that
+    broadcast.  Both K7 and `regen_pieces_plain` draw through this
+    function, so the two agree bit for bit.
+    """
+    dev = seed.device
+    lane = torch.as_tensor(lane, dtype=torch.int64, device=dev)
+    attempt = torch.as_tensor(attempt, dtype=torch.int64, device=dev)
+    return _attempt_draws(_lane_keys(seed, lane), attempt)
+
+
+def regen_seed(rng: torch.Generator, device) -> torch.Tensor:
+    """The regen seed of one `step`: a 0-dim int64 tensor in [0, 2**32) on
+    `device`, drawn from the fleet's generator (no host round trip)."""
+    return torch.randint(0, 2**32, (), generator=rng, device=device,
+                         dtype=torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# K7: regen.
+# ---------------------------------------------------------------------------
+
+def _verdict_plain(bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Exact solvability of candidate draws ([M] bool), as `_verdict_flat`
     (`bbx/engine/state.py:83`): the disjoint tier on every candidate, the
-    exact tier on the candidates it does not accept."""
-    v3 = valid3_bits(bits, ids)
-    ok = solvable_disjoint_bits(bits, ids, v3)
+    exact tier on the candidates it does not accept (plain K1-K3)."""
+    v3 = valid3_bits_plain(bits, ids)
+    ok = solvable_disjoint_bits_plain(bits, ids, v3)
     rest = (~ok).nonzero().squeeze(1)
     if rest.numel():
-        ok[rest] = solvable_exact_bits(bits[rest], ids[rest], v3[rest])
+        ok[rest] = solvable_exact_bits_plain(bits[rest], ids[rest], v3[rest])
     return ok
 
 
-def regen_pieces(board: torch.Tensor, piece_ids: torch.Tensor,
-                 rng: torch.Generator, need: torch.Tensor) -> torch.Tensor:
+def regen_pieces_plain(bits: torch.Tensor, piece_ids: torch.Tensor,
+                       seed: torch.Tensor, need: torch.Tensor):
+    """Plain version of `regen_pieces`: a round loop, each round drawing
+    attempt j for every lane still in need (compacted with `nonzero`) and
+    keeping the lanes whose draw the verdict rejects."""
+    n = bits.shape[0]
+    ids = piece_ids.clone()
+    attempts = torch.zeros(n, dtype=torch.int32, device=bits.device)
+    todo = need.nonzero().squeeze(1)
+    keys = _lane_keys(seed, todo)
+    for j in range(MAX_REGEN_ATTEMPTS):
+        if todo.numel() == 0:
+            break
+        draws = _attempt_draws(keys, j)
+        ids[todo] = draws
+        attempts[todo] = j + 1
+        ok = _verdict_plain(bits[todo], draws)
+        todo, keys = todo[~ok], keys[~ok]
+    return ids, attempts
+
+
+def regen_pieces(bits: torch.Tensor, piece_ids: torch.Tensor,
+                 seed: torch.Tensor, need: torch.Tensor):
     """Redraw piece triples until solvable, for the lanes in `need`.
 
     Faithful to the reference's `_generate_new_pieces`: up to
-    `MAX_REGEN_ATTEMPTS` iid draws per lane, the first solvable draw wins,
-    and if none passes the last draw is kept (the game then ends).  A plain
-    round loop: each round draws once for every lane still in need
-    (compacted with `nonzero`) and keeps the failures for the next round.
+    `MAX_REGEN_ATTEMPTS` iid draws per lane, the first solvable draw (by
+    attempt index) wins, and if none passes the 100th draw is kept (the
+    game then ends).  Draw j of lane i is ``regen_draw(seed, i, j)``.
 
     Args:
-      board: [N, 8, 8] uint8 (fixed during the retry loop).
+      bits: [N, 2] int64 bitboards of the new boards (fixed during the
+        retry loop).
       piece_ids: [N, 3] int32 (returned untouched where ~need).
-      rng: the fleet's generator.
+      seed: 0-dim int64 tensor on the boards' device (`regen_seed`).
       need: [N] bool.
     Returns:
-      [N, 3] int32 new piece ids.
+      (ids [N, 3] int32, attempts [N] int32: the draws each lane used, 0
+      where ~need).
     """
-    ids = piece_ids.clone()
-    todo = need.nonzero().squeeze(1)
-    if todo.numel() == 0:
-        return ids
-    bits = board_bits(board)
-    for _ in range(MAX_REGEN_ATTEMPTS):
-        draws = _draw(todo.numel(), rng, board.device)
-        ids[todo] = draws
-        ok = _verdict(bits[todo], draws)
-        todo = todo[~ok]
-        if todo.numel() == 0:
-            break
-    return ids
+    if not bits.is_cuda:
+        return regen_pieces_plain(bits, piece_ids, seed, need)
+    return _regen_pieces_cuda(bits, piece_ids, seed, need)
+
+
+def _regen_pieces_cuda(bits, piece_ids, seed, need):
+    n = bits.shape[0]
+    build.require("regen_pieces: bits", bits, torch.int64, (n, 2))
+    build.require("regen_pieces: piece_ids", piece_ids, torch.int32,
+                  (n, PIECES_PER_TURN))
+    build.require("regen_pieces: need", need, torch.bool, (n,))
+    seed = seed.reshape(())
+    build.require("regen_pieces: seed", seed, torch.int64, ())
+    tb = tables(bits.device)
+    ids = torch.empty((n, PIECES_PER_TURN), dtype=torch.int32, device=bits.device)
+    attempts = torch.empty(n, dtype=torch.int32, device=bits.device)
+    err = build.function("regen")(
+        bits.data_ptr(), piece_ids.data_ptr(), need.data_ptr(), seed.data_ptr(),
+        tb.PLACE_U64.data_ptr(), tb.PIECE_SHIFTS_I32.data_ptr(),
+        tb.ANCHOR_OK_U64.data_ptr(), tb.NO_CONFLICT_U64.data_ptr(),
+        ids.data_ptr(), attempts.data_ptr(), n, build.stream_of(bits))
+    build.check("regen", err)
+    regen_pieces.launches += 1
+    return ids, attempts
+
+
+regen_pieces.launches = 0
 
 
 def reset(num_envs: int, rng: torch.Generator, device) -> EnvState:

@@ -3,9 +3,9 @@
 The move core (validity, placement, clears, score, and the new board's
 holes / centre / fill) dispatches on the device of the state: the plain
 PyTorch version for CPU tensors, the CUDA kernel K6 (`csrc/move.cu`) for
-CUDA tensors, counting its launches in ``_move_core.launches``.  Regen,
-the game-over test (K1), the reward sum and the auto-reset stay tensor
-code.
+CUDA tensors, counting its launches in ``_move_core.launches``.  Regen is
+K7 on the card (`bbx_torch.engine.state.regen_pieces`) and the game-over
+test K1; the reward sum and the auto-reset stay tensor code.
 
 Counterpart of `bbx/engine/step.py`, with its quirks kept exactly:
   * invalid action: reward -10, state unchanged, episode does NOT end;
@@ -23,7 +23,7 @@ import torch
 from ..ops import build
 from . import kernel as K
 from . import solvability as S
-from .state import EnvState, fresh_pieces, regen_pieces
+from .state import EnvState, fresh_pieces, regen_pieces, regen_seed
 from .tables import BOARD_SIZE, NUM_ACTIONS, NUM_CELLS, PIECES_PER_TURN, tables
 
 MAX_COMBO_MULTIPLIER = 4   # engine.py:96
@@ -218,13 +218,17 @@ def step(state: EnvState, actions: torch.Tensor,
     max_streak_after = torch.maximum(state.max_streak, streak_after)
     blocks_total_after = state.blocks_total + torch.where(valid, nblocks, 0)
 
-    # Regenerate pieces when all three are used.
+    # Regenerate pieces when all three are used (K7 on the card: one launch,
+    # no host synchronisation).  One seed per step, drawn whether or not a
+    # lane needs it, so the generator advances alike on every step.
     all_used = used_after.all(dim=1) & valid
-    ids_after = regen_pieces(new_board, state.piece_ids, state.rng, all_used)
+    bits = S.board_bits(new_board)
+    seed = regen_seed(state.rng, state.device)
+    ids_after, _ = regen_pieces(bits, state.piece_ids, seed, all_used)
     used_after = torch.where(all_used[:, None], False, used_after)
 
     # Game over: no unused piece has a valid placement.
-    valid3 = S.valid3_bits(S.board_bits(new_board), ids_after)
+    valid3 = S.valid3_bits(bits, ids_after)
     mask3 = valid3 & ~used_after[:, :, None]
     no_moves = ~mask3.reshape(n, -1).any(dim=1)
     done_after = torch.where(valid, no_moves, state.done)

@@ -2,9 +2,8 @@
 
 Counterpart of `bbx/engine/tables.py`: the NumPy tables of
 `bbx_torch.engine.pieces` as tensors on one device, built once per device
-and cached.  Only the tables this slice's path uses are here; the bf16
-matmul forms (`OCC_T_BF16`, `PLACEMENT_BF16`) wait for the GUI/analysis
-surface that uses them.
+and cached.  `OCC_T_BF16` serves the all-pieces validity product and
+`PAIR_CONFLICT` the dense disjoint oracle, both off the step path.
 """
 from __future__ import annotations
 
@@ -39,6 +38,9 @@ class Tables:
     NO_CONFLICT_U64: torch.Tensor   # [37, 37, 64] i64 (u64 bit patterns)
     ANCHOR_OK_U64: torch.Tensor     # [37] i64 (u64 bit patterns)
     PIECE_SHIFTS_I32: torch.Tensor  # [37, 9] i32
+    # Dense forms for the all-pieces product and the dense oracle.
+    PAIR_CONFLICT: torch.Tensor     # [37, 37, 64, 64] bool
+    OCC_T_BF16: torch.Tensor        # [64, 37*64] bf16, transposed occupancy
 
 
 def _canonical(device) -> torch.device:
@@ -71,4 +73,6 @@ def _tables_on(device: torch.device) -> Tables:
         NO_CONFLICT_U64=t(P.NO_CONFLICT_U64, torch.int64),
         ANCHOR_OK_U64=t(P.ANCHOR_OK_U64, torch.int64),
         PIECE_SHIFTS_I32=t(P.PIECE_SHIFTS, torch.int32),
+        PAIR_CONFLICT=t(P.PAIR_CONFLICT, torch.bool),
+        OCC_T_BF16=t(P.PLACEMENT.reshape(-1, NUM_CELLS).T, torch.bfloat16),
     )

@@ -164,7 +164,9 @@ class AfterstateNetwork(nn.Module):
     """Policy = learned evaluation of each action's deterministic afterstate.
 
     ``forward(board [B,8,8], pieces [B,3,8,8], action_mask [B,192] | None)
-    -> (logits [B,192] f32, value [B] f32)``.
+    -> (logits [B,192] f32, value [B] f32)``.  The network has no dropout
+    and no BatchNorm, so train and eval mode are the same function and the
+    ``generator`` argument that `BlockBlastNetwork` takes is unused.
     """
 
     def __init__(self, eval_channels: Sequence[int] = (24, 24),
@@ -199,8 +201,10 @@ class AfterstateNetwork(nn.Module):
                     m.bias.zero_()
 
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
-                action_mask: Optional[torch.Tensor] = None
+                action_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        del generator  # no dropout
         dt = self.compute_dtype
         b = board.shape[0]
         board = board.to(torch.float32).contiguous()

@@ -31,6 +31,7 @@ SOURCES = {
     "afterstate": "afterstate.cu",
     "gae": "gae.cu",
     "move": "move.cu",
+    "regen": "regen.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +58,9 @@ SIGNATURES = {
     # board, ids, used, done, streak, action, place, anchor_ok, nblocks,
     # new_board, ints, flags, used_after, center, n, stream
     "move": ("bbx_move", [_P] * 14 + [_I, _P]),
+    # bits, ids, need, seed, place, shifts, anchor_ok, no_conflict,
+    # out_ids, attempts, n, stream
+    "regen": ("bbx_regen", [_P] * 10 + [_I, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -6,32 +6,45 @@
 Phases, each of which must pass (exit code 1 otherwise):
 
 1. identify the card (``nvidia-smi`` name and power limit);
-2. build the CUDA kernels K1-K6 from `bbx_torch/csrc/` with nvcc;
+2. build the CUDA kernels K1-K7 from `bbx_torch/csrc/` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (outputs must be exactly equal; K5's floats too, to
-   the last bit; K4 at the rollout's 512 lanes and at the update's 2048),
-   on reachable mid-game boards made by the port's own engine from a
-   seed, and time both with CUDA events;
-4. the eval path: a 512-episode greedy eval of a seeded, freshly
+   the last bit; K4 at the rollout's 512 lanes and at the update's 2048;
+   K7, the fused regen, in ids and attempts on one seed tensor, at the
+   FLEET lanes' realistic need and with every lane in need), on reachable
+   mid-game boards made by the port's own engine from a seed, and time
+   both with CUDA events;
+4. the engine path through `bbx_torch.cli.benchmark`: random-policy
+   env-steps/s of 16,384 lanes (chunks of 64 steps, 5 windows of 2
+   chunks, the 20% spread gate, measured again while a measurement breaks
+   it) with the launch counters set to 0 before and read after, a sweep
+   over 4,096 / 16,384 / 32,768 lanes, regen's draws per step from K7's
+   attempts, a profiled chunk (busy share, K7's share of the device time)
+   and one step under sync-debug mode "error";
+5. the eval path: a 512-episode greedy eval of a seeded, freshly
    initialised AfterstateNetwork at the widths of `config/run9.yaml`
    (bf16) through `bbx_torch.cli.evaluate.main`, with every kernel's
    launch counter set to 0 before and read after;
-5. check the results: finite statistics over 512 completed episodes, the
+6. check the results: finite statistics over 512 completed episodes, the
    float32 forward on the card against the same forward on the CPU, and
    seeded games of `ParityEngine` on the card against the CPU, move for
-   move;
-6. profile the first 16 steps of the eval loop (host time of the forward
+   move (the parity path, which runs K2 and K3 standalone; its launches
+   are counted);
+7. profile the first 16 steps of the eval loop (host time of the forward
    and of the step, device time by kernel, the device's busy share);
-7. the train path: run9's PPO recipe at full width and shape (512 envs x
+8. the train path: run9's PPO recipe at full width and shape (512 envs x
    128 steps, minibatch 2048, 2 epochs) for 3 iterations through
    `bbx_torch.cli.train.main` from a JSON config, with the launch
    counters set to 0 before and read after, each iteration's rollout and
    update timed and its losses checked finite; then `latest` is loaded and
    one more iteration must be finite;
-8. one float32 PPO update at run9 widths on a fixed batch, card against
+9. one float32 PPO update at run9 widths on a fixed batch, card against
    CPU (losses and post-Adam parameters);
-9. profile a 16-step rollout and a 4-minibatch update at run9 widths
-   (device time by kernel, the device's busy share in each).
+10. profile a 16-step rollout and a 4-minibatch update at run9 widths
+   (device time by kernel, the device's busy share in each);
+11. the flat CNN: the float32 forward at default widths, card against CPU
+   in train mode (dropout off) and eval mode, then `bench_network` and
+   `bench_train` at bbx's defaults (2 timed iterations, losses finite).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels' numbers, and
@@ -102,6 +115,28 @@ RUN9_REWARDS = {
     "combo_multiplier_bonus": 0.5,
     "survival_bonus": 0.001,
 }
+
+# The kernels each path launches.  The verdict tiers K2 and K3 run inside
+# K7 on the step paths; their standalone kernels serve the parity engine.
+PATH_KERNELS = {
+    "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "regen_pieces"),
+    "train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
+              "regen_pieces"),
+    "engine": ("valid3_bits", "_move_core", "regen_pieces"),
+    "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
+               "_move_core"),
+}
+ENGINE_LANES = 16384             # bench.py's fleet
+ENGINE_SWEEP = (4096, 16384, 32768)
+ENGINE_CHUNK, ENGINE_CHUNKS = 64, 2   # 5 windows of 2 chunks of 64 steps
+# The fleet loop is host-bound, and the host's speed drifts by tens of
+# percent within a second on the card's machine.  Two measures keep the
+# windows steady: the phase pins its thread to one core (no migrations
+# between cores; its windows spread less so there), and a measurement is
+# taken again (a fresh fleet) when its windows break the 20% gate, up to
+# ENGINE_ATTEMPTS times; every attempt is reported, and the phase fails if
+# none keeps the gate.
+ENGINE_ATTEMPTS = 8
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, used as the ceiling for the
@@ -352,6 +387,48 @@ def kernel_phase(device, report):
               f"{int((want[4] > 0).sum())} clearing); also checked on all {k} "
               f"lanes, where a call took {ms_fleet:.4f} ms"))
 
+    # K7 at the FLEET mid-game boards after the move above with its valid
+    # actions (`pick`): the lanes that used their triple in need, then every
+    # lane in need; the same seed tensor for the kernel and its plain
+    # version.  Timed and bounded at the realistic need.
+    from bbx_torch.engine import state as ES
+
+    moved = ST._move_core(state, pick.to(torch.int32))
+    nbits = S.board_bits(moved[3])
+    seed = ES.regen_seed(g, device)
+    cases = {}
+    for label, need in (("realistic", moved[11].all(dim=1) & moved[0]),
+                        ("all", torch.ones(FLEET, dtype=torch.bool, device=device))):
+        got = ES.regen_pieces(nbits, state.piece_ids, seed, need)
+        want = ES.regen_pieces_plain(nbits, state.piece_ids, seed, need)
+        att = want[1][need].to(torch.float64)
+        cases[label] = dict(
+            equal=all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want)),
+            max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+            needy=int(need.sum()), attempts_mean=float(att.mean()),
+            attempts_max=int(att.max()),
+            ms=time_ms(lambda: ES.regen_pieces(nbits, state.piece_ids, seed, need)),
+            plain_ms=time_ms(lambda: ES.regen_pieces_plain(nbits, state.piece_ids, seed, need),
+                             reps=3, inner=1),
+            nbytes=FLEET * (16 + 12 + 1 + 12 + 4) + 8 + 37 * 64 * 8 + 37 * 9 * 4
+            + 37 * 8 + 37 * 37 * 64 * 8,
+            ops=regen_ops(nbits, seed, need, want[1]))
+    real, every = cases["realistic"], cases["all"]
+    every["bound_ms"], every["bound_by"] = bound_ms(every.pop("nbytes"), every.pop("ops"))
+    rows.append(dict(
+        name="regen_pieces", source="bbx_torch/csrc/regen.cu",
+        replaces="bbx/engine/state.py:161 (regen_pieces; _verdict_flat :83)",
+        equal=real["equal"] and every["equal"],
+        max_abs_err=max(real["max_abs_err"], every["max_abs_err"]),
+        ms=real["ms"], plain_ms=real["plain_ms"], nbytes=real["nbytes"],
+        ops=real["ops"], all_needy=every,
+        shape=f"bits [{FLEET},2], ids [{FLEET},3], need [{FLEET}] ({real['needy']} "
+              f"in need, {real['attempts_mean']:.3f} draws each on average, at most "
+              f"{real['attempts_max']}) -> ids, attempts; all {FLEET} in need: "
+              f"equal={every['equal']}, {every['attempts_mean']:.3f} draws on average, "
+              f"at most {every['attempts_max']}, {every['ms']:.4f} ms, plain "
+              f"{every['plain_ms']:.4f} ms, bound {every['bound_ms']:.6f} ms"))
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("nbytes"), r.pop("ops"))
         r["route"] = "cuda"
@@ -394,8 +471,40 @@ def exact_ops(bits, ids, valid3, solvable) -> int:
     return 80 * (first + need)
 
 
+def regen_ops(bits, seed, need, attempts) -> int:
+    """32-bit operations K7 needs for these lanes, replaying every draw a
+    lane made: per draw the hash (about 40) and three fits (about 40 each),
+    then the disjoint tier as in K2's count, then, for the draws it rejects,
+    the exact tier as `exact_ops` counts it."""
+    import torch
+
+    from bbx_torch.engine import solvability as S
+    from bbx_torch.engine import state as ES
+    from bbx_torch.engine.tables import tables
+
+    tb = tables(bits.device)
+    ops = 0
+    for j in range(int(attempts.max())):
+        lanes = (need & (attempts > j)).nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            break
+        b = bits[lanes]
+        ids = ES.regen_draw(seed, lanes, j)
+        v3 = S.valid3_bits_plain(b, ids)
+        pid = ids.long()
+        m01 = S.unpack_cells(tb.NO_CONFLICT_BITS[pid[:, 0], pid[:, 1]]
+                             & S.pack_cells(v3[:, 1])[:, None, :])
+        ops += lanes.numel() * (40 + 3 * 40 + 64 * 16)
+        ops += int((m01 & v3[:, 0, :, None]).sum().item()) * 8
+        rest = (~S.solvable_disjoint_bits_plain(b, ids, v3)).nonzero().squeeze(1)
+        if rest.numel():
+            solved = S.solvable_exact_bits_plain(b[rest], ids[rest], v3[rest])
+            ops += exact_ops(b[rest], ids[rest], v3[rest], solved)
+    return ops
+
+
 def eval_phase(device, report):
-    """Phase 4: the main path through the eval entry point."""
+    """Phase 5: the main path through the eval entry point."""
     import torch
 
     from bbx_torch.cli import evaluate
@@ -438,10 +547,7 @@ def eval_phase(device, report):
     nums += list(results["percentiles"].values())
     if not all(math.isfinite(v) for v in nums) or results["score_min"] < 0:
         raise AssertionError(f"bad statistics: {results}")
-    # Every kernel but GAE runs when the eval plays.
-    missing = [n for n, c in launches.items() if c <= 0 and n != "compute_gae"]
-    if missing:
-        raise AssertionError(f"kernels not launched on the eval path: {missing}")
+    check_launches("eval", launches)
 
 
 def kernel_counters():
@@ -449,6 +555,7 @@ def kernel_counters():
     the name the kernels line gives it."""
     from bbx_torch.agent import ppo as P
     from bbx_torch.engine import solvability as S
+    from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
     from bbx_torch.models import afterstate as A
 
@@ -457,11 +564,19 @@ def kernel_counters():
             "solvable_exact_bits": S.solvable_exact_bits,
             "afterstate_buffer": A.afterstate_buffer,
             "compute_gae": P.compute_gae,
-            "_move_core": ST._move_core}
+            "_move_core": ST._move_core,
+            "regen_pieces": ES.regen_pieces}
+
+
+def check_launches(path: str, launches: dict) -> None:
+    """Fail unless every kernel of `path` was launched in its run."""
+    missing = [n for n in PATH_KERNELS[path] if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
 
 
 def reference_phase(device, report):
-    """Phase 5: the card against the CPU on small inputs."""
+    """Phase 6: the card against the CPU on small inputs."""
     import numpy as np
     import torch
 
@@ -487,7 +602,11 @@ def reference_phase(device, report):
     fwd_ok = (fwd_err <= 1e-4 and torch.equal(l_gpu[~mask], l_cpu[~mask])
               and torch.isfinite(l_gpu).all().item())
 
-    # Three seeded games, card vs CPU, move for move (exact).
+    # Three seeded games, card vs CPU, move for move (exact), with the
+    # launches of the parity engine's kernels counted.
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     moves_rng = np.random.default_rng(SEED)
     game_ok, n_moves = True, 0
     for seed in (SEED, SEED + 1, SEED + 2):
@@ -505,13 +624,16 @@ def reference_phase(device, report):
                        and np.array_equal(a.piece_ids, b.piece_ids)
                        and a.score == b.score and a.game_over == b.game_over)
             n_moves += 1
+    launches = {name: fn.launches for name, fn in counters.items()}
     report["reference"] = {"forward_f32_max_abs_err": fwd_err,
                            "forward_ok": fwd_ok, "game_moves": n_moves,
                            "game_ok": game_ok}
+    report["parity"] = {"launches": launches}
     log(f"  forward f32 card vs cpu: max abs err {fwd_err:.3e} (limit 1e-4), "
         f"ok={fwd_ok}; 3 seeded games card vs cpu: {n_moves} moves, equal={game_ok}")
     if not (fwd_ok and game_ok):
         raise AssertionError("card disagrees with the CPU reference")
+    check_launches("parity", launches)
 
 
 def device_ms_by_kernel(prof):
@@ -527,7 +649,7 @@ def device_ms_by_kernel(prof):
 
 
 def profile_phase(device, report):
-    """Phase 6: where the time of an eval step goes.  The first 16 steps of
+    """Phase 7: where the time of an eval step goes.  The first 16 steps of
     the eval loop (512 lanes from reset, greedy, run9 widths) run twice:
     once with a host clock around the forward and the step separately (a
     synchronise after each), once under `torch.profiler` for the device
@@ -596,7 +718,7 @@ def profile_phase(device, report):
 
 
 def train_phase(device, report):
-    """Phase 7: the train path through the train entry point, at run9's
+    """Phase 8: the train path through the train entry point, at run9's
     width and shape, with each iteration's rollout and update timed (a
     synchronise on each side) and the update's peak device memory read."""
     import torch
@@ -697,9 +819,7 @@ def train_phase(device, report):
     values = [v for r in iters for v in r["metrics"].values()] + list(resumed.values())
     if not all(math.isfinite(v) for v in values):
         raise AssertionError("a training metric is not finite")
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the train path: {missing}")
+    check_launches("train", launches)
     if launches["compute_gae"] != 3 or not all(
             r["afterstate_launches_rollout"] > 0 and r["afterstate_launches_update"] > 0
             for r in iters):
@@ -709,7 +829,7 @@ def train_phase(device, report):
 
 
 def train_profile_phase(device, report):
-    """Phase 9: where the time of a training iteration goes.  Under
+    """Phase 10: where the time of a training iteration goes.  Under
     `torch.profiler`, after a warm-up of each: a rollout of 16 steps at
     512 lanes and an update of one epoch of 4 minibatches of 2048, both at
     run9 widths (bf16) from a seeded network.  Reports each window's host
@@ -781,7 +901,7 @@ def train_profile_phase(device, report):
 
 
 def update_reference_phase(device, report):
-    """Phase 8: one float32 PPO update at run9 widths (TF32 off) on a fixed
+    """Phase 9: one float32 PPO update at run9 widths (TF32 off) on a fixed
     batch of T = 4 x N = 64 transitions, one epoch of one minibatch, from
     the same params on the card and on the CPU.  The stored log-probs are
     drawn from [-6, -2] so that ratios spread and clipping is exercised.
@@ -858,6 +978,241 @@ def update_reference_phase(device, report):
         raise AssertionError("the card's update disagrees with the CPU's")
 
 
+def engine_phase(device, report):
+    """Phase 4: the engine path through `bbx_torch.cli.benchmark`: a
+    random-valid-action fleet of ENGINE_LANES lanes (chunks of 64 steps,
+    5 windows of 2 chunks, the 20% spread gate, measured again while a
+    measurement breaks it, see ENGINE_ATTEMPTS) with the launch counters
+    set to 0 before and read after; the fleet-size sweep; then, on a fresh
+    fleet of ENGINE_LANES lanes warmed by one chunk, one chunk recording
+    K7's attempts, one chunk under `torch.profiler` (busy share, K7's share
+    of the device time) and one step under sync-debug mode "error", all
+    with the thread pinned to one core (see ENGINE_ATTEMPTS)."""
+    import torch
+
+    # Start the CPU thread pool first, so that its threads, which inherit
+    # the affinity of the thread that creates them, are not pinned too.
+    torch.ones(1 << 20).sum()
+    allowed = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, {sorted(allowed)[min(2, len(allowed) - 1)]})
+    try:
+        _engine_phase(device, report)
+    finally:
+        os.sched_setaffinity(0, allowed)
+
+
+def _engine_phase(device, report):
+    import torch
+
+    from bbx_torch.cli import benchmark as B
+    from bbx_torch.engine import step as ST
+    from bbx_torch.engine.state import make_generator
+    from bbx_torch.env import VectorEnv, sample_valid_actions_device
+
+    counters = kernel_counters()
+    failed_attempts = {}
+
+    def gated(n):
+        """bench_vec_env at n lanes, taken again while its windows break
+        the gate (at most ENGINE_ATTEMPTS measurements); the counters are
+        reset before each attempt, so they count the kept one."""
+        tries = failed_attempts.setdefault(str(n), [])
+        for _ in range(ENGINE_ATTEMPTS):
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            try:
+                r = B.bench_vec_env(num_envs=n, steps=ENGINE_CHUNK, iters=ENGINE_CHUNKS,
+                                    device=device)
+            except B.SpreadError as e:
+                tries.append(e.result)
+                log(f"  {n} lanes: windows {[round(x, 1) for x in e.result['windows']]} "
+                    f"spread {e.result['rel_spread']:.4f} > gate {B.MAX_REL_SPREAD}; "
+                    f"measuring again")
+                continue
+            torch.cuda.synchronize()
+            return r
+        raise AssertionError(f"{n} lanes: none of {ENGINE_ATTEMPTS} measurements kept "
+                             f"its windows within the {B.MAX_REL_SPREAD} gate")
+
+    main_run = gated(ENGINE_LANES)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps_run = ENGINE_CHUNK * (1 + ENGINE_CHUNKS * main_run["timed_windows"])
+    log(f"  {ENGINE_LANES} lanes: {main_run['env_steps_per_sec']:.1f} env-steps/s "
+        f"(median of windows {[round(r, 1) for r in main_run['windows']]}, spread "
+        f"{main_run['rel_spread']:.4f}, gate {B.MAX_REL_SPREAD}, after "
+        f"{len(failed_attempts[str(ENGINE_LANES)])} measurements that broke it); "
+        f"launches over its {steps_run} steps: {launches}")
+    check_launches("engine", launches)
+    sweep = {ENGINE_LANES: main_run}
+    for n in ENGINE_SWEEP:
+        if n not in sweep:
+            sweep[n] = gated(n)
+        log(f"  sweep {n} lanes: {sweep[n]['env_steps_per_sec']:.1f} env-steps/s, "
+            f"spread {sweep[n]['rel_spread']:.4f}, "
+            f"{n / sweep[n]['env_steps_per_sec'] * 1e3:.4f} ms per step")
+
+    env = VectorEnv(ENGINE_LANES, seed=SEED, device=device)
+    env.reset()
+    act_rng = make_generator(SEED + 1, device)
+    mask = ST.observe(env.state)["action_mask"]
+
+    def chunk(mask, steps=ENGINE_CHUNK):
+        total = torch.zeros((), device=device)
+        for _ in range(steps):
+            out = env.step_device(sample_valid_actions_device(act_rng, mask))
+            mask = out.obs["action_mask"]
+            total = total + out.reward.sum()
+        return mask, total.item()
+
+    attempts = []
+    regen0 = ST.regen_pieces
+
+    def recording_regen(*args):
+        ids, att = regen0(*args)
+        attempts.append(att)
+        return ids, att
+
+    with torch.inference_mode():
+        mask, _ = chunk(mask)                      # warm-up: a mid-game mix
+        ST.regen_pieces = recording_regen
+        try:
+            mask, _ = chunk(mask)
+        finally:
+            ST.regen_pieces = regen0
+        att = torch.stack(attempts).to(torch.float64)        # [steps, lanes]
+        needy = att > 0
+        regen = {"steps": len(attempts),
+                 "needy_lanes_per_step": float(needy.sum(1).double().mean()),
+                 "needy_share": float(needy.double().mean()),
+                 "attempts_mean": float(att[needy].mean()),
+                 "attempts_max": int(att.max()),
+                 "draws_per_step": float(att.sum(1).mean())}
+        log(f"  regen over {regen['steps']} steps: {regen['needy_lanes_per_step']:.1f} "
+            f"lanes in need per step ({regen['needy_share']:.4f} of the fleet), "
+            f"{regen['attempts_mean']:.4f} draws each on average, at most "
+            f"{regen['attempts_max']}")
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            mask, _ = chunk(mask)
+            wall = time.perf_counter() - t0
+        by_name = device_ms_by_kernel(prof)
+        device_ms = sum(t for t, _ in by_name.values())
+        k7_ms = sum(t for k, (t, _) in by_name.items() if "regen_kernel" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        profile = {
+            "steps": ENGINE_CHUNK, "lanes": ENGINE_LANES,
+            "wall_ms_per_step": wall * 1e3 / ENGINE_CHUNK,
+            "device_launches_per_step": sum(c for _, c in by_name.values()) / ENGINE_CHUNK,
+            "device_ms_per_step": device_ms / ENGINE_CHUNK if device_ms else "not measured",
+            "device_busy_share": device_ms / (wall * 1e3) if device_ms else "not measured",
+            "regen_kernel_share_of_device": k7_ms / device_ms if device_ms else "not measured",
+            "top_device_kernels": [{"name": k[:90], "ms_per_step": t / ENGINE_CHUNK,
+                                    "calls_per_step": c / ENGINE_CHUNK}
+                                   for k, (t, c) in top]}
+        log(f"  profiled chunk: wall {profile['wall_ms_per_step']:.4f} ms per step, "
+            f"{profile['device_launches_per_step']:.2f} kernels per step, "
+            f"device {profile['device_ms_per_step']} ms, busy share "
+            f"{profile['device_busy_share']}, K7 share of device time "
+            f"{profile['regen_kernel_share_of_device']}")
+        for row in profile["top_device_kernels"]:
+            log(f"    {row['ms_per_step']:.4f} ms/step  x{row['calls_per_step']:.2f}  "
+                f"{row['name']}")
+
+        actions = sample_valid_actions_device(act_rng, mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = env.step_device(actions)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync_free = bool(torch.isfinite(out.reward).all())
+    log(f"  one step of {ENGINE_LANES} lanes under sync-debug mode 'error': no host "
+        f"synchronisation, rewards finite={sync_free}")
+    report["engine"] = {"main": main_run, "launches": launches,
+                        "steps_in_main_run": steps_run,
+                        "attempts_that_broke_the_gate": failed_attempts,
+                        "sweep": {str(n): r for n, r in sweep.items()},
+                        "regen": regen, "profile": profile,
+                        "sync_free_step": sync_free}
+    if not sync_free:
+        raise AssertionError("the sync-debug step gave non-finite rewards")
+
+
+def flat_cnn_phase(device, report):
+    """Phase 11: the flat CNN.  (a) At default widths in float32 with TF32
+    off and dropout off, one train-mode forward (batch statistics, which
+    move the running statistics) and one eval-mode forward on the card
+    against the same on the CPU, limit 1e-4; (b) `bench_network` at its
+    batch sizes (bf16, eval mode); (c) `bench_train` at bbx's defaults
+    (1,024 envs x 64 steps, minibatch 16,384, 10 epochs, bf16, dropout
+    0.1) for 2 timed iterations after one warm-up, every loss finite."""
+    import copy
+
+    import torch
+
+    from bbx_torch.cli import benchmark as B
+    from bbx_torch.device import float32_exact
+    from bbx_torch.engine.state import make_generator, reset
+    from bbx_torch.engine.step import observe, step
+    from bbx_torch.models import BlockBlastNetwork
+    from bbx_torch.models import distributions as D
+
+    g = make_generator(SEED, "cpu")
+    state = reset(64, g, "cpu")
+    obs = observe(state)
+    for _ in range(12):
+        logits = D.mask_logits(torch.zeros(64, 192), obs["action_mask"])
+        out = step(state, D.sample(g, logits), auto_reset=True)
+        state, obs = out.state, out.obs
+    net_cpu = BlockBlastNetwork(dropout_rate=0.0, compute_dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(SEED))
+    net_gpu = copy.deepcopy(net_cpu).to(device)
+    inputs = [obs[k] for k in ("board", "pieces", "action_mask")]
+    errs = {}
+    with float32_exact(), torch.no_grad():
+        for mode in ("train", "eval"):
+            net_cpu.train(mode == "train")
+            net_gpu.train(mode == "train")
+            lc, vc = net_cpu(*inputs)
+            lg, vg = net_gpu(*(x.to(device) for x in inputs))
+            m = inputs[2]
+            errs[mode] = max(max_abs_err(lg.cpu()[m], lc[m]), max_abs_err(vg.cpu(), vc))
+            if not torch.equal(lg.cpu()[~m], lc[~m]):
+                errs[mode] = float("inf")
+        errs["running_stats"] = max(max_abs_err(a.cpu(), b) for a, b in zip(
+            net_gpu.buffers(), net_cpu.buffers()))
+    fwd_ok = errs["train"] <= 1e-4 and errs["eval"] <= 1e-4 and errs["running_stats"] <= 1e-4
+    log(f"  forward f32 at default widths, card vs cpu: train mode {errs['train']:.3e}, "
+        f"eval mode {errs['eval']:.3e}, running statistics {errs['running_stats']:.3e} "
+        f"(limit 1e-4), ok={fwd_ok}")
+
+    net_bench = B.bench_network(device=device)
+    for row in net_bench["rows"]:
+        log(f"  network batch {row['batch']:>5}: {row['latency_ms']:.4f} ms, "
+            f"{row['samples_per_sec']:.1f} samples/s")
+    torch.cuda.reset_peak_memory_stats()
+    train = B.bench_train(iters=2, device=device)
+    train["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate([train["warmup_metrics"], *train["metrics"]]):
+        log(f"  train iteration {i} ({'warm-up' if i == 0 else 'timed'}): "
+            + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    log(f"  bench_train: {train['num_envs']} envs x {train['rollout']} steps, minibatch "
+        f"{train['minibatch']}, {train['epochs']} epochs: "
+        f"{train['train_env_steps_per_sec']:.1f} train env-steps/s, peak memory "
+        f"{train['peak_memory_gb']:.3f} GB")
+    report["flat_cnn"] = {"forward_errors": errs, "forward_ok": fwd_ok,
+                          "network": net_bench, "train": train}
+    values = [v for m in (train["warmup_metrics"], *train["metrics"]) for v in m.values()]
+    if not fwd_ok:
+        raise AssertionError("the flat CNN on the card disagrees with the CPU")
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("a flat-CNN training metric is not finite")
+
+
 def main() -> int:
     import torch
 
@@ -905,18 +1260,24 @@ def main() -> int:
     phase("2. build", build_kernels)
     if "2. build" not in failed:
         phase("3. kernels vs plain versions", lambda: kernel_phase(device, report))
-        phase("4. eval path: greedy eval", lambda: eval_phase(device, report))
-        phase("5. reference checks", lambda: reference_phase(device, report))
-        phase("6. profile of an eval step", lambda: profile_phase(device, report))
-        phase("7. train path: PPO at run9 width",
+        # The engine path first: its fleet loop is host-bound, and a fresh
+        # process on a cool host times it most steadily.
+        phase("4. engine path: random-policy fleet",
+              lambda: engine_phase(device, report))
+        phase("5. eval path: greedy eval", lambda: eval_phase(device, report))
+        phase("6. reference checks", lambda: reference_phase(device, report))
+        phase("7. profile of an eval step", lambda: profile_phase(device, report))
+        phase("8. train path: PPO at run9 width",
               lambda: train_phase(device, report))
-        phase("8. update card vs CPU", lambda: update_reference_phase(device, report))
-        phase("9. profile of a training iteration",
+        phase("9. update card vs CPU", lambda: update_reference_phase(device, report))
+        phase("10. profile of a training iteration",
               lambda: train_profile_phase(device, report))
+        phase("11. flat CNN: forward card vs CPU, network and train benchmarks",
+              lambda: flat_cnn_phase(device, report))
 
-    # `launches` sums both paths' runs; `launches_by_path` splits them.
+    # `launches` sums the paths' runs; `launches_by_path` splits them.
     kernels = []
-    by_path = {p: report.get(p, {}).get("launches", {}) for p in ("eval", "train")}
+    by_path = {p: report.get(p, {}).get("launches", {}) for p in PATH_KERNELS}
     for r in report.get("kernels", []):
         split = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (
@@ -924,11 +1285,11 @@ def main() -> int:
             "launches": sum(split.values()), "launches_by_path": split} | {
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "shape")} | {
-                k: r[k] for k in ("at_update_shape", "ms_at_fleet") if k in r})
+                k: r[k] for k in ("at_update_shape", "ms_at_fleet", "all_needy") if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)
-    if failed or len(kernels) != 6:
+    if failed or len(kernels) != 7:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     print(report["nvidia_smi"])

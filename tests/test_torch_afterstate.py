@@ -207,8 +207,21 @@ def test_init_is_kaiming_uniform_with_zero_bias():
 
 
 def test_network_from_config_rejects_flat_cnn():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        network_from_config({"type": "cnn"})
+    """The flat CNN is ported now: ``type: cnn`` (the default type) builds a
+    `BlockBlastNetwork` with the section's widths and norm, and only an
+    unknown compute dtype is rejected."""
+    from bbx_torch.models import BlockBlastNetwork
+
+    net = network_from_config({"type": "cnn", "conv_channels": [4, 8],
+                               "fc_hidden": [16], "use_batch_norm": False,
+                               "compute_dtype": "float32"})
+    assert isinstance(net, BlockBlastNetwork)
+    assert [c.out_channels for c in net.convs] == [4, 8]
+    assert [f.out_features for f in net.fc] == [16]
+    assert all(n.kind == "none" for n in net.norms)
+    assert isinstance(network_from_config({}), BlockBlastNetwork)
+    with pytest.raises(KeyError):
+        network_from_config({"type": "cnn", "compute_dtype": "float16"})
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,13 @@ integers and booleans, and the comparisons are exact unless a docstring
 says otherwise.  The CUDA kernels are held against these plain versions on
 the card by `tests/test_torch_kernels.py`.
 """
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.stats
 import torch
 
 from bbx.engine import kernel as JK
@@ -18,6 +21,7 @@ from bbx.engine import pieces as JP
 from bbx.engine import solvability as JS
 from bbx.engine import tables as JT
 from bbx.engine.parity import ParityEngine as JParityEngine
+from bbx.engine.state import _verdict_flat
 from bbx.engine.state import from_components as j_from_components
 from bbx.engine.step import RewardConfig as JRewardConfig
 from bbx.engine.step import _move_core as j_move_core
@@ -49,11 +53,7 @@ _j_observe = jax.jit(j_observe)
 _j_step = jax.jit(lambda s, a: j_step(s, a, JRewardConfig(), auto_reset=False))
 
 
-@jax.jit
-def _j_verdict(bits, ids):
-    v3 = JS.valid3_bits(bits, ids)
-    return JS.solvable_disjoint_bits(bits, ids, v3) | JS.solvable_exact_bits(
-        bits, ids, v3)
+_j_verdict_flat = jax.jit(partial(_verdict_flat, ke=16))
 
 
 def _np(x):
@@ -344,67 +344,102 @@ def test_step_auto_reset_lanes():
 # Regen.
 # ---------------------------------------------------------------------------
 
-def test_regen_picks_first_accepted_draw(reachable, monkeypatch):
-    """On lanes that regen, the chosen triple is the first of the port's own
-    draws that bbx's verdict accepts (the last draw if none is, after the
-    100-draw cap); other lanes keep their pieces."""
+def test_regen_picks_first_accepted_draw(reachable):
+    """On lanes that regen, the chosen triple is the first of the lane's
+    draws ``regen_draw(seed, lane, j)``, j = 0, 1, ..., that bbx's verdict
+    (`_verdict_flat`) accepts, and `attempts` counts the draws it took;
+    other lanes keep their pieces with 0 attempts."""
     state, board, ids = reachable
     n = state.num_envs
     need = np.arange(n) % 4 != 0
-    calls = []
-    orig = TState._draw
-
-    def recording_draw(k, rng, device):
-        out = orig(k, rng, device)
-        calls.append(out.numpy().copy())
-        return out
-
-    monkeypatch.setattr(TState, "_draw", recording_draw)
-    got = TState.regen_pieces(torch.from_numpy(board), torch.from_numpy(ids),
-                              TState.make_generator(11, "cpu"),
-                              torch.from_numpy(need)).numpy()
+    seed = torch.tensor(11, dtype=torch.int64)
+    bits = TS.board_bits(torch.from_numpy(board))
+    got, attempts = TState.regen_pieces(bits, torch.from_numpy(ids), seed,
+                                        torch.from_numpy(need))
+    got, attempts = got.numpy(), attempts.numpy()
     jbits = JS.board_bits(jnp.asarray(board))
-    # Replay the rounds: each draws for the lanes still open, in lane order.
+    # Replay: each round draws attempt j for the lanes still open.
     todo = np.flatnonzero(need)
-    want = ids.copy()
-    for draws in calls:
-        assert len(draws) == len(todo)
+    want, want_att = ids.copy(), np.zeros(n, np.int32)
+    for j in range(TState.MAX_REGEN_ATTEMPTS):
+        if len(todo) == 0:
+            break
+        draws = TState.regen_draw(seed, torch.from_numpy(todo), j).numpy()
         # Padded to n rows so the oracle compiles once.
-        pad = np.zeros((n - len(todo), 3), np.int32)
-        ok = np.asarray(_j_verdict(
-            jbits[np.concatenate([todo, np.zeros(len(pad), int)])],
-            jnp.asarray(np.concatenate([draws, pad]))))[:len(todo)]
-        want[todo] = draws
+        pad = n - len(todo)
+        ok = np.asarray(_j_verdict_flat(
+            jbits[np.concatenate([todo, np.zeros(pad, int)])],
+            jnp.asarray(np.concatenate([draws, np.zeros((pad, 3), np.int32)])),
+            jnp.asarray(np.arange(n) < len(todo))))[:len(todo)]
+        want[todo], want_att[todo] = draws, j + 1
         todo = todo[~ok]
-    assert len(todo) == 0 or len(calls) == TState.MAX_REGEN_ATTEMPTS
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(attempts, want_att)
     np.testing.assert_array_equal(got[~need], ids[~need])
-    assert len(calls) > 1  # some lane needed a second draw
+    assert (attempts[~need] == 0).all() and (attempts[need] >= 1).all()
+    assert attempts.max() > 1  # some lane needed a second draw
 
 
-def test_regen_draws_uniform_chi_square(monkeypatch):
-    """Regen's draws are uniform over the 37 shapes: chi-square over 9,000
-    draws below the 0.1% critical value of chi2(36) = 67.985."""
-    calls = []
-    orig = TState._draw
+def test_regen_exhaustion_keeps_the_100th_draw():
+    """On a full board no piece fits, so no triple is solvable: every lane
+    in need spends all 100 attempts and keeps its 100th draw."""
+    n = 5
+    need = torch.tensor([True, False, True, True, False])
+    ids = torch.full((n, 3), 4, dtype=torch.int32)
+    seed = torch.tensor(2**32 - 3, dtype=torch.int64)
+    bits = TS.board_bits(torch.ones((n, 8, 8), dtype=torch.uint8))
+    got, attempts = TState.regen_pieces(bits, ids, seed, need)
+    assert attempts.tolist() == [100, 0, 100, 100, 0]
+    last = TState.regen_draw(seed, torch.arange(n), TState.MAX_REGEN_ATTEMPTS - 1)
+    assert torch.equal(got[need], last[need])
+    assert torch.equal(got[~need], ids[~need])
+    jbits = JS.board_bits(jnp.ones((n, 8, 8), jnp.uint8))
+    assert not np.asarray(_j_verdict_flat(jbits, jnp.asarray(last.numpy()),
+                                          jnp.ones(n, bool))).any()
 
-    def recording_draw(k, rng, device):
-        out = orig(k, rng, device)
-        calls.append(out.numpy().copy())
-        return out
 
-    monkeypatch.setattr(TState, "_draw", recording_draw)
+def test_regen_draws_uniform_chi_square():
+    """Regen's draws are uniform over the 37 shapes: on empty boards every
+    first draw is accepted, so regen returns ``regen_draw(seed, lane, 0)``;
+    chi-square over its 9,000 ids below the 0.1% critical value of
+    chi2(36) = 67.985."""
     n = 3000
-    TState.regen_pieces(TK.empty_boards(n, "cpu"),
-                        torch.zeros((n, 3), dtype=torch.int32),
-                        TState.make_generator(12, "cpu"),
-                        torch.ones(n, dtype=torch.bool))
-    draws = np.concatenate(calls).ravel()
-    assert draws.size >= 9000 and draws.min() >= 0 and draws.max() < 37
+    seed = torch.tensor(12, dtype=torch.int64)
+    got, attempts = TState.regen_pieces(
+        TS.board_bits(TK.empty_boards(n, "cpu")),
+        torch.zeros((n, 3), dtype=torch.int32), seed, torch.ones(n, dtype=torch.bool))
+    assert (attempts == 1).all()
+    assert torch.equal(got, TState.regen_draw(seed, torch.arange(n), 0))
+    draws = got.numpy().ravel()
+    assert draws.min() >= 0 and draws.max() < 37
     counts = np.bincount(draws, minlength=37)
     expected = draws.size / 37
     chi2 = float(((counts - expected) ** 2 / expected).sum())
     assert chi2 < 67.985, (chi2, counts)
+
+
+@pytest.mark.parametrize("pair", ["attempts", "lanes", "slots"])
+def test_regen_draw_pairs_chi_square(pair):
+    """Neighbouring draws are independent: the 37 x 37 table of (shape,
+    shape) pairs of consecutive attempts of a lane, of the same attempt of
+    neighbouring lanes, and of two slots of one draw is uniform, chi-square
+    over 74,000 pairs below the 0.1% critical value of chi2(1368)."""
+    lanes, att = 1000, 75
+    seed = torch.tensor(0xDEADBEEF, dtype=torch.int64)
+    d = TState.regen_draw(seed, torch.arange(lanes)[:, None],
+                          torch.arange(att)[None, :]).numpy()   # [lanes, att, 3]
+    if pair == "attempts":
+        a, b = d[:, :-1, 0], d[:, 1:, 0]
+    elif pair == "lanes":
+        a, b = d[:-1, :, 1], d[1:, :, 1]
+    else:
+        a, b = d[:, :, 0], d[:, :, 2]
+    a, b = a.ravel()[:74_000], b.ravel()[:74_000]
+    assert a.size == 74_000
+    counts = np.bincount(a * 37 + b, minlength=37 * 37)
+    expected = a.size / (37 * 37)
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    assert chi2 < scipy.stats.chi2.ppf(0.999, 37 * 37 - 1), chi2
 
 
 # ---------------------------------------------------------------------------

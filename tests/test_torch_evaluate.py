@@ -191,3 +191,32 @@ def test_smoke_run_uses_run9_recipe():
     assert chip_smoke.RUN9_REWARDS == run9["rewards"] == DEFAULT_CONFIG["rewards"]
     n, t = run9["training"]["num_envs"], run9["training"]["rollout_steps"]
     assert chip_smoke.TRAIN_TIMESTEPS == 3 * n * t
+
+
+def test_flat_cnn_checkpoint_evaluates_in_eval_mode(tmp_path):
+    """A flat-CNN checkpoint (its sidecar names ``type: cnn``) evaluates
+    through the CLI; the network runs in eval mode, on its running
+    statistics, which the eval leaves untouched, and two runs agree."""
+    cfg = {"type": "cnn", "conv_channels": [4, 8], "fc_hidden": [16],
+           "compute_dtype": "float32"}
+    net = network_from_config(cfg, generator=torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(3)
+    for buf in net.buffers():
+        buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    ckpt = save_checkpoint(str(tmp_path), "cnn.pt", {"params": net.state_dict()},
+                           config={"network": cfg})
+    outs = []
+    for i in range(2):
+        out = str(tmp_path / f"r{i}.json")
+        assert TE.main(["--checkpoint", ckpt, "--episodes", "3", "--deterministic",
+                        "--device", "cpu", "--output", out]) == 0
+        with open(out) as f:
+            outs.append(json.load(f))
+    assert outs[0] == outs[1] and outs[0]["completed"] == 3
+    loaded = network_from_config(cfg)
+    loaded.load_state_dict(load_checkpoint(ckpt)["params"])
+    before = [b.clone() for b in loaded.buffers()]
+    r = TE.evaluate_policy(loaded, num_episodes=3, seed=42, device="cpu")
+    assert not loaded.training
+    assert all(torch.equal(x, y) for x, y in zip(before, loaded.buffers()))
+    assert r == outs[0]

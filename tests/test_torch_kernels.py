@@ -155,12 +155,14 @@ def test_forward_bfloat16_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_evaluate_main_on_card_launches_every_kernel(cuda, tmp_path):
-    counters = (S.valid3_bits, S.solvable_disjoint_bits, S.solvable_exact_bits,
-                A.afterstate_buffer)
+    """The eval path launches K1, K4, K6 and K7; the verdict tiers K2 and
+    K3 run inside K7, so their standalone kernels are not launched."""
+    counters = (S.valid3_bits, A.afterstate_buffer, TStep._move_core,
+                TState.regen_pieces)
     net = network_from_config(TINY_NET, generator=torch.Generator().manual_seed(1))
     ckpt = save_checkpoint(str(tmp_path), "tiny.pt", {"params": net.state_dict()},
                            config={"network": TINY_NET})
-    for fn in counters:
+    for fn in (*counters, S.solvable_disjoint_bits, S.solvable_exact_bits):
         fn.launches = 0
     out = str(tmp_path / "r.json")
     assert TE.main(["--checkpoint", ckpt, "--episodes", "64",
@@ -168,6 +170,7 @@ def test_evaluate_main_on_card_launches_every_kernel(cuda, tmp_path):
     with open(out) as f:
         assert json.load(f)["completed"] == 64
     assert all(fn.launches > 0 for fn in counters), [fn.launches for fn in counters]
+    assert S.solvable_disjoint_bits.launches == S.solvable_exact_bits.launches == 0
 
 
 @pytest.mark.gpu
@@ -212,13 +215,14 @@ def test_gae_kernel_matches_plain_bit_for_bit(cuda):
 
 @pytest.mark.gpu
 def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
-    """Two tiny PPO iterations on the card launch all six kernels; a saved
-    run loads and runs one more finite iteration."""
+    """Two tiny PPO iterations on the card launch the train path's kernels
+    (K1, K4-K7; K2 and K3 run inside K7); a saved run loads and runs one
+    more finite iteration."""
     cfg = {"training": {"num_envs": 16, "rollout_steps": 8, "batch_size": 64},
            "ppo": {"num_epochs": 2, "final_learning_rate": 1e-4},
            "network": dict(TINY_NET)}
-    counters = (S.valid3_bits, S.solvable_disjoint_bits, S.solvable_exact_bits,
-                A.afterstate_buffer, P.compute_gae, TStep._move_core)
+    counters = (S.valid3_bits, A.afterstate_buffer, P.compute_gae,
+                TStep._move_core, TState.regen_pieces)
     for fn in counters:
         fn.launches = 0
     tr = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
@@ -233,3 +237,45 @@ def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
     assert tr2.global_step == 2 * 128
     m = {k: float(v) for k, v in tr2.iterate().items()}
     assert all(np.isfinite(v) for v in m.values()), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["realistic", "all"])
+def test_regen_kernel_matches_plain(cuda, which):
+    """K7 against `regen_pieces_plain` on the same seed tensor, bit for bit
+    in ids and attempts, at 4,096 mid-game lanes: the lanes that used
+    their triple with a random valid move in need, then every lane."""
+    state, obs, _ = _midgame(cuda, n=4096, moves=24, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+    acts = torch.where(obs["action_mask"], u, -1.0).argmax(1).to(torch.int32)
+    moved = TStep._move_core(state, acts)
+    valid, board, used_after = moved[0], moved[3], moved[11]
+    need = (used_after.all(dim=1) & valid if which == "realistic"
+            else torch.ones_like(valid))
+    bits = S.board_bits(board)
+    seed = TState.regen_seed(g, cuda)
+    before = TState.regen_pieces.launches
+    got = TState.regen_pieces(bits, state.piece_ids, seed, need)
+    assert TState.regen_pieces.launches == before + 1
+    want = TState.regen_pieces_plain(bits, state.piece_ids, seed, need)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert need.any() and (want[1][need] >= 1).all() and (want[1][~need] == 0).all()
+
+
+@pytest.mark.gpu
+def test_step_makes_no_host_sync(cuda):
+    """A step of a mid-game fleet on the card runs under sync-debug mode
+    "error": regen (K7) and the rest of the step never wait for the host."""
+    state, obs, _ = _midgame(cuda, n=1024)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+    acts = torch.where(obs["action_mask"], u, -1.0).argmax(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(state, acts, auto_reset=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.reward.shape == (1024,)

@@ -198,3 +198,41 @@ def test_emulated_gae_kernel_matches_plain(kernels):
     assert P.compute_gae.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["realistic", "all", "full"])
+def test_emulated_regen_kernel_matches_plain(kernels, which):
+    """K7 equals `regen_pieces_plain` in ids and attempts, bit for bit: on
+    reachable boards after a move with the lanes that used their triple in
+    need, with every lane in need, and on a full board (no piece fits), where
+    every lane spends all 100 attempts and keeps its 100th draw."""
+    state, obs, _ = _reachable(n=64, moves=10, seed=7)
+    n = state.num_envs
+    if which == "full":
+        # Few lanes: each of them runs all 100 attempts through both tiers.
+        board = torch.ones((4, 8, 8), dtype=torch.uint8)
+        need = torch.tensor([True, False, True, True])
+        ids = state.piece_ids[:4]
+    else:
+        rng = np.random.default_rng(13)
+        acts = torch.tensor([rng.choice(np.flatnonzero(m))
+                             for m in obs["action_mask"].numpy()], dtype=torch.int32)
+        moved = TStep._move_core_plain(state, acts)
+        board, used_after, valid = moved[3], moved[11], moved[0]
+        need = (used_after.all(dim=1) & valid if which == "realistic"
+                else torch.ones(n, dtype=torch.bool))
+        ids = state.piece_ids
+    bits = S.board_bits(board)
+    seed = torch.tensor(987654321, dtype=torch.int64)
+    before = TState.regen_pieces.launches
+    got_ids, got_att = TState._regen_pieces_cuda(bits, ids, seed, need)
+    want_ids, want_att = TState.regen_pieces_plain(bits, ids, seed, need)
+    assert TState.regen_pieces.launches == before + 1
+    assert torch.equal(got_ids, want_ids) and torch.equal(got_att, want_att)
+    assert torch.equal(got_ids[~need], ids[~need]) and (got_att[~need] == 0).all()
+    if which == "full":
+        assert (want_att[need] == TState.MAX_REGEN_ATTEMPTS).all()
+    else:
+        assert need.any() and (want_att[need] >= 1).all()
+    if which == "all":
+        assert (want_att > 1).any()  # some lane needed a second draw

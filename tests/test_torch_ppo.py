@@ -31,6 +31,7 @@ from bbx.agent import ppo as JPPO
 from bbx.engine.state import from_components as j_from_components
 from bbx.engine.step import RewardConfig as JRewardConfig
 from bbx.engine.step import step as j_step
+from bbx.models import network as JN
 from bbx.models.afterstate import AfterstateNetwork as JNet
 from bbx_torch.agent import ppo as TP
 from bbx_torch.engine import state as TState
@@ -38,9 +39,11 @@ from bbx_torch.engine.step import RewardConfig, observe, step
 from bbx_torch.models import AfterstateNetwork as TNet
 from bbx_torch.models import afterstate as TA
 from bbx_torch.models import distributions as TD
+from bbx_torch.models import network as TN
 from bbx_torch.models.convert import (
     adam_state_from_optax,
     afterstate_state_dict_from_flax,
+    block_blast_state_dict_from_flax,
     load_adam_state,
 )
 
@@ -211,21 +214,23 @@ def _torch_update(net, adam, update_step, traj, adv, ret):
     return ts, {k: float(v) for k, v in metrics.items()}
 
 
-def _assert_update_equal(ts, metrics, jts, jmetrics):
+def _assert_update_equal(ts, metrics, jts, jmetrics,
+                         convert=afterstate_state_dict_from_flax,
+                         zero_grad=("evaluator.dense1.bias",)):
     for k in _METRICS:
         np.testing.assert_allclose(metrics[k], float(jmetrics[k]), rtol=1e-5,
                                    err_msg=k)
     assert set(metrics) == set(jmetrics)
-    want = afterstate_state_dict_from_flax(_np_tree(jts.params))
+    want = convert(_np_tree(jts.params))
     atol = 1e-6 + 1e-3 * T_CFG.learning_rate
     for name, p in ts.network.named_parameters():
-        # The evaluator's last bias shifts all 192 logits of a state alike,
-        # and the masked softmax, log-prob and entropy are shift-invariant:
-        # its gradient is zero in exact arithmetic, so both frameworks
-        # step it by Adam's normalisation of float32 noise (up to lr a
-        # step).  It is held to that bound instead.
+        # A parameter in `zero_grad` has a gradient that is zero in exact
+        # arithmetic: the evaluator's last bias shifts all 192 logits of a
+        # state alike, and the masked softmax, log-prob and entropy are
+        # shift-invariant.  Both frameworks step it by Adam's normalisation
+        # of float32 noise (up to lr a step), so it is held to that bound.
         tol = (2 * T_CFG.num_epochs * T_CFG.learning_rate
-               if name == "evaluator.dense1.bias" else atol)
+               if name in zero_grad else atol)
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    rtol=0, atol=tol, err_msg=name)
     assert TP.optimizer_steps(ts.optimizer) == int(jts.opt_state[1][0].count)
@@ -279,11 +284,11 @@ def test_advantage_normalisation_uses_population_std():
 # ---------------------------------------------------------------------------
 
 def test_rollout_buffer_matches_network_and_bbx_step(monkeypatch):
-    """On CPU at N = 8, T = 8: the stored logp/value are the network's on
+    """On CPU at N = 8, T = 16 (long enough for games to end): the stored logp/value are the network's on
     the stored observations; each transition's done/reward equals bbx's
     step on the same (state, action) for lanes that did not regen; and
     `ep_stats` counts the dones."""
-    n, t_len = 8, 8
+    n, t_len = 8, 16
     net = _torch_net(_flax_params(6))
     cfg = TP.PPOConfig(rollout_steps=t_len, num_envs=n)
     seen = []
@@ -370,3 +375,99 @@ def test_checkpointed_evaluator_gradients_equal_unwrapped(monkeypatch):
     for k, g in with_ckpt.items():
         assert torch.isfinite(g).all() and g.abs().max() > 0, k
         assert torch.equal(g, plain[k]), k
+
+
+
+# ---------------------------------------------------------------------------
+# The flat CNN: BatchNorm carried through the rollout and the update.
+# ---------------------------------------------------------------------------
+
+CNN = dict(conv_channels=(4, 8, 8), fc_hidden=(16, 8))
+_J_CNN = JN.BlockBlastNetwork(**CNN, dropout_rate=0.0, dtype=jnp.float32)
+_j_cnn_update = jax.jit(partial(JPPO.update, _J_CNN, J_CFG, _J_TX))
+_j_cnn_apply = jax.jit(partial(JPPO._apply, _J_CNN), static_argnames=("train", "mutable"))
+
+
+def _cnn_variables(seed):
+    """Flax variables of the small CNN with every bias, norm scale and
+    running statistic redrawn with numpy (no layer is the identity)."""
+    v = _J_CNN.init({"params": jax.random.key(seed), "dropout": jax.random.key(seed)},
+                    jnp.zeros((2, 8, 8)), jnp.zeros((2, 3, 8, 8)), train=False)
+    rng = np.random.default_rng(seed)
+
+    def redraw(tree, draws):
+        return {k: redraw(v, draws) if isinstance(v, dict) else (
+            rng.uniform(*draws[k], np.shape(v)).astype(np.float32) if k in draws
+            else np.asarray(v)) for k, v in tree.items()}
+
+    return (redraw(v["params"], {"scale": (0.5, 1.5), "bias": (-0.3, 0.3)}),
+            redraw(v["batch_stats"], {"mean": (-0.3, 0.3), "var": (0.5, 2.0)}))
+
+
+def _torch_cnn(params, stats):
+    net = TN.BlockBlastNetwork(**CNN, dropout_rate=0.0, compute_dtype=torch.float32)
+    net.load_state_dict(block_blast_state_dict_from_flax(params, stats))
+    return net
+
+
+def _assert_stats_equal(net, params, stats, atol):
+    want = block_blast_state_dict_from_flax(_np_tree(params), _np_tree(stats))
+    for name, buf in net.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), want[name].numpy(), rtol=0,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("train_mode", [True, False])
+def test_flat_cnn_rollout_carries_batch_stats(train_mode):
+    """With rollout_train_mode the rollout runs the CNN in train mode, its
+    running statistics moving step to step as bbx's mutable apply moves
+    them over the same observations (within 1e-6), and the stored values
+    are the train-mode ones (within 5e-5, see test_torch_network.py); the
+    bootstrap value is eval mode on the running statistics the rollout
+    leaves (within 1e-5).  Without it nothing moves."""
+    params, stats = _cnn_variables(1)
+    net = _torch_cnn(params, stats)
+    t_len, n = 4, 8
+    cfg = TP.PPOConfig(rollout_steps=t_len, num_envs=n, rollout_train_mode=train_mode)
+    state0 = TState.reset(n, TState.make_generator(2, "cpu"), "cpu")
+    env, traj, last_value, _ = TP.rollout(net, cfg, RewardConfig(), state0,
+                                          torch.Generator().manual_seed(3))
+    bs = stats
+    for t in range(t_len):
+        obs = {k: jnp.asarray(v.numpy()) for k, v in TP._minibatch_obs(
+            {k: traj[k][t] for k in ("board", "piece_ids", "used", "mask")}).items()}
+        _, value, bs = _j_cnn_apply(params, bs, obs, train=train_mode,
+                                    mutable=train_mode)
+        np.testing.assert_allclose(traj["value"][t].numpy(), np.asarray(value),
+                                   rtol=0, atol=5e-5)
+    _assert_stats_equal(net, params, bs, atol=1e-6)
+    if not train_mode:
+        _assert_stats_equal(net, params, stats, atol=0)
+    obs = {k: jnp.asarray(v.numpy()) for k, v in observe(env).items()}
+    _, want_last, _ = _j_cnn_apply(params, bs, obs, train=False, mutable=False)
+    np.testing.assert_allclose(last_value.numpy(), np.asarray(want_last),
+                               rtol=0, atol=1e-5)
+
+
+def test_flat_cnn_update_matches_bbx(trajectory):
+    """One update of the small CNN (dropout off) from a fresh optax state:
+    the same metrics, post-Adam parameters and running statistics (carried
+    from minibatch to minibatch, within 1e-6) as bbx.  The conv biases
+    feed a batch-statistics BatchNorm, which subtracts their shift again,
+    so their gradient is zero in exact arithmetic and they are held to
+    Adam's step bound, like the evaluator's last bias."""
+    traj, adv, ret = trajectory
+    params, stats = _cnn_variables(4)
+    jts0 = JPPO.TrainState(params=jax.tree.map(jnp.asarray, params),
+                           batch_stats=jax.tree.map(jnp.asarray, stats),
+                           opt_state=_J_TX.init(params), update_step=jnp.int32(0))
+    jtraj = {k: jnp.asarray(v) for k, v in traj.items()}
+    jts1, jm1 = _j_cnn_update(jts0, jtraj, jnp.asarray(adv), jnp.asarray(ret),
+                              jax.random.key(1))
+    net = _torch_cnn(params, stats)
+    ts1, m1 = _torch_update(net, None, 0, traj, adv, ret)
+    conv_biases = tuple(k for k, _ in net.named_parameters()
+                        if k.endswith("bias") and ("convs" in k or ".conv" in k))
+    _assert_update_equal(ts1, m1, jts1, jm1, convert=block_blast_state_dict_from_flax,
+                         zero_grad=conv_biases)
+    _assert_stats_equal(ts1.network, jts1.params, jts1.batch_stats, atol=1e-6)

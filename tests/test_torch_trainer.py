@@ -273,3 +273,51 @@ def test_latest_step_checkpoint_ignores_sidecars(tmp_path):
         (tmp_path / name).write_text("")
     assert latest_step_checkpoint(str(tmp_path)) == str(tmp_path / "checkpoint_640")
     assert not checkpoint_exists(str(tmp_path / "checkpoint_1"))
+
+
+# ---------------------------------------------------------------------------
+# The flat CNN.
+# ---------------------------------------------------------------------------
+
+TINY_CNN = {"type": "cnn", "conv_channels": [4, 8], "fc_hidden": [16],
+            "compute_dtype": "float32"}
+
+
+def test_exact_resume_flat_cnn(tmp_path):
+    """(train k, save, train k) == (train 2k) for the flat CNN, whose
+    rollout and update run BatchNorm in train mode and dropout 0.1: the
+    checkpoint holds the running statistics and the dropout generator."""
+    cfg = dict(CFG, network=TINY_CNN)
+    a = PPOTrainer(cfg, seed=6, device="cpu")
+    for _ in range(2):
+        a.iterate()
+    path = a.save(str(tmp_path), "mid")
+    payload = load_checkpoint(path)
+    assert "norms.0.running_mean" in payload["params"]
+    assert "dropout" in payload["rng_states"]
+    cont = [_floats(a.iterate()) for _ in range(2)]
+
+    b = PPOTrainer(cfg, seed=6, device="cpu")
+    b.load(path)
+    res = [_floats(b.iterate()) for _ in range(2)]
+    assert cont == res
+    _assert_same_run(a, b)
+    for (name, x), y in zip(a.network.named_buffers(), b.network.buffers()):
+        assert torch.equal(x, y), name
+    fresh = PPOTrainer(cfg, seed=6, device="cpu")
+    moved = [not torch.equal(x, y) for x, y in zip(a.network.buffers(),
+                                                    fresh.network.buffers())]
+    assert all(moved)  # every running statistic moved in training
+
+
+def test_default_config_builds_the_flat_cnn():
+    """config/default.yaml, unchanged, builds the flat CNN at its default
+    widths (about 5.3M parameters) with BatchNorm."""
+    from bbx_torch.models import BlockBlastNetwork
+
+    tr = PPOTrainer(load_config(os.path.join(ROOT, "config", "default.yaml")),
+                    device="cpu")
+    assert isinstance(tr.network, BlockBlastNetwork)
+    assert tr.num_params == 5_290_113
+    assert all(n.kind == "batch" for n in tr.network.norms)
+    assert tr.ppo.minibatch_size == 2048 and tr.ppo.num_envs == 64
