@@ -11,14 +11,19 @@ action mask), every chunk of steps ends by fetching its reward sum to the
 host (`.item()`, which cannot return before the device has run the
 chunk), several windows are timed, implausible and outlying windows are
 re-timed (`robust_rates`), and the median is reported, failing loudly when
-the surviving windows spread by more than 20%.  No CUDA graph and no
+the surviving windows spread by more than 20%.  On the card the fleet loop
+is bound by the host thread that launches its kernels, so the rate and
+the windows follow that thread's speed: the measurement pins it to one
+core (`_pinned_thread`).  No CUDA graph and no
 `torch.compile`: eager PyTorch plus the port's kernels.  Runs on the CUDA
 card unless ``--device cpu``; every result names the device it ran on.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import time
 from typing import Any, Dict, Optional
@@ -86,6 +91,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _pinned_thread(device: torch.device):
+    """Pin the calling thread to one core while a card's fleet is timed.
+
+    The loop is host-bound, so its windows follow the launching thread's
+    speed; pinned, the thread does not migrate between cores.  On the
+    H100's shared host that did not hold the windows under the gate when
+    the host was busy (PERF.md).  The third
+    allowed core is taken (the first ones take most of a machine's
+    interrupts and daemons).  The CPU
+    thread pool is started first, since threads inherit the affinity of
+    the thread that creates them, and the affinity is restored after.
+    Nothing is pinned for a CPU fleet, whose ops use the whole pool.
+    """
+    if device.type != "cuda" or not hasattr(os, "sched_setaffinity"):
+        yield
+        return
+    torch.ones(1 << 20).sum()
+    allowed = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, {sorted(allowed)[min(2, len(allowed) - 1)]})
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, allowed)
+
+
 def fleet_rate(num_envs: int, steps: int, iters: int,
                device="cuda") -> Dict[str, Any]:
     """Random-policy env-steps/s of a `VectorEnv` fleet.
@@ -94,9 +125,11 @@ def fleet_rate(num_envs: int, steps: int, iters: int,
     lane from the carried mask, step (auto-reset on), carry the new mask,
     add the reward sum; the chunk ends with the sum fetched to the host.
     A window is `iters` chunks, and five plausible windows are kept (see
-    `robust_rates`).  One chunk before the first window warms up and moves
-    the fleet into a mid-game mix.  Raises `SpreadError` when fewer than 3
-    plausible windows remain or their spread exceeds `MAX_REL_SPREAD`.
+    `robust_rates`), on the card with the thread pinned to one core
+    (`_pinned_thread`).  One chunk before the first window warms up and
+    moves the fleet into a mid-game mix.  Raises `SpreadError` when fewer
+    than 3 plausible windows remain or their spread exceeds
+    `MAX_REL_SPREAD`.
     """
     dev = resolve_device(device)
     env = VectorEnv(num_envs, seed=0, device=dev)
@@ -120,7 +153,7 @@ def fleet_rate(num_envs: int, steps: int, iters: int,
             run_chunk()
         return time.perf_counter() - t0
 
-    with torch.inference_mode():
+    with torch.inference_mode(), _pinned_thread(dev):
         run_chunk()
         rates, info = robust_rates(time_window, num_envs * steps * iters,
                                    min_window_sec=iters * MIN_SEC_PER_CHUNK)

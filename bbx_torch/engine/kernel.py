@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .tables import BOARD_SIZE, NUM_CELLS, tables
+from .tables import BOARD_SIZE, NUM_CELLS, dense_tables, tables
 
 
 def empty_boards(n: int, device) -> torch.Tensor:
@@ -32,12 +32,11 @@ def valid_anchors_all_pieces(board: torch.Tensor) -> torch.Tensor:
     Returns:
       [N, 37, 64] bool -- the piece fits in bounds with no overlap.
     """
-    tb = tables(board.device)
     n = board.shape[0]
     flat = board.reshape(n, NUM_CELLS).to(torch.bfloat16)
-    overlap = torch.matmul(flat, tb.OCC_T_BF16)             # [N, 2368]
+    overlap = torch.matmul(flat, dense_tables(board.device).OCC_T_BF16)  # [N, 2368]
     no_overlap = overlap.reshape(n, -1, NUM_CELLS) < 0.5
-    return tb.ANCHOR_OK[None] & no_overlap
+    return tables(board.device).ANCHOR_OK[None] & no_overlap
 
 
 def gather_piece_validity(all_valid: torch.Tensor,

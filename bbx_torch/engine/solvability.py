@@ -25,7 +25,7 @@ import torch
 
 from ..ops import build
 from .kernel import clear_lines_flat
-from .tables import MAX_PIECE_CELLS, NUM_CELLS, PIECES_PER_TURN, tables
+from .tables import MAX_PIECE_CELLS, NUM_CELLS, PIECES_PER_TURN, dense_tables, tables
 
 _M32 = 0xFFFFFFFF
 _BYTE = 0xFF
@@ -306,7 +306,7 @@ def solvable_disjoint(valid3: torch.Tensor, piece_ids: torch.Tensor) -> torch.Te
     Returns:
       [N] bool.
     """
-    tb = tables(piece_ids.device)
+    tb = dense_tables(piece_ids.device)
     pid = piece_ids.long()
     p0, p1, p2 = pid[:, 0], pid[:, 1], pid[:, 2]
     v0, v1, v2 = valid3[:, 0], valid3[:, 1], valid3[:, 2]

@@ -52,6 +52,7 @@ class StepOutput(NamedTuple):
     reward: torch.Tensor  # [N] f32
     done: torch.Tensor    # [N] bool -- episode ended at this step
     info: dict            # per-env diagnostic tensors
+    regen_attempts: torch.Tensor  # [N] i32 -- regen's draws per lane (0: kept its triple)
 
 
 def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -202,7 +203,7 @@ def step(state: EnvState, actions: torch.Tensor,
         stats in `info`.  With False, finished lanes stay terminal and
         further steps on them take the invalid-action path.
     Returns:
-      StepOutput(state, obs, reward, done, info).
+      StepOutput(state, obs, reward, done, info, regen_attempts).
     """
     tb = tables(state.device)
     n = state.num_envs
@@ -224,7 +225,7 @@ def step(state: EnvState, actions: torch.Tensor,
     all_used = used_after.all(dim=1) & valid
     bits = S.board_bits(new_board)
     seed = regen_seed(state.rng, state.device)
-    ids_after, _ = regen_pieces(bits, state.piece_ids, seed, all_used)
+    ids_after, attempts = regen_pieces(bits, state.piece_ids, seed, all_used)
     used_after = torch.where(all_used[:, None], False, used_after)
 
     # Game over: no unused piece has a valid placement.
@@ -326,4 +327,4 @@ def step(state: EnvState, actions: torch.Tensor,
                              tb.ANCHOR_OK[new_state.piece_ids.long()], valid3)
 
     obs = observe(new_state, valid3)
-    return StepOutput(new_state, obs, reward, game_over_now, info)
+    return StepOutput(new_state, obs, reward, game_over_now, info, attempts)

@@ -2,8 +2,10 @@
 
 Counterpart of `bbx/engine/tables.py`: the NumPy tables of
 `bbx_torch.engine.pieces` as tensors on one device, built once per device
-and cached.  `OCC_T_BF16` serves the all-pieces validity product and
-`PAIR_CONFLICT` the dense disjoint oracle, both off the step path.
+and cached.  `tables` holds what the step path and its kernels read;
+`dense_tables` holds the dense forms that only the all-pieces validity
+product and the dense disjoint oracle read, both off the step path, so a
+process that only steps never builds them.
 """
 from __future__ import annotations
 
@@ -38,7 +40,10 @@ class Tables:
     NO_CONFLICT_U64: torch.Tensor   # [37, 37, 64] i64 (u64 bit patterns)
     ANCHOR_OK_U64: torch.Tensor     # [37] i64 (u64 bit patterns)
     PIECE_SHIFTS_I32: torch.Tensor  # [37, 9] i32
-    # Dense forms for the all-pieces product and the dense oracle.
+
+
+@dataclass(frozen=True)
+class DenseTables:
     PAIR_CONFLICT: torch.Tensor     # [37, 37, 64, 64] bool
     OCC_T_BF16: torch.Tensor        # [64, 37*64] bf16, transposed occupancy
 
@@ -55,10 +60,19 @@ def tables(device) -> Tables:
     return _tables_on(_canonical(device))
 
 
+def dense_tables(device) -> DenseTables:
+    """The dense tables on `device` (built on first use, then cached)."""
+    return _dense_tables_on(_canonical(device))
+
+
+def _on(device: torch.device, a, dtype) -> torch.Tensor:
+    return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _tables_on(device: torch.device) -> Tables:
     def t(a, dtype):
-        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+        return _on(device, a, dtype)
 
     return Tables(
         PIECE_MASKS=t(P.PIECE_MASKS, torch.float32),
@@ -73,6 +87,12 @@ def _tables_on(device: torch.device) -> Tables:
         NO_CONFLICT_U64=t(P.NO_CONFLICT_U64, torch.int64),
         ANCHOR_OK_U64=t(P.ANCHOR_OK_U64, torch.int64),
         PIECE_SHIFTS_I32=t(P.PIECE_SHIFTS, torch.int32),
-        PAIR_CONFLICT=t(P.PAIR_CONFLICT, torch.bool),
-        OCC_T_BF16=t(P.PLACEMENT.reshape(-1, NUM_CELLS).T, torch.bfloat16),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_tables_on(device: torch.device) -> DenseTables:
+    return DenseTables(
+        PAIR_CONFLICT=_on(device, P.PAIR_CONFLICT, torch.bool),
+        OCC_T_BF16=_on(device, P.PLACEMENT.reshape(-1, NUM_CELLS).T, torch.bfloat16),
     )

@@ -19,7 +19,7 @@ from bbx_torch.engine import kernel as TK
 from bbx_torch.engine import solvability as TS
 from bbx_torch.engine import state as TState
 from bbx_torch.engine.step import observe, step
-from bbx_torch.engine.tables import tables
+from bbx_torch.engine.tables import dense_tables
 
 torch.set_num_threads(1)
 
@@ -57,7 +57,7 @@ def _boards(which, n=48):
 
 @pytest.mark.parametrize("name", ["PAIR_CONFLICT", "OCC_T_BF16"])
 def test_dense_table_equal(name):
-    got = getattr(tables("cpu"), name)
+    got = getattr(dense_tables("cpu"), name)
     want = np.asarray(getattr(JT, name))
     assert tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))

@@ -380,6 +380,36 @@ def test_regen_picks_first_accepted_draw(reachable):
     assert attempts.max() > 1  # some lane needed a second draw
 
 
+def test_step_reports_regen_attempts():
+    """`step` returns regen's attempts: those of `regen_pieces` on the new
+    board's bits with the step's seed (the generator's first draw of the
+    step), 0 on lanes that keep their triple, and the ids it chose (on
+    lanes whose game goes on)."""
+    rng = np.random.default_rng(12)
+    state = TState.reset(32, TState.make_generator(12, "cpu"), "cpu")
+    obs = t_observe(state)
+    seen = 0
+    for _ in range(9):
+        acts = torch.tensor([rng.choice(np.flatnonzero(m))
+                             for m in obs["action_mask"].numpy()], dtype=torch.int32)
+        rng_state = state.rng.get_state()
+        moved = t_move_core(state, acts)
+        need = moved[11].all(dim=1) & moved[0]
+        seed = TState.regen_seed(state.rng, "cpu")
+        ids, attempts = TState.regen_pieces(TS.board_bits(moved[3]), state.piece_ids,
+                                            seed, need)
+        state.rng.set_state(rng_state)
+        out = t_step(state, acts, auto_reset=True)
+        assert out.regen_attempts.dtype == torch.int32
+        assert torch.equal(out.regen_attempts, attempts)
+        kept = ~out.done  # lanes that ended a game draw fresh pieces
+        assert torch.equal(out.state.piece_ids[kept], ids[kept])
+        assert (attempts[~need] == 0).all() and (attempts[need] >= 1).all()
+        seen += int(need.sum())
+        state, obs = out.state, out.obs
+    assert seen > 0
+
+
 def test_regen_exhaustion_keeps_the_100th_draw():
     """On a full board no piece fits, so no triple is solvable: every lane
     in need spends all 100 attempts and keeps its 100th draw."""

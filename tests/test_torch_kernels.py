@@ -265,6 +265,31 @@ def test_regen_kernel_matches_plain(cuda, which):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 16384])
+def test_regen_kernel_matches_plain_at_path_lanes(cuda, n):
+    """K7 against `regen_pieces_plain` on the inputs of one step of a
+    mid-game fleet at the eval/train paths' 512 lanes and the engine path's
+    16,384, bit for bit; K7's attempts equal the step's `regen_attempts`
+    when the step runs from the same generator state."""
+    state, obs, _ = _midgame(cuda, n=n, moves=25, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+    acts = torch.where(obs["action_mask"], u, -1.0).argmax(1).to(torch.int32)
+    rng_state = state.rng.get_state()
+    moved = TStep._move_core(state, acts)
+    need = moved[11].all(dim=1) & moved[0]
+    bits = S.board_bits(moved[3])
+    seed = TState.regen_seed(state.rng, cuda)
+    state.rng.set_state(rng_state)
+    got = TState.regen_pieces(bits, state.piece_ids, seed, need)
+    want = TState.regen_pieces_plain(bits, state.piece_ids, seed, need)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert need.any()
+    assert torch.equal(step(state, acts, auto_reset=True).regen_attempts, got[1])
+
+
+@pytest.mark.gpu
 def test_step_makes_no_host_sync(cuda):
     """A step of a mid-game fleet on the card runs under sync-debug mode
     "error": regen (K7) and the rest of the step never wait for the host."""

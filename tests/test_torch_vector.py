@@ -10,6 +10,7 @@ the plumbing and the gates, not the rates.
 """
 import itertools
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -219,6 +220,17 @@ def test_fleet_rate_fails_loudly_on_spread(monkeypatch):
     result = e.value.result
     assert json.loads(str(e.value).split(": ", 1)[1]) == result
     assert result["rel_spread"] > TB.MAX_REL_SPREAD and result["device"] == "cpu"
+
+
+def test_card_fleet_timing_pins_its_thread_and_restores_it():
+    """A card's fleet is timed on one core (the third allowed one), and the
+    thread gets its cores back after; a CPU fleet is not pinned."""
+    allowed = os.sched_getaffinity(0)
+    with TB._pinned_thread(torch.device("cuda")):
+        assert os.sched_getaffinity(0) == {sorted(allowed)[min(2, len(allowed) - 1)]}
+    assert os.sched_getaffinity(0) == allowed
+    with TB._pinned_thread(torch.device("cpu")):
+        assert os.sched_getaffinity(0) == allowed
 
 
 def test_env_benchmark_is_not_ported():
