@@ -61,33 +61,49 @@ __device__ __forceinline__ void bb_conflict_rows(const long long* no_conflict,
     *nc12 = nc + (size_t)(id[1] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
 }
 
-// K3's body for thread t = (order, first anchor a1), given that the first
-// piece of the order is valid at a1: place it and clear, walk the second
-// piece's valid anchors a2 on that board (place, clear), and stop at the
-// first a2 after which the third piece fits anywhere, or as soon as
-// another thread of the block has set *found.  1 iff this thread found a
-// solution.
-__device__ __forceinline__ int bb_exact_hit(int t, u64 board,
-                                            const bb_triple* s,
-                                            volatile int* found) {
-    const int order = t / BB_ANCHORS;
-    const int a1 = t % BB_ANCHORS;
-    // Orders as (first, second) with third = 3 - first - second.
-    const int i = order / 2;
-    const int j = (order % 2 == 0) ? (i == 0 ? 1 : 0) : (i == 2 ? 1 : 2);
-    const int h = 3 - i - j;
-    const u64 b1 = bb_clear_lines(board | s->place[i][a1]);
-    u64 f2 = bb_fit(b1, s->shift[j], s->aok[j]);
+// The exact search from one first placement: the first piece at anchor
+// a1 (its PLACE row `place1`), then every valid anchor a2 of the second
+// piece (shifts `shift2`, anchor mask `aok2`, PLACE row `place2`) on the
+// cleared board, stopping at the first a2 after which the third piece
+// (`shift3`, `aok3`) fits anywhere, or as soon as another thread has set
+// *found.  1 iff this thread found a solution.
+__device__ __forceinline__ int bb_exact_hit_at(int a1, u64 board,
+                                               const u64* place1,
+                                               const int* shift2, u64 aok2,
+                                               const u64* place2,
+                                               const int* shift3, u64 aok3,
+                                               volatile int* found) {
+    const u64 b1 = bb_clear_lines(board | place1[a1]);
+    u64 f2 = bb_fit(b1, shift2, aok2);
     while (f2 && !*found) {
         const int a2 = BB_LOWEST(f2);
         f2 &= f2 - 1;
-        const u64 b2 = bb_clear_lines(b1 | s->place[j][a2]);
-        if (bb_fit(b2, s->shift[h], s->aok[h])) {
+        const u64 b2 = bb_clear_lines(b1 | place2[a2]);
+        if (bb_fit(b2, shift3, aok3)) {
             *found = 1;
             return 1;
         }
     }
     return 0;
+}
+
+// The pieces (first, second, third) of order o in [0, 6).
+__device__ __forceinline__ void bb_exact_order(int o, int* i, int* j, int* h) {
+    *i = o / 2;
+    *j = (o % 2 == 0) ? (*i == 0 ? 1 : 0) : (*i == 2 ? 1 : 2);
+    *h = 3 - *i - *j;
+}
+
+// K3's body for thread t = (order, first anchor a1) of a staged triple,
+// given that the first piece of the order is valid at a1.
+__device__ __forceinline__ int bb_exact_hit(int t, u64 board,
+                                            const bb_triple* s,
+                                            volatile int* found) {
+    int i, j, h;
+    bb_exact_order(t / BB_ANCHORS, &i, &j, &h);
+    return bb_exact_hit_at(t % BB_ANCHORS, board, s->place[i], s->shift[j],
+                           s->aok[j], s->place[j], s->shift[h], s->aok[h],
+                           found);
 }
 
 // The first piece of thread t's order in the exact tier.

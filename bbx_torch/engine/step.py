@@ -1,11 +1,20 @@
 """The batched game step: place -> clear -> score -> regen -> game over.
 
-The move core (validity, placement, clears, score, and the new board's
-holes / centre / fill) dispatches on the device of the state: the plain
-PyTorch version for CPU tensors, the CUDA kernel K6 (`csrc/move.cu`) for
-CUDA tensors, counting its launches in ``_move_core.launches``.  Regen is
-K7 on the card (`bbx_torch.engine.state.regen_pieces`) and the game-over
-test K1; the reward sum and the auto-reset stay tensor code.
+`step` dispatches on the device of the state.  On the CPU it runs the
+plain PyTorch versions: `_move_core_plain` (validity, placement, clears,
+score, the new board's holes / centre / fill, its bitboard and regen's
+need flag), `regen_pieces_plain`, and `_step_finish_plain` (the game-over
+test, the shaped reward, the counters, auto-reset and the observation).
+On the card it makes three kernel launches: K6's two entry points
+(`csrc/move.cu`: `bbx_move` before regen, `bbx_step_finish` after it)
+around regen's K7 (`csrc/regen.cu`), counted in ``_move_core.launches``,
+``_step_finish.launches`` and ``regen_pieces.launches``; a CUDA tensor
+never takes a plain version.  There the step's outputs (the new state, obs,
+reward, done and info) are views of `bbx_step_finish`'s two output blocks
+(info's holes, lines and score gained of `bbx_move`'s), so a caller that
+keeps one output keeps its block.  Both paths draw from the fleet's
+generator alike: regen's seed, then (with auto-reset) the fresh triples,
+once each a step.
 
 Counterpart of `bbx/engine/step.py`, with its quirks kept exactly:
   * invalid action: reward -10, state unchanged, episode does NOT end;
@@ -23,7 +32,8 @@ import torch
 from ..ops import build
 from . import kernel as K
 from . import solvability as S
-from .state import EnvState, fresh_pieces, regen_pieces, regen_seed
+from .state import (EnvState, _launch_regen, fresh_pieces, regen_pieces_plain,
+                    regen_seed)
 from .tables import BOARD_SIZE, NUM_ACTIONS, NUM_CELLS, PIECES_PER_TURN, tables
 
 MAX_COMBO_MULTIPLIER = 4   # engine.py:96
@@ -77,10 +87,32 @@ def observe(state: EnvState, valid3: Optional[torch.Tensor] = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# K6: the move core.
+# K6, before regen: the move core.
 # ---------------------------------------------------------------------------
 
-def _move_core_plain(state: EnvState, actions: torch.Tensor):
+class Moved(NamedTuple):
+    """The move core's outputs ([N] unless shown)."""
+
+    valid: torch.Tensor          # bool
+    piece: torch.Tensor          # i32
+    nblocks: torch.Tensor        # i32
+    new_board: torch.Tensor      # [N, 8, 8] u8
+    lines: torch.Tensor          # i32
+    rows_cleared: torch.Tensor   # i32
+    cols_cleared: torch.Tensor   # i32
+    cleared_any: torch.Tensor    # bool
+    streak_after: torch.Tensor   # i32
+    combo_mult: torch.Tensor     # i32
+    score_gained: torch.Tensor   # i32
+    used_after: torch.Tensor     # [N, 3] bool
+    holes: torch.Tensor          # i32
+    center: torch.Tensor         # f32
+    filled: torch.Tensor         # i32
+    bits: torch.Tensor           # [N, 2] i64, the new board's bitboard
+    need: torch.Tensor           # bool, regen's need: all used by a valid move
+
+
+def _move_core_plain(state: EnvState, actions: torch.Tensor) -> Moved:
     """Plain version of `_move_core`."""
     tb = tables(state.device)
     n = state.num_envs
@@ -117,119 +149,134 @@ def _move_core_plain(state: EnvState, actions: torch.Tensor):
 
     one_hot = torch.nn.functional.one_hot(slot, PIECES_PER_TURN).to(torch.bool)
     used_after = torch.where(valid[:, None], state.used | one_hot, state.used)
-    return (
+    return Moved(
         valid, piece, nblocks, new_board, lines, rows_c, cols_c,
         cleared_any, streak_after, combo_mult, score_gained, used_after,
         K.count_holes(new_board), K.center_openness(new_board),
-        K.total_blocks(new_board),
+        K.total_blocks(new_board), S.board_bits(new_board),
+        used_after.all(dim=1) & valid,
     )
 
 
-def _move_core(state: EnvState, actions: torch.Tensor):
+def _move_core(state: EnvState, actions: torch.Tensor) -> Moved:
     """Pure move mechanics for all lanes (validity, placement, clears,
-    score) and the statistics of the new board.
+    score) and what the rest of the step reads of the new board.
 
     Args:
       state: batched EnvState (boards 0/1).
       actions: [N] integer flat actions in [0, 192).
     Returns:
-      (valid [N] bool, piece [N] i32, nblocks [N] i32, new_board [N,8,8]
-      uint8, lines [N] i32, rows_cleared [N] i32, cols_cleared [N] i32,
-      cleared_any [N] bool, streak_after [N] i32, combo_mult [N] i32,
-      score_gained [N] i32, used_after [N,3] bool, holes [N] i32,
-      center [N] f32, filled [N] i32): the twelve outputs of
-      `bbx/engine/step.py:_move_core`, then `count_holes`,
-      `center_openness` and `total_blocks` of the new board.
+      `Moved`: the twelve outputs of `bbx/engine/step.py:_move_core`
+      (valid, piece, nblocks, new_board, lines, rows_cleared, cols_cleared,
+      cleared_any, streak_after, combo_mult, score_gained, used_after), then
+      `count_holes`, `center_openness` and `total_blocks` of the new board,
+      its bitboard (`solvability.board_bits`) and regen's need flag
+      (``used_after.all(1) & valid``).
     """
     if not state.board.is_cuda:
         return _move_core_plain(state, actions)
-    return _move_core_cuda(state, actions)
+    return _move_core_cuda(state, _require_state(state, actions))
 
 
-# Rows of the kernel's int32 and bool output blocks (`csrc/move.cu`).
-(_MV_PIECE, _MV_NBLOCKS, _MV_LINES, _MV_ROWS, _MV_COLS, _MV_STREAK, _MV_COMBO,
- _MV_SCORE, _MV_HOLES, _MV_FILL) = range(10)
-
-
-def _move_core_cuda(state: EnvState, actions: torch.Tensor):
+def _require_state(state: EnvState, actions: Optional[torch.Tensor] = None):
+    """Raise unless every field of `state` (and `actions`, converted to
+    int32) is what K6 takes; returns the converted actions."""
     n = state.num_envs
-    build.require("_move_core: board", state.board, torch.uint8,
-                  (n, BOARD_SIZE, BOARD_SIZE))
-    build.require("_move_core: piece_ids", state.piece_ids, torch.int32,
-                  (n, PIECES_PER_TURN))
-    build.require("_move_core: used", state.used, torch.bool, (n, PIECES_PER_TURN))
-    build.require("_move_core: done", state.done, torch.bool, (n,))
-    build.require("_move_core: streak", state.streak, torch.int32, (n,))
-    actions = actions.to(torch.int32).contiguous()
-    build.require("_move_core: actions", actions, torch.int32, (n,))
-    tb = tables(state.device)
-    dev = state.device
-    new_board = torch.empty((n, BOARD_SIZE, BOARD_SIZE), dtype=torch.uint8,
-                            device=dev)
-    ints = torch.empty((10, n), dtype=torch.int32, device=dev)
-    flags = torch.empty((2, n), dtype=torch.bool, device=dev)
-    used_after = torch.empty((n, PIECES_PER_TURN), dtype=torch.bool, device=dev)
-    center = torch.empty(n, dtype=torch.float32, device=dev)
+    shapes = {1: (n,), 3: (n, PIECES_PER_TURN), 8: (n, BOARD_SIZE, BOARD_SIZE)}
+    checks = [(label, getattr(state, field), dtype, shapes[kind])
+              for label, field, dtype, kind in _STATE_CHECKS]
+    if actions is not None:
+        actions = actions.to(torch.int32).contiguous()
+        checks.append(("step: actions", actions, torch.int32, shapes[1]))
+    build.require_many(checks)
+    return actions
+
+
+# (label, field, dtype, shape kind: [n], [n, 3] or [n, 8, 8]) of each
+# field of the state that K6 reads.
+_STATE_CHECKS = (
+    ("step: board", "board", torch.uint8, 8),
+    ("step: piece_ids", "piece_ids", torch.int32, 3),
+    ("step: used", "used", torch.bool, 3),
+    ("step: done", "done", torch.bool, 1),
+    ("step: prev_center", "prev_center", torch.float32, 1),
+    ("step: ep_return", "ep_return", torch.float32, 1),
+) + tuple((f"step: {f}", f, torch.int32, 1) for f in (
+    "score", "streak", "moves", "lines_total", "max_streak", "blocks_total",
+    "prev_holes", "ep_len"))
+# `bbx_move`'s two output blocks (`csrc/move.cu`): int32 words [bits 4n |
+# ten int32 rows | centre f32 n] and bytes [board 64n | used 3n | three
+# bool rows].
+_MV_INTS, _MV_FLAGS = 10, 3
+_MV_WORDS = 4 + _MV_INTS + 1
+_MV_BYTES = NUM_CELLS + PIECES_PER_TURN + _MV_FLAGS
+(_MV_PIECE, _MV_NBLOCKS, _MV_LINES, _MV_ROWS, _MV_COLS, _MV_STREAK, _MV_COMBO,
+ _MV_SCORE, _MV_HOLES, _MV_FILL) = range(_MV_INTS)
+
+
+def _launch_move(state: EnvState, actions: torch.Tensor, stream: int, tb):
+    """`bbx_move` on a checked state into two fresh blocks: (words, raw)."""
+    n = state.num_envs
+    dev = state.board.device
+    words = torch.empty(n * _MV_WORDS, dtype=torch.int32, device=dev)
+    raw = torch.empty(n * _MV_BYTES, dtype=torch.uint8, device=dev)
+    w, r = words.data_ptr(), raw.data_ptr()
     err = build.function("move")(
         state.board.data_ptr(), state.piece_ids.data_ptr(),
         state.used.data_ptr(), state.done.data_ptr(), state.streak.data_ptr(),
         actions.data_ptr(), tb.PLACE_U64.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
-        tb.PIECE_NBLOCKS.data_ptr(), new_board.data_ptr(), ints.data_ptr(),
-        flags.data_ptr(), used_after.data_ptr(), center.data_ptr(), n,
-        build.stream_of(state.board))
+        tb.PIECE_NBLOCKS.data_ptr(), r, w + 16 * n, r + (NUM_CELLS + PIECES_PER_TURN) * n,
+        r + NUM_CELLS * n, w + 56 * n, w, n, stream)
     build.check("move", err)
-    _move_core.launches += 1
-    return (
-        flags[0], ints[_MV_PIECE], ints[_MV_NBLOCKS], new_board, ints[_MV_LINES],
-        ints[_MV_ROWS], ints[_MV_COLS], flags[1], ints[_MV_STREAK],
-        ints[_MV_COMBO], ints[_MV_SCORE], used_after, ints[_MV_HOLES], center,
-        ints[_MV_FILL],
-    )
+    if n:
+        _move_core.launches += 1
+    return words, raw
+
+
+def _move_core_cuda(state: EnvState, actions: torch.Tensor) -> Moved:
+    """`bbx_move` on a checked state, its outputs as views of its blocks."""
+    n = state.num_envs
+    words, raw = _launch_move(state, actions, build.stream_of(state.board),
+                              tables(state.device))
+    bits, ints, center = words.split([4 * n, _MV_INTS * n, n])
+    new_board, used_after, flags = raw.split(
+        [NUM_CELLS * n, PIECES_PER_TURN * n, _MV_FLAGS * n])
+    (piece, nblocks, lines, rows_c, cols_c, streak, combo, score, holes,
+     fill) = ints.view(_MV_INTS, n).unbind(0)
+    valid, cleared, need = flags.view(torch.bool).view(_MV_FLAGS, n).unbind(0)
+    return Moved(
+        valid, piece, nblocks, new_board.view(n, BOARD_SIZE, BOARD_SIZE), lines,
+        rows_c, cols_c, cleared, streak, combo, score,
+        used_after.view(torch.bool).view(n, PIECES_PER_TURN), holes,
+        center.view(torch.float32), fill, bits.view(torch.int64).view(n, 2), need)
 
 
 _move_core.launches = 0
 
 
-def step(state: EnvState, actions: torch.Tensor,
-         reward_config: RewardConfig = RewardConfig(),
-         auto_reset: bool = True) -> StepOutput:
-    """Advance every environment by one action.
+# ---------------------------------------------------------------------------
+# K6, after regen: game over, reward, counters, auto-reset, observation.
+# ---------------------------------------------------------------------------
 
-    Args:
-      state: batched EnvState.
-      actions: [N] integer flat actions (slot*64 + row*8 + col).
-      reward_config: shaped-reward coefficients.
-      auto_reset: reset finished lanes in place, with their final episode
-        stats in `info`.  With False, finished lanes stay terminal and
-        further steps on them take the invalid-action path.
-    Returns:
-      StepOutput(state, obs, reward, done, info, regen_attempts).
-    """
+def _step_finish_plain(state: EnvState, moved: Moved, ids_after: torch.Tensor,
+                       fresh: Optional[torch.Tensor],
+                       reward_config: RewardConfig, auto_reset: bool):
+    """Plain version of `_step_finish`."""
     tb = tables(state.device)
     n = state.num_envs
-    (
-        valid, piece, nblocks, new_board, lines, rows_c, cols_c,
-        cleared_any, streak_after, combo_mult, score_gained, used_after,
-        holes_now, center_now, filled,
-    ) = _move_core(state, actions)
+    (valid, _piece, nblocks, new_board, lines, _rows, _cols, cleared_any,
+     streak_after, combo_mult, score_gained, used_after, holes_now, center_now,
+     filled, bits, all_used) = moved
 
     score_after = state.score + score_gained
     moves_after = state.moves + valid.to(torch.int32)
     lines_total_after = state.lines_total + lines
     max_streak_after = torch.maximum(state.max_streak, streak_after)
     blocks_total_after = state.blocks_total + torch.where(valid, nblocks, 0)
-
-    # Regenerate pieces when all three are used (K7 on the card: one launch,
-    # no host synchronisation).  One seed per step, drawn whether or not a
-    # lane needs it, so the generator advances alike on every step.
-    all_used = used_after.all(dim=1) & valid
-    bits = S.board_bits(new_board)
-    seed = regen_seed(state.rng, state.device)
-    ids_after, attempts = regen_pieces(bits, state.piece_ids, seed, all_used)
     used_after = torch.where(all_used[:, None], False, used_after)
 
     # Game over: no unused piece has a valid placement.
-    valid3 = S.valid3_bits(bits, ids_after)
+    valid3 = S.valid3_bits_plain(bits, ids_after)
     mask3 = valid3 & ~used_after[:, :, None]
     no_moves = ~mask3.reshape(n, -1).any(dim=1)
     done_after = torch.where(valid, no_moves, state.done)
@@ -303,10 +350,9 @@ def step(state: EnvState, actions: torch.Tensor,
 
     if auto_reset:
         d = game_over_now
-        draw = fresh_pieces(n, state.rng, state.device)
         new_state = EnvState(
             board=torch.where(d[:, None, None], 0, new_state.board),
-            piece_ids=torch.where(d[:, None], draw, new_state.piece_ids),
+            piece_ids=torch.where(d[:, None], fresh, new_state.piece_ids),
             used=torch.where(d[:, None], False, new_state.used),
             score=torch.where(d, 0, new_state.score),
             streak=torch.where(d, 0, new_state.streak),
@@ -327,4 +373,210 @@ def step(state: EnvState, actions: torch.Tensor,
                              tb.ANCHOR_OK[new_state.piece_ids.long()], valid3)
 
     obs = observe(new_state, valid3)
-    return StepOutput(new_state, obs, reward, game_over_now, info, attempts)
+    return new_state, obs, reward, game_over_now, info
+
+
+def _step_finish(state: EnvState, moved: Moved, ids_after: torch.Tensor,
+                 fresh: Optional[torch.Tensor],
+                 reward_config: RewardConfig = RewardConfig(),
+                 auto_reset: bool = True):
+    """The rest of `bbx/engine/step.py:step` after regen, per lane.
+
+    Args:
+      state: the EnvState before the step.
+      moved: `_move_core`'s outputs for the step's actions.
+      ids_after: [N, 3] int32, regen's ids (`regen_pieces` on
+        ``moved.bits`` and ``moved.need``).
+      fresh: [N, 3] int32, the triples of lanes that reset
+        (`fresh_pieces`); None without auto-reset.
+      reward_config, auto_reset: as `step`'s.
+    Returns:
+      (new state, obs, reward, done, info) as in `StepOutput`.
+    """
+    if not state.board.is_cuda:
+        return _step_finish_plain(state, moved, ids_after, fresh,
+                                  reward_config, auto_reset)
+    _require_state(state)
+    n = state.num_envs
+    i32, b = torch.int32, torch.bool
+    checks = [("ids_after", ids_after, i32, (n, PIECES_PER_TURN)),
+              ("used_after", moved.used_after, b, (n, PIECES_PER_TURN)),
+              ("center", moved.center, torch.float32, (n,)),
+              ("bits", moved.bits, torch.int64, (n, 2))]
+    checks += [(f, getattr(moved, f), b, (n,)) for f in ("valid", "cleared_any", "need")]
+    checks += [(f, getattr(moved, f), i32, (n,)) for f in (
+        "nblocks", "lines", "combo_mult", "score_gained", "holes", "filled",
+        "streak_after")]
+    if auto_reset:
+        checks.append(("fresh", fresh, i32, (n, PIECES_PER_TURN)))
+    build.require_many([(f"_step_finish: {name}", *rest) for name, *rest in checks])
+    return _step_finish_cuda(state, moved, ids_after, fresh, reward_config,
+                             auto_reset)
+
+
+def _reward_coefficients(rc: RewardConfig) -> tuple:
+    """The reward's coefficients as the plain version's float32 arithmetic
+    sees them: each Python double (``center_bonus * 0.1`` a double product)
+    is rounded once to float32, by ctypes as by PyTorch."""
+    return (rc.block_placed, rc.survival_bonus, rc.line_clear_base,
+            rc.combo_multiplier_bonus, rc.game_over_penalty, rc.hole_penalty,
+            rc.center_bonus * 0.1)
+
+
+# Rows of `bbx_step_finish`'s output blocks (`csrc/move.cu`).
+_FIN_FLOATS, _FIN_INTS, _FIN_BOOLS = 5, 16, 3
+_OBS_FLOATS = NUM_CELLS + NUM_ACTIONS  # board and pieces planes a lane
+
+
+def _launch_finish(state: EnvState, moved_ptrs, ids_after: int,
+                   fresh: Optional[int], reward_config: RewardConfig,
+                   auto_reset: bool, stream: int, tb):
+    """`bbx_step_finish` on checked inputs (`moved_ptrs`: the device
+    pointers of bbx_move's valid, cleared_any, need, used_after, nblocks,
+    lines, combo_mult, score_gained, holes, filled, streak_after, center
+    and bits) into two fresh blocks: (words, raw)."""
+    n = state.num_envs
+    dev = state.board.device
+    words = torch.empty(n * (_OBS_FLOATS + _FIN_FLOATS + PIECES_PER_TURN + _FIN_INTS),
+                        dtype=torch.int32, device=dev)
+    raw = torch.empty(n * (NUM_CELLS + NUM_ACTIONS + PIECES_PER_TURN + _FIN_BOOLS),
+                      dtype=torch.uint8, device=dev)
+    err = build.function("step_finish")(
+        state.score.data_ptr(), state.moves.data_ptr(),
+        state.lines_total.data_ptr(), state.max_streak.data_ptr(),
+        state.blocks_total.data_ptr(), state.prev_holes.data_ptr(),
+        state.ep_len.data_ptr(), state.done.data_ptr(),
+        state.prev_center.data_ptr(), state.ep_return.data_ptr(), *moved_ptrs,
+        ids_after, fresh if auto_reset else None, tb.PLACE_U64.data_ptr(),
+        tb.PIECE_SHIFTS_I32.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
+        *_reward_coefficients(reward_config), int(auto_reset), words.data_ptr(),
+        raw.data_ptr(), n, stream)
+    build.check("step_finish", err)
+    if n:
+        _step_finish.launches += 1
+    return words, raw
+
+
+def _finish_views(state: EnvState, words, raw, holes, lines, score_gained):
+    """(new state, obs, reward, done, info) as views of `bbx_step_finish`'s
+    blocks (info's holes, lines and score_gained are bbx_move's)."""
+    n = state.num_envs
+    obs_board, obs_pieces, floats, _ = words.view(torch.float32).split(
+        [NUM_CELLS * n, NUM_ACTIONS * n, _FIN_FLOATS * n,
+         (PIECES_PER_TURN + _FIN_INTS) * n])
+    ids, ints = words[(_OBS_FLOATS + _FIN_FLOATS) * n:].split(
+        [PIECES_PER_TURN * n, _FIN_INTS * n])
+    board = raw[:NUM_CELLS * n]
+    mask, used, flags = raw[NUM_CELLS * n:].view(torch.bool).split(
+        [NUM_ACTIONS * n, PIECES_PER_TURN * n, _FIN_BOOLS * n])
+    prev_center, ep_return, reward, final_return, fill = floats.view(
+        _FIN_FLOATS, n).unbind(0)
+    (score, streak, moves, lines_total, max_streak, blocks_total, prev_holes,
+     ep_len, score_i, moves_i, lines_i, max_streak_i, blocks_i, ep_len_i,
+     last_blocks, last_combo) = ints.view(_FIN_INTS, n).unbind(0)
+    done, game_over, invalid = flags.view(_FIN_BOOLS, n).unbind(0)
+    new_state = EnvState(
+        board=board.view(n, BOARD_SIZE, BOARD_SIZE),
+        piece_ids=ids.view(n, PIECES_PER_TURN),
+        used=used.view(n, PIECES_PER_TURN),
+        score=score, streak=streak, moves=moves, lines_total=lines_total,
+        max_streak=max_streak, blocks_total=blocks_total, done=done,
+        prev_holes=prev_holes, prev_center=prev_center, ep_return=ep_return,
+        ep_len=ep_len, rng=state.rng)
+    obs = {"board": obs_board.view(n, BOARD_SIZE, BOARD_SIZE),
+           "pieces": obs_pieces.view(n, PIECES_PER_TURN, BOARD_SIZE, BOARD_SIZE),
+           "action_mask": mask.view(n, NUM_ACTIONS)}
+    info = {
+        "score": score_i, "moves": moves_i, "lines_cleared": lines_i,
+        "max_combo": max_streak_i, "blocks_placed": blocks_i,
+        "board_fill": fill, "holes": holes, "invalid_action": invalid,
+        "last_blocks_placed": last_blocks, "last_lines_cleared": lines,
+        "last_combo_multiplier": last_combo, "last_score_gained": score_gained,
+        "final_score": score_i, "final_length": ep_len_i,
+        "final_return": final_return, "final_lines": lines_i,
+        "final_max_combo": max_streak_i,
+    }
+    return new_state, obs, reward, game_over, info
+
+
+def _step_finish_cuda(state: EnvState, moved: Moved, ids_after: torch.Tensor,
+                      fresh: Optional[torch.Tensor], reward_config: RewardConfig,
+                      auto_reset: bool):
+    """`bbx_step_finish` on checked inputs."""
+    m = moved
+    ptrs = tuple(t.data_ptr() for t in (
+        m.valid, m.cleared_any, m.need, m.used_after, m.nblocks, m.lines,
+        m.combo_mult, m.score_gained, m.holes, m.filled, m.streak_after,
+        m.center, m.bits))
+    words, raw = _launch_finish(
+        state, ptrs, ids_after.data_ptr(), fresh.data_ptr() if auto_reset else None,
+        reward_config, auto_reset, build.stream_of(state.board), tables(state.device))
+    return _finish_views(state, words, raw, m.holes, m.lines, m.score_gained)
+
+
+_step_finish.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The step.
+# ---------------------------------------------------------------------------
+
+def step(state: EnvState, actions: torch.Tensor,
+         reward_config: RewardConfig = RewardConfig(),
+         auto_reset: bool = True) -> StepOutput:
+    """Advance every environment by one action.
+
+    Args:
+      state: batched EnvState.
+      actions: [N] integer flat actions (slot*64 + row*8 + col).
+      reward_config: shaped-reward coefficients.
+      auto_reset: reset finished lanes in place, with their final episode
+        stats in `info`.  With False, finished lanes stay terminal and
+        further steps on them take the invalid-action path.
+    Returns:
+      StepOutput(state, obs, reward, done, info, regen_attempts).
+    """
+    if not state.board.is_cuda:
+        return _step_plain(state, actions, reward_config, auto_reset)
+    return _step_cuda(state, actions, reward_config, auto_reset)
+
+
+def _step_plain(state, actions, reward_config, auto_reset) -> StepOutput:
+    moved = _move_core_plain(state, actions)
+    # One seed per step, drawn whether or not a lane needs it, so the
+    # generator advances alike on every step.
+    seed = regen_seed(state.rng, state.device)
+    ids, attempts = regen_pieces_plain(moved.bits, state.piece_ids, seed, moved.need)
+    fresh = fresh_pieces(state.num_envs, state.rng, state.device) if auto_reset else None
+    return StepOutput(*_step_finish_plain(state, moved, ids, fresh, reward_config,
+                                          auto_reset), attempts)
+
+
+def _step_cuda(state, actions, reward_config, auto_reset) -> StepOutput:
+    """K6, K7, K6: three launches and the generator's draws, the state
+    checked once, the kernels' inputs passed as pointers into the previous
+    kernel's output blocks, no host synchronisation."""
+    actions = _require_state(state, actions)
+    n = state.num_envs
+    dev = state.board.device
+    stream = build.stream_of(state.board)
+    tb = tables(dev)
+    words, raw = _launch_move(state, actions, stream, tb)
+    w, r = words.data_ptr(), raw.data_ptr()
+    seed = regen_seed(state.rng, dev)
+    flags = r + (NUM_CELLS + PIECES_PER_TURN) * n
+    ids, attempts = _launch_regen(w, state.piece_ids.data_ptr(), flags + 2 * n,
+                                  seed.data_ptr(), n, dev, stream, tb)
+    fresh = fresh_pieces(n, state.rng, dev) if auto_reset else None
+    row = w + 16 * n  # the int32 row i of bbx_move is at row + 4 * n * i
+    moved_ptrs = (flags, flags + n, flags + 2 * n, r + NUM_CELLS * n,
+                  row + 4 * n * _MV_NBLOCKS, row + 4 * n * _MV_LINES,
+                  row + 4 * n * _MV_COMBO, row + 4 * n * _MV_SCORE,
+                  row + 4 * n * _MV_HOLES, row + 4 * n * _MV_FILL,
+                  row + 4 * n * _MV_STREAK, w + 56 * n, w)
+    fin_words, fin_raw = _launch_finish(
+        state, moved_ptrs, ids.data_ptr(), fresh.data_ptr() if auto_reset else None,
+        reward_config, auto_reset, stream, tb)
+    ints = words[4 * n:(4 + _MV_INTS) * n].view(_MV_INTS, n)
+    return StepOutput(*_finish_views(state, fin_words, fin_raw, ints[_MV_HOLES],
+                                     ints[_MV_LINES], ints[_MV_SCORE]), attempts)

@@ -13,6 +13,7 @@ Every exported C function launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,26 +42,31 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each library's entry point: (symbol, argtypes).
+# Each entry point: (its library, its C symbol, its argtypes).
 SIGNATURES = {
     # bits, ids, shifts, anchor_ok, out, k, stream
-    "valid3": ("bbx_valid3", [_P, _P, _P, _P, _P, _I, _P]),
+    "valid3": ("valid3", "bbx_valid3", [_P, _P, _P, _P, _P, _I, _P]),
     # ids, valid3, no_conflict, out, k, stream
-    "solvable_disjoint": ("bbx_solvable_disjoint", [_P, _P, _P, _P, _I, _P]),
+    "solvable_disjoint": ("solvable_disjoint", "bbx_solvable_disjoint",
+                          [_P, _P, _P, _P, _I, _P]),
     # bits, ids, valid3, place, shifts, anchor_ok, out, k, stream
-    "solvable_exact": ("bbx_solvable_exact",
+    "solvable_exact": ("solvable_exact", "bbx_solvable_exact",
                        [_P, _P, _P, _P, _P, _P, _P, _I, _P]),
     # board, pieces, planes, lines, overlap, b, stream
-    "afterstate": ("bbx_afterstate", [_P, _P, _P, _P, _P, _I, _P]),
+    "afterstate": ("afterstate", "bbx_afterstate", [_P, _P, _P, _P, _P, _I, _P]),
     # rewards, dones, values, last_value, adv, ret, gamma, gamma*lambda,
     # t, n, stream
-    "gae": ("bbx_gae", [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _P]),
+    "gae": ("gae", "bbx_gae", [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _P]),
     # board, ids, used, done, streak, action, place, anchor_ok, nblocks,
-    # new_board, ints, flags, used_after, center, n, stream
-    "move": ("bbx_move", [_P] * 14 + [_I, _P]),
+    # new_board, ints, flags, used_after, center, bits, n, stream
+    "move": ("move", "bbx_move", [_P] * 15 + [_I, _P]),
+    # 10 state fields, 13 of bbx_move's outputs, ids, fresh, place, shifts,
+    # anchor_ok, 7 reward coefficients, auto_reset, out4, out1, n, stream
+    "step_finish": ("move", "bbx_step_finish",
+                    [_P] * 28 + [_F] * 7 + [_I, _P, _P, _I, _P]),
     # bits, ids, need, seed, place, shifts, anchor_ok, no_conflict,
-    # out_ids, attempts, n, stream
-    "regen": ("bbx_regen", [_P] * 10 + [_I, _P]),
+    # out_ids, attempts, counters, n, blocks, threads, stream
+    "regen": ("regen", "bbx_regen", [_P] * 11 + [_I, _I, _I, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}
@@ -130,13 +136,13 @@ def build_all() -> dict:
 
 
 def function(name: str):
-    """The ctypes entry point of kernel library `name` (built on first use)."""
+    """The ctypes function of entry point `name` (built on first use)."""
     fn = _LOADED.get(name)
     if fn is None:
-        lib_path = os.path.join(build_dir(), f"lib{name}.so")
+        lib, symbol, argtypes = SIGNATURES[name]
+        lib_path = os.path.join(build_dir(), f"lib{lib}.so")
         if not os.path.exists(lib_path):
             build_all()
-        symbol, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(lib_path), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -155,6 +161,27 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(device, threads: int) -> int:
+    """How many blocks of `threads` threads the card `device` holds at
+    once: its SM count times the blocks an SM's thread slots take (an upper
+    bound; registers or shared memory may hold fewer)."""
+    import torch
+
+    props = torch.cuda.get_device_properties(device)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // threads
+    return props.multi_processor_count * max(1, per_sm)
+
+
+def require_many(checks) -> None:
+    """`require` for each ``(name, t, dtype, shape)`` of `checks`, with
+    the common case (all of them right) tested in one pass."""
+    for name, t, dtype, shape in checks:
+        if not (t.is_cuda and t.dtype == dtype and t.shape == shape
+                and t.is_contiguous()):
+            require(name, t, dtype, shape)
 
 
 def require(name: str, t, dtype, shape) -> None:

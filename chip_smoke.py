@@ -8,22 +8,28 @@ Phases, each of which must pass (exit code 1 otherwise):
 1. identify the card (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels K1-K7 from `bbx_torch/csrc/` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (outputs must be exactly equal; K5's floats too, to
-   the last bit; K4 at the rollout's 512 lanes and at the update's 2048;
-   K1, K6 and K7, the fused regen, at the eval and train paths' 512 lanes
-   and at the engine path's 16,384, the latter on the inputs of one step
-   of the engine path's own fleet; K7 in ids and attempts on one seed
-   tensor, also at the FLEET lanes' realistic need and with every lane in
-   need), on reachable mid-game boards made by the port's own engine from
-   a seed, and time both with CUDA events;
+   main paths' shapes (outputs must be exactly equal; floats too, to the
+   last bit: K5's, and the reward and episode return of K6's
+   `bbx_step_finish`), on reachable mid-game boards made by the port's own
+   engine from a seed: K4 at the rollout's 512 lanes and at the update's
+   2048; K6's two entry points and the whole step (K6, K7, K6) on one step
+   of the engine path's own fleet, at its 16,384 lanes and at the eval and
+   train paths' 512; K7 on that step's inputs (its attempts equal to the
+   step's own) at each block width it takes, at 512 lanes, and at the
+   FLEET lanes' realistic need and with every lane in need; each timed as
+   wrapper calls between CUDA events (`ms`), as device time by
+   `torch.profiler` (`device_ms`, K6 and K7) and as host time a call
+   (`host_us`, K6 and K7);
 4. the engine path through `bbx_torch.cli.benchmark`: random-policy
    env-steps/s of 16,384 lanes (chunks of 64 steps, 5 windows of 10
    chunks, the 20% spread gate; a measurement that breaks it is taken
    again, up to 20 times, and every one is reported) with the launch
    counters set to 0 before and read after, a sweep over 4,096 /
    16,384 / 32,768 lanes, regen's draws per step from the step's
-   `regen_attempts`, a profiled chunk (busy share, K7's share of the
-   device time) and one step under sync-debug mode "error";
+   `regen_attempts`, a profiled chunk (kernel launches and device time a
+   step, at most ENGINE_MAX_LAUNCHES_PER_STEP launches; busy share; K6's
+   and K7's device time a step) and one step under sync-debug mode
+   "error";
 5. the eval path: a 512-episode greedy eval of a seeded, freshly
    initialised AfterstateNetwork at the widths of `config/run9.yaml`
    (bf16) through `bbx_torch.cli.evaluate.main`, with every kernel's
@@ -120,15 +126,30 @@ RUN9_REWARDS = {
     "survival_bonus": 0.001,
 }
 
-# The kernels each path launches.  The verdict tiers K2 and K3 run inside
-# K7 on the step paths; their standalone kernels serve the parity engine.
+# The kernels each path launches, by launch counter.  The verdict tiers K2
+# and K3 run inside K7 on the step paths; their standalone kernels serve
+# the parity engine.  K1 runs on the step paths only in `observe` at a
+# reset: the step's own game-over test and masks are K6's
+# (`_step_finish`).
 PATH_KERNELS = {
-    "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "regen_pieces"),
+    "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish",
+             "regen_pieces"),
     "train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
-              "regen_pieces"),
-    "engine": ("valid3_bits", "_move_core", "regen_pieces"),
+              "_step_finish", "regen_pieces"),
+    "engine": ("valid3_bits", "_move_core", "_step_finish", "regen_pieces"),
     "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
                "_move_core"),
+}
+# The kernels line's rows (one a kernel) and the launch counters each
+# sums: K6 has two entry points, `bbx_move` and `bbx_step_finish`.
+ROW_COUNTERS = {
+    "valid3_bits": ("valid3_bits",),
+    "solvable_disjoint_bits": ("solvable_disjoint_bits",),
+    "solvable_exact_bits": ("solvable_exact_bits",),
+    "afterstate_buffer": ("afterstate_buffer",),
+    "compute_gae": ("compute_gae",),
+    "_move_core/_step_finish": ("_move_core", "_step_finish"),
+    "regen_pieces": ("regen_pieces",),
 }
 ENGINE_LANES = 16384             # bench.py's fleet
 ENGINE_SWEEP = (4096, 16384, 32768)
@@ -145,6 +166,10 @@ ENGINE_CHUNK, ENGINE_CHUNKS = 64, 10
 # such, with no rate.
 ENGINE_ATTEMPTS = 20
 SWEEP_ATTEMPTS = 4
+# Kernel launches a step of the engine path may take, by the profiler:
+# K6 twice, K7, the generator's two draws, the sampler and the reward sum.
+ENGINE_MAX_LAUNCHES_PER_STEP = 25
+REGEN_WIDTHS = (128, 192, 256, 384)  # K7's block widths, timed in phase 3
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, used as the ceiling for the
@@ -186,6 +211,46 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 30):
+    """Device time of one launch of `kernel` (a substring of its name) per
+    call of `fn`, by `torch.profiler` over `reps` calls after a warm-up; a
+    session that records no such kernel (it happens to a process's first)
+    is taken again, twice at most, and then the time is "not measured"."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(t, c) for k, (t, c) in device_ms_by_kernel(prof).items() if kernel in k]
+        calls = sum(c for _, c in hits)
+        if calls:
+            return sum(t for t, _ in hits) / calls
+    return "not measured"
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host time of one call of `fn` (its enqueue, not the device's work):
+    median over 5 runs of `reps` back-to-back calls, synchronised between
+    runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        samples.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -345,9 +410,14 @@ def kernel_phase(device, report):
         shape=f"rewards, dones, values [{t},{n}], last_value [{n}] -> adv, ret "
               f"[{t},{n}] (equal bit for bit)"))
 
-    # K6 on reachable boards with some slots used, some lanes done, streaks,
-    # and actions that are valid (3 in 4) or random: checked on all FLEET
-    # lanes, timed at the main paths' 512 lanes (and at FLEET).
+    # K6's `bbx_move` on reachable boards with some slots used, some lanes
+    # done, streaks, and actions that are valid (3 in 4) or random, on all
+    # FLEET lanes.  Then both of K6's entry points and the whole step (K6,
+    # K7, K6), each against its plain version and timed, on one step of the
+    # engine path's own fleet: at its 16,384 lanes and at the eval and
+    # train paths' 512 (the fleet's first lanes), which the kernels line
+    # reports.
+    from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
 
     k = FLEET
@@ -360,60 +430,67 @@ def kernel_phase(device, report):
     pick = torch.where(obs["action_mask"], u, -1.0).argmax(1)
     rand = torch.randint(0, 192, (k,), generator=g, device=device)
     acts = torch.where(torch.arange(k, device=device) % 4 == 0, rand, pick)
-    acts = acts.to(torch.int32)
-    got = ST._move_core(mv_state, acts)
-    want = ST._move_core_plain(mv_state, acts)
-    equal = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
-    err = max(max_abs_err(x, y) for x, y in zip(got, want))
-    ms_fleet = time_ms(lambda: ST._move_core(mv_state, acts))
-    n = K6_LANES
-    sub = mv_state.replace(**{f: getattr(mv_state, f)[:n].contiguous() for f in (
-        "board", "piece_ids", "used", "score", "streak", "moves", "lines_total",
-        "max_streak", "blocks_total", "done", "prev_holes", "prev_center",
-        "ep_return", "ep_len")})
-    sub_acts = acts[:n].contiguous()
-    got = ST._move_core(sub, sub_acts)
-    want = ST._move_core_plain(sub, sub_acts)
-    rows.append(dict(
-        name="_move_core", source="bbx_torch/csrc/move.cu",
-        replaces="bbx/engine/step.py:89 (_move_core; count_holes, "
-                 "center_openness, total_blocks of bbx/engine/kernel.py:135,163,187)",
-        equal=equal and all(x.dtype == y.dtype and torch.equal(x, y)
-                            for x, y in zip(got, want)),
-        max_abs_err=max(err, max(max_abs_err(x, y) for x, y in zip(got, want))),
-        ms=time_ms(lambda: ST._move_core(sub, sub_acts)),
-        plain_ms=time_ms(lambda: ST._move_core_plain(sub, sub_acts)),
-        ms_at_fleet=ms_fleet,
-        nbytes=k6_bytes(n), ops=k6_ops(n),
-        shape=f"board [{n},8,8] u8, ids/used [{n},3], done/streak/action [{n}] "
-              f"-> the 15 outputs ({int(want[0].sum())} valid moves, "
-              f"{int((want[4] > 0).sum())} clearing); also checked on all {k} "
-              f"lanes, where a call took {ms_fleet:.4f} ms"))
-
-    # K7 on the inputs of one step of the engine path's own fleet (16,384
-    # lanes), which the kernels line reports; then at the eval and train
-    # paths' 512 lanes and at the FLEET mid-game boards after the move above
-    # with its valid actions (`pick`): the lanes that used their triple in
-    # need, then every lane in need.  Each case runs the kernel and its
-    # plain version on one seed tensor.  K1 and K6 are checked and timed on
-    # the engine step's inputs too.
-    from bbx_torch.engine import state as ES
+    fleet_equal, fleet_err = compare(ST._move_core(mv_state, acts.to(torch.int32)),
+                                     ST._move_core_plain(mv_state, acts))
 
     eng = engine_step_inputs(device)
+    at_engine = k6_case(eng["state"], eng["actions"], eng["rng_state"])
+    n = K6_LANES
+    gen = torch.Generator(device=device)
+    sub = eng["state"].replace(rng=gen, **{f: getattr(eng["state"], f)[:n].contiguous()
+                                           for f in STATE_FIELDS})
+    k6 = k6_case(sub, eng["actions"][:n].contiguous(), eng["rng_state"])
+    with_bound(at_engine)
+    rows.append(dict(
+        name="_move_core/_step_finish", source="bbx_torch/csrc/move.cu",
+        replaces="bbx/engine/step.py:89,143-289 (_move_core and the reward / "
+                 "auto-reset block of step; count_holes, center_openness, "
+                 "total_blocks of bbx/engine/kernel.py:135,163,187)",
+        equal=fleet_equal and k6["equal"] and at_engine["equal"],
+        max_abs_err=max(fleet_err, k6["max_abs_err"], at_engine["max_abs_err"]),
+        **{key: k6[key] for key in ("ms", "plain_ms", "device_ms", "host_us", "nbytes",
+                                    "ops", "entry_points", "step")},
+        at_engine_shape=at_engine,
+        shape=f"one engine-path step at {n} lanes: bbx_move (board [{n},8,8] u8, "
+              f"ids/used [{n},3], done/streak/action [{n}] -> 17 outputs) + "
+              f"bbx_step_finish (the state, bbx_move's outputs, K7's ids, a fresh "
+              f"draw -> the new state, obs, reward, done, info); ms, device_ms and "
+              f"host_us are the two entry points' sums, each one's under "
+              f"entry_points; the whole step under step; bbx_move also checked "
+              f"on all {k} FLEET lanes with random used/done/streak "
+              f"(equal={fleet_equal}); at the engine step's {ENGINE_LANES} lanes: "
+              f"equal={at_engine['equal']}, {at_engine['ms']:.4f} ms (device "
+              f"{at_engine['device_ms']} ms), plain {at_engine['plain_ms']:.4f} ms, "
+              f"bound {at_engine['bound_ms']:.6f} ms"))
+
+    # K7 on the inputs of the same engine-path step (16,384 lanes), which the
+    # kernels line reports, at each block width it takes; then at the eval
+    # and train paths' 512 lanes and at the FLEET mid-game boards after the
+    # move above with its valid actions (`pick`): the lanes that used their
+    # triple in need, then every lane in need.  Each case runs the kernel and
+    # its plain version on one seed tensor.
     engine = k7_case(eng["bits"], eng["ids"], eng["seed"], eng["need"])
     engine["matches_the_step"] = torch.equal(engine.pop("attempts"),
                                              eng["step_attempts"])
     engine["equal"] = engine["equal"] and engine["matches_the_step"]
+    widths = {}
+    for threads in REGEN_WIDTHS:
+        def regen(threads=threads):
+            return ES._regen_pieces_cuda(eng["bits"], eng["ids"], eng["seed"],
+                                         eng["need"], threads=threads)
+        equal, _ = compare(regen(), ES.regen_pieces(eng["bits"], eng["ids"], eng["seed"],
+                                                    eng["need"]))
+        widths[str(threads)] = {"equal": equal, "ms": time_ms(regen),
+                                "device_ms": kernel_device_ms(regen, "regen_kernel")}
+    engine["equal"] = engine["equal"] and all(w["equal"] for w in widths.values())
     moved = ST._move_core(state, pick.to(torch.int32))
-    nbits = S.board_bits(moved[3])
     seed = ES.regen_seed(g, device)
-    need = moved[11].all(dim=1) & moved[0]
-    other = {"eval_and_train_lanes": k7_case(nbits[:K7_LANES].contiguous(),
-                                       state.piece_ids[:K7_LANES].contiguous(),
-                                       seed, need[:K7_LANES].contiguous()),
-             "fleet_realistic": k7_case(nbits, state.piece_ids, seed, need),
-             "fleet_all_in_need": k7_case(nbits, state.piece_ids, seed,
-                                          torch.ones_like(need))}
+    other = {"eval_and_train_lanes": k7_case(moved.bits[:K7_LANES].contiguous(),
+                                             state.piece_ids[:K7_LANES].contiguous(),
+                                             seed, moved.need[:K7_LANES].contiguous()),
+             "fleet_realistic": k7_case(moved.bits, state.piece_ids, seed, moved.need),
+             "fleet_all_in_need": k7_case(moved.bits, state.piece_ids, seed,
+                                          torch.ones_like(moved.need))}
     for case in other.values():
         case.pop("attempts")
         with_bound(case)
@@ -423,44 +500,37 @@ def kernel_phase(device, report):
         replaces="bbx/engine/state.py:161 (regen_pieces; _verdict_flat :83)",
         equal=engine["equal"] and all(c["equal"] for c in other.values()),
         max_abs_err=max(c["max_abs_err"] for c in (engine, *other.values())),
-        ms=engine["ms"], plain_ms=engine["plain_ms"], nbytes=engine["nbytes"],
-        ops=engine["ops"], at_other_shapes=other,
+        ms=engine["ms"], plain_ms=engine["plain_ms"], device_ms=engine["device_ms"],
+        host_us=engine["host_us"], nbytes=engine["nbytes"], ops=engine["ops"],
+        block_widths=widths, at_other_shapes=other,
         shape=f"bits [{k},2], ids [{k},3], need [{k}] of one engine-path step "
               f"({engine['needy']} in need, {engine['attempts_mean']:.3f} draws each "
               f"on average, at most {engine['attempts_max']}; attempts equal to the "
-              f"step's: {engine['matches_the_step']}) -> ids, attempts; "
+              f"step's: {engine['matches_the_step']}) -> ids, attempts, at "
+              f"{ES.REGEN_THREADS} threads a block; at each block width: "
+              + ", ".join(f"{t}: {w['ms']:.4f} ms (device {w['device_ms']})"
+                          for t, w in widths.items()) + "; "
               + "; ".join(f"{name} ({c['lanes']} lanes, {c['needy']} in need, "
                           f"{c['attempts_mean']:.3f} draws on average, at most "
-                          f"{c['attempts_max']}): equal={c['equal']}, {c['ms']:.4f} ms, "
-                          f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms"
+                          f"{c['attempts_max']}): equal={c['equal']}, {c['ms']:.4f} ms "
+                          f"(device {c['device_ms']}), plain {c['plain_ms']:.4f} ms, "
+                          f"bound {c['bound_ms']:.6f} ms"
                           for name, c in other.items())))
 
-    # K1 and K6 at the engine step's 16,384 lanes.
+    # K1 at the engine step's 16,384 lanes.
     k1_ids = ES.regen_pieces(eng["bits"], eng["ids"], eng["seed"], eng["need"])[0]
     got = S.valid3_bits(eng["bits"], k1_ids)
     want = S.valid3_bits_plain(eng["bits"], k1_ids)
-    rows[0]["at_engine_shape"] = with_bound(dict(
+    e = rows[0]["at_engine_shape"] = with_bound(dict(
         lanes=k, equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: S.valid3_bits(eng["bits"], k1_ids)),
         plain_ms=time_ms(lambda: S.valid3_bits_plain(eng["bits"], k1_ids)),
         nbytes=k1_bytes(k), ops=k1_ops(k)))
-    got = ST._move_core(eng["state"], eng["actions"])
-    want = ST._move_core_plain(eng["state"], eng["actions"])
-    k6 = next(r for r in rows if r["name"] == "_move_core")
-    k6["at_engine_shape"] = with_bound(dict(
-        lanes=k, equal=all(x.dtype == y.dtype and torch.equal(x, y)
-                           for x, y in zip(got, want)),
-        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-        ms=time_ms(lambda: ST._move_core(eng["state"], eng["actions"])),
-        plain_ms=time_ms(lambda: ST._move_core_plain(eng["state"], eng["actions"])),
-        nbytes=k6_bytes(k), ops=k6_ops(k)))
-    for r in (rows[0], k6):
-        e = r["at_engine_shape"]
-        r["equal"] = r["equal"] and e["equal"]
-        r["max_abs_err"] = max(r["max_abs_err"], e["max_abs_err"])
-        r["shape"] += (f"; at the engine step's {k} lanes: equal={e['equal']}, "
-                       f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
-                       f"{e['bound_ms']:.6f} ms")
+    rows[0]["equal"] = rows[0]["equal"] and e["equal"]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e["max_abs_err"])
+    rows[0]["shape"] += (f"; at the engine step's {k} lanes: equal={e['equal']}, "
+                         f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
+                         f"{e['bound_ms']:.6f} ms")
 
     for r in rows:
         with_bound(r)
@@ -491,15 +561,142 @@ def k1_ops(k: int) -> int:
     return 3 * k * 40
 
 
-def k6_bytes(n: int) -> int:
-    """K6: board, ids, used, done, streak, action read (88 B); board, ten
-    int32, two bools, used, centre written (113 B); the tables once."""
-    return n * (88 + 113) + 37 * 64 * 8 + 37 * 8 + 37 * 4
+def k6_move_bytes(n: int) -> int:
+    """`bbx_move`: board, ids, used, done, streak, action read (88 B); board,
+    ten int32, three bools, used, centre, bits written (130 B); the tables
+    once."""
+    return n * (88 + 130) + 37 * 64 * 8 + 37 * 8 + 37 * 4
 
 
-def k6_ops(n: int) -> int:
-    """K6: about 100 64-bit operations a lane."""
+def k6_move_ops(n: int) -> int:
+    """`bbx_move`: about 100 64-bit operations a lane."""
     return n * 200
+
+
+def k6_finish_bytes(n: int) -> int:
+    """`bbx_step_finish`: ten state fields (37 B), thirteen of bbx_move's
+    outputs (54 B), regen's ids and the fresh draw (24 B) read; the
+    observation (1,024 B f32 planes, 192 B mask), board (64 B), ids, used,
+    five f32, sixteen int32 and three bool rows written (1,358 B); the
+    tables once."""
+    return n * (115 + 1358) + 37 * 64 * 8 + 37 * 9 * 4 + 37 * 8
+
+
+def k6_finish_ops(n: int) -> int:
+    """`bbx_step_finish`: three 9-shift fits and the game-over test (about
+    60 64-bit operations), the reward and counters (about 40), the
+    observation's bit spreading (about 100): about 400 32-bit operations."""
+    return n * 400
+
+
+STATE_FIELDS = ("board", "piece_ids", "used", "score", "streak", "moves",
+                "lines_total", "max_streak", "blocks_total", "done", "prev_holes",
+                "prev_center", "ep_return", "ep_len")
+
+
+def flat_tensors(x) -> list:
+    """The tensors of a step's outputs, in a fixed order: tuples, dicts (by
+    key) and EnvState fields (its generator left out)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in flat_tensors(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in flat_tensors(v)]
+    if hasattr(x, "rng"):
+        return [t for f in STATE_FIELDS for t in flat_tensors(getattr(x, f))]
+    return []
+
+
+def compare(got, want):
+    """(every tensor equal in dtype, shape and value; the largest absolute
+    difference) of two structures of tensors."""
+    import torch
+
+    a, b = flat_tensors(got), flat_tensors(want)
+    equal = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+    err = max((max_abs_err(x, y) for x, y in zip(a, b) if x.shape == y.shape),
+              default=0.0)
+    return equal, err
+
+
+def k6_case(state, actions, rng_state) -> dict:
+    """K6's two entry points and the whole step on one engine-path input,
+    each against its plain version on the card, from the generator state
+    `rng_state` (regen's seed, then the fresh draw, as `step` draws them):
+    `bbx_move` against `_move_core_plain`, `bbx_step_finish` against
+    `_step_finish_plain` on K6's and K7's outputs, and the step (K6, K7,
+    K6) against `_step_plain` and against its parts.  Each entry point's
+    time (CUDA events around wrapper calls), device time (profiler), host
+    time a call, plain time and bound's bytes and operations; the step's
+    time, host time, plain time, and device time and launches a step."""
+    import torch
+
+    from bbx_torch.engine import state as ES
+    from bbx_torch.engine import step as ST
+
+    device, n, rc, gen = state.device, state.num_envs, ST.RewardConfig(), state.rng
+    gen.set_state(rng_state)
+    moved = ST._move_core(state, actions)
+    seed = ES.regen_seed(gen, device)
+    fresh = ES.fresh_pieces(n, gen, device)
+    ids, _ = ES.regen_pieces(moved.bits, state.piece_ids, seed, moved.need)
+    finished = ST._step_finish(state, moved, ids, fresh)
+    gen.set_state(rng_state)
+    whole = ST.step(state, actions)
+    gen.set_state(rng_state)
+    whole_plain = ST._step_plain(state, actions, rc, True)
+    checks = {"bbx_move": compare(moved, ST._move_core_plain(state, actions)),
+              "bbx_step_finish": compare(finished, ST._step_finish_plain(
+                  state, moved, ids, fresh, rc, True)),
+              "step": compare(whole, whole_plain),
+              "step_is_its_parts": compare(tuple(whole)[:5], finished)}
+
+    def entry(fn, plain, kernel, nbytes, ops):
+        return with_bound(dict(ms=time_ms(fn), device_ms=kernel_device_ms(fn, kernel),
+                               host_us=host_us(fn), plain_ms=time_ms(plain),
+                               nbytes=nbytes, ops=ops))
+
+    entry_points = {
+        "bbx_move": entry(lambda: ST._move_core(state, actions),
+                          lambda: ST._move_core_plain(state, actions), "move_kernel",
+                          k6_move_bytes(n), k6_move_ops(n)),
+        "bbx_step_finish": entry(
+            lambda: ST._step_finish(state, moved, ids, fresh),
+            lambda: ST._step_finish_plain(state, moved, ids, fresh, rc, True),
+            "step_finish_kernel", k6_finish_bytes(n), k6_finish_ops(n))}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    reps = 20
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            ST.step(state, actions)
+        torch.cuda.synchronize()
+    by_name = device_ms_by_kernel(prof)
+    whole_step = {
+        "ms": time_ms(lambda: ST.step(state, actions)),
+        "host_us": host_us(lambda: ST.step(state, actions)),
+        "plain_ms": time_ms(lambda: ST._step_plain(state, actions, rc, True), reps=3, inner=1),
+        "device_ms": sum(t for t, _ in by_name.values()) / reps if by_name else "not measured",
+        "launches": sum(c for _, c in by_name.values()) / reps if by_name else "not measured",
+        "kernels": {k[:90]: c / reps for k, (_, c) in by_name.items()}}
+    gen.set_state(rng_state)
+    ep = entry_points.values()
+    dev_ms = [e["device_ms"] for e in ep]
+    return dict(
+        lanes=n, checks={k: v[0] for k, v in checks.items()},
+        equal=all(v[0] for v in checks.values()),
+        max_abs_err=max(v[1] for v in checks.values()),
+        ms=sum(e["ms"] for e in ep), plain_ms=sum(e["plain_ms"] for e in ep),
+        device_ms=sum(dev_ms) if all(isinstance(d, float) for d in dev_ms) else "not measured",
+        host_us=sum(e["host_us"] for e in ep),
+        nbytes=k6_move_bytes(n) + k6_finish_bytes(n),
+        ops=k6_move_ops(n) + k6_finish_ops(n),
+        entry_points=entry_points, step=whole_step)
 
 
 def engine_step_inputs(device) -> dict:
@@ -511,9 +708,6 @@ def engine_step_inputs(device) -> dict:
     board bits, ids, seed and need (K7's) are computed as `step` computes
     them, from a copy of the generator's state, and then the step itself
     runs from that state, so that its `regen_attempts` can confirm them."""
-    import torch
-
-    from bbx_torch.engine import solvability as S
     from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
     from bbx_torch.env import VectorEnv, sample_valid_actions_device
@@ -527,10 +721,11 @@ def engine_step_inputs(device) -> dict:
     state, actions = env.state, sample_valid_actions_device(act_rng, mask)
     rng_state = state.rng.get_state()
     moved = ST._move_core(state, actions)
-    out = dict(state=state, actions=actions, bits=S.board_bits(moved[3]),
+    out = dict(state=state, actions=actions, bits=moved.bits,
                ids=state.piece_ids, seed=ES.regen_seed(state.rng, device),
-               need=moved[11].all(dim=1) & moved[0])
+               need=moved.need)
     state.rng.set_state(rng_state)
+    out["rng_state"] = rng_state
     out["step_attempts"] = env.step_device(actions).regen_attempts
     if not out["need"].any():
         raise AssertionError("no lane of the captured engine step needs new pieces")
@@ -555,6 +750,9 @@ def k7_case(bits, ids, seed, need) -> dict:
         needy=int(need.sum()), attempts_mean=float(att.mean()),
         attempts_max=int(att.max()),
         ms=time_ms(lambda: ES.regen_pieces(bits, ids, seed, need)),
+        device_ms=kernel_device_ms(lambda: ES.regen_pieces(bits, ids, seed, need),
+                            "regen_kernel"),
+        host_us=host_us(lambda: ES.regen_pieces(bits, ids, seed, need)),
         plain_ms=time_ms(lambda: ES.regen_pieces_plain(bits, ids, seed, need),
                          reps=3, inner=1),
         # bits, ids, need read, ids and attempts written, the seed, the
@@ -687,6 +885,7 @@ def kernel_counters():
             "afterstate_buffer": A.afterstate_buffer,
             "compute_gae": P.compute_gae,
             "_move_core": ST._move_core,
+            "_step_finish": ST._step_finish,
             "regen_pieces": ES.regen_pieces}
 
 
@@ -1213,22 +1412,27 @@ def engine_phase(device, report):
         by_name = device_ms_by_kernel(prof)
         device_ms = sum(t for t, _ in by_name.values())
         k7_ms = sum(t for k, (t, _) in by_name.items() if "regen_kernel" in k)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        launches_per_step = sum(c for _, c in by_name.values()) / ENGINE_CHUNK
         profile = {
             "steps": ENGINE_CHUNK, "lanes": ENGINE_LANES,
             "wall_ms_per_step": wall * 1e3 / ENGINE_CHUNK,
-            "device_launches_per_step": sum(c for _, c in by_name.values()) / ENGINE_CHUNK,
+            "device_launches_per_step": launches_per_step,
             "device_ms_per_step": device_ms / ENGINE_CHUNK if device_ms else "not measured",
             "device_busy_share": device_ms / (wall * 1e3) if device_ms else "not measured",
             "regen_kernel_share_of_device": k7_ms / device_ms if device_ms else "not measured",
+            "port_kernels_ms_per_step": {
+                name: sum(t for k, (t, _) in by_name.items() if name in k) / ENGINE_CHUNK
+                for name in ("move_kernel", "regen_kernel", "step_finish_kernel")},
             "top_device_kernels": [{"name": k[:90], "ms_per_step": t / ENGINE_CHUNK,
                                     "calls_per_step": c / ENGINE_CHUNK}
                                    for k, (t, c) in top]}
         log(f"  profiled chunk: wall {profile['wall_ms_per_step']:.4f} ms per step, "
-            f"{profile['device_launches_per_step']:.2f} kernels per step, "
-            f"device {profile['device_ms_per_step']} ms, busy share "
-            f"{profile['device_busy_share']}, K7 share of device time "
-            f"{profile['regen_kernel_share_of_device']}")
+            f"{launches_per_step:.2f} kernels per step (at most "
+            f"{ENGINE_MAX_LAUNCHES_PER_STEP}), device {profile['device_ms_per_step']} ms, "
+            f"busy share {profile['device_busy_share']}, K7 share of device time "
+            f"{profile['regen_kernel_share_of_device']}; device ms a step of the "
+            f"port's kernels {profile['port_kernels_ms_per_step']}")
         for row in profile["top_device_kernels"]:
             log(f"    {row['ms_per_step']:.4f} ms/step  x{row['calls_per_step']:.2f}  "
                 f"{row['name']}")
@@ -1251,6 +1455,9 @@ def engine_phase(device, report):
                         "sync_free_step": sync_free}
     if not sync_free:
         raise AssertionError("the sync-debug step gave non-finite rewards")
+    if device_ms and launches_per_step > ENGINE_MAX_LAUNCHES_PER_STEP:
+        raise AssertionError(f"{launches_per_step} kernel launches a step, more "
+                             f"than {ENGINE_MAX_LAUNCHES_PER_STEP}")
 
 
 def flat_cnn_phase(device, report):
@@ -1391,13 +1598,15 @@ def main() -> int:
     kernels = []
     by_path = {p: report.get(p, {}).get("launches", {}) for p in PATH_KERNELS}
     for r in report.get("kernels", []):
-        split = {p: c.get(r["name"], 0) for p, c in by_path.items()}
+        split = {p: sum(c.get(name, 0) for name in ROW_COUNTERS[r["name"]])
+                 for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces")} | {
             "launches": sum(split.values()), "launches_by_path": split} | {
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "shape")} | {
-                k: r[k] for k in ("at_update_shape", "ms_at_fleet", "at_engine_shape",
+                k: r[k] for k in ("device_ms", "host_us", "entry_points", "step",
+                                  "block_widths", "at_update_shape", "at_engine_shape",
                                   "at_other_shapes") if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:

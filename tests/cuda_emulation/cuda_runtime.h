@@ -2,27 +2,37 @@
 // tests can compile `bbx_torch/csrc/*.cu` as C++ (with -DBBX_EMULATE and
 // this directory first on the include path) and hold each kernel against
 // its plain PyTorch version.  Each CUDA thread is a std::thread; the blocks
-// of a grid run one after another; __syncthreads is a std::barrier.  Only
-// what the kernels use is here: no warp intrinsics, no atomics.
+// of a grid run one after another, so no block may wait on another;
+// __syncthreads is a std::barrier over the block, and the warp intrinsics
+// (__syncwarp, __ballot_sync, __any_sync) a std::barrier over the warp's
+// 32 threads, which must all take part (a full mask).  Only what the
+// kernels use is here.
 #pragma once
+#include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 
+using std::max;
+using std::min;
+
 struct bbx_dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local bbx_dim3 threadIdx;
-inline bbx_dim3 blockIdx, blockDim;
+inline bbx_dim3 blockIdx, blockDim, gridDim;
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
+#define __launch_bounds__(...)
 // Shared memory: one instance per kernel, used by one block at a time.
 #define __shared__ static
 
 typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 
 struct float4 { float x, y, z, w; };
@@ -36,6 +46,38 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 
 inline std::barrier<>* bbx_block_barrier;
 inline std::atomic<int> bbx_block_or{0};
+
+// One warp: its barrier and the word its ballots gather in.
+struct bbx_warp {
+    explicit bbx_warp(int size) : barrier(size) {}
+    std::barrier<> barrier;
+    std::atomic<unsigned> ballot{0};
+};
+inline thread_local bbx_warp* bbx_this_warp;
+
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { bbx_this_warp->barrier.arrive_and_wait(); }
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+    bbx_warp* w = bbx_this_warp;
+    w->barrier.arrive_and_wait();
+    if (pred) w->ballot.fetch_or(1u << (threadIdx.x % 32));
+    w->barrier.arrive_and_wait();
+    const unsigned bits = w->ballot.load();
+    w->barrier.arrive_and_wait();
+    if (threadIdx.x % 32 == 0) w->ballot = 0;
+    return bits;
+}
+
+inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+
+inline int atomicAdd(int* address, int value) {
+    return std::atomic_ref<int>(*address).fetch_add(value);
+}
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+
+template <class T>
+inline T __ldg(const T* p) { return *p; }
 
 inline void __syncthreads() { bbx_block_barrier->arrive_and_wait(); }
 
@@ -52,14 +94,22 @@ inline int __syncthreads_or(int pred) {
 template <class Body>
 void bbx_emulate_launch(int grid, int block, Body body) {
     blockDim.x = block;
+    gridDim.x = grid;
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         std::barrier<> bar(block);
         bbx_block_barrier = &bar;
+        std::vector<std::unique_ptr<bbx_warp>> warps;
+        for (int w = 0; w < block; w += 32)
+            warps.push_back(std::make_unique<bbx_warp>(std::min(32, block - w)));
         std::vector<std::thread> threads;
         threads.reserve(block);
         for (int t = 0; t < block; ++t)
-            threads.emplace_back([&body, t] { threadIdx.x = t; body(); });
+            threads.emplace_back([&body, &warps, t] {
+                threadIdx.x = t;
+                bbx_this_warp = warps[t / 32].get();
+                body();
+            });
         for (auto& th : threads) th.join();
     }
 }

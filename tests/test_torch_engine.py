@@ -261,10 +261,13 @@ def test_move_core_and_observe_equal(reachable):
     jout = _j_move(js, jnp.asarray(acts))
     tout = t_move_core(ts, torch.from_numpy(acts))
     # The port's move core also returns the new board's holes, centre
-    # openness and fill, which bbx's step computes right after it.
-    new_board = jout[3]
-    jout = (*jout, _j_holes(new_board), _j_center(new_board), _j_total(new_board))
-    assert len(tout) == len(jout) == 15
+    # openness, fill and bitboard (the port keeps bbx's u32 words as int64),
+    # which bbx's step computes right after it, and regen's need flag.
+    new_board, used_after, valid = jout[3], jout[11], jout[0]
+    jout = (*jout, _j_holes(new_board), _j_center(new_board), _j_total(new_board),
+            np.asarray(JS.board_bits(new_board)).astype(np.int64),
+            used_after.all(axis=1) & valid)
+    assert len(tout) == len(jout) == 17
     for i, (got, want) in enumerate(zip(tout, jout)):
         np.testing.assert_array_equal(_np(got), np.asarray(want), err_msg=f"output {i}")
         assert _np(got).dtype == np.asarray(want).dtype, f"output {i}"

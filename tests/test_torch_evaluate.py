@@ -112,13 +112,13 @@ def test_build_targets_sm90a_and_keys_by_sources():
     assert os.path.commonpath([d, os.path.join(ROOT, "build")]) == os.path.join(ROOT, "build")
 
 
-@pytest.mark.parametrize("name", sorted(build.SOURCES))
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
 def test_kernel_c_signature_matches_binding(name):
-    """Each source exports the bound symbol with as many parameters as its
-    ctypes argtypes, and returns cudaGetLastError()."""
-    with open(os.path.join(build.CSRC, build.SOURCES[name])) as f:
+    """Each entry point's source exports the bound symbol with as many
+    parameters as its ctypes argtypes, and returns cudaGetLastError()."""
+    lib, symbol, argtypes = build.SIGNATURES[name]
+    with open(os.path.join(build.CSRC, build.SOURCES[lib])) as f:
         src = f.read()
-    symbol, argtypes = build.SIGNATURES[name]
     m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
     assert m, symbol
     assert len(m.group(1).split(",")) == len(argtypes)

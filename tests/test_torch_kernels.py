@@ -105,6 +105,9 @@ def test_afterstate_kernel_matches_plain_at_update_minibatch(cuda):
 
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """Each wrapper raises on a tensor its kernel does not take, before any
+    launch: another dtype, shape or device, or a tensor that is not
+    contiguous."""
     bits = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
     ids = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -117,6 +120,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     board = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda))
+    # K6's two entry points, the step and K7.
+    state = TState.reset(4, TState.make_generator(0, cuda), cuda)
+    acts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        TStep._move_core(state, acts[:3])
+    with pytest.raises(ValueError, match="CUDA"):
+        step(state, acts.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        step(state.replace(score=state.score.long()), acts)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(state.replace(used=state.used.t().contiguous().t()), acts)
+    moved = TStep._move_core(state, acts)
+    fresh = TState.fresh_pieces(4, state.rng, cuda)
+    with pytest.raises(ValueError, match="bool"):
+        TStep._step_finish(state, moved._replace(need=moved.need.int()),
+                           state.piece_ids, fresh)
+    with pytest.raises(ValueError, match="shape"):
+        TStep._step_finish(state, moved, state.piece_ids, fresh[:2])
+    seed = TState.regen_seed(state.rng, cuda)
+    with pytest.raises(ValueError, match="int64"):
+        TState.regen_pieces(moved.bits.int(), state.piece_ids, seed, moved.need)
 
 
 @pytest.mark.gpu
@@ -304,3 +328,100 @@ def test_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.reward.shape == (1024,)
+
+
+def _finish_inputs(device, n, auto_reset, seed=13):
+    """`_step_finish`'s inputs for one step of a mid-game fleet of n lanes
+    on the card: K6's move outputs for random valid (and every fourth lane
+    random) actions, K7's ids, a fresh draw."""
+    state, obs, _ = _midgame(device, n=n, moves=20, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=device)
+    acts = torch.where(torch.arange(n, device=device) % 4 == 0,
+                       torch.randint(0, 192, (n,), generator=g, device=device),
+                       torch.where(obs["action_mask"], u, -1.0).argmax(1))
+    moved = TStep._move_core(state, acts)
+    seed_t = TState.regen_seed(g, device)
+    ids, _ = TState.regen_pieces(moved.bits, state.piece_ids, seed_t, moved.need)
+    fresh = TState.fresh_pieces(n, g, device) if auto_reset else None
+    return state, moved, ids, fresh
+
+
+def _assert_same_step(got, want):
+    fields = ("board", "piece_ids", "used", "score", "streak", "moves",
+              "lines_total", "max_streak", "blocks_total", "done", "prev_holes",
+              "prev_center", "ep_return", "ep_len")
+    for f in fields:
+        a, b = getattr(got[0], f), getattr(want[0], f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    for part in (got[1], got[4]):
+        other = want[1] if part is got[1] else want[4]
+        assert set(part) == set(other)
+        for k in part:
+            assert part[k].dtype == other[k].dtype and torch.equal(part[k], other[k]), k
+    for a, b in zip(got[2:4] + tuple(got[5:]), want[2:4] + tuple(want[5:])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,auto_reset", [(512, True), (512, False), (16384, True)])
+def test_step_finish_kernel_matches_plain(cuda, n, auto_reset):
+    """K6's `bbx_step_finish` equals `_step_finish_plain` run on the card
+    on the same inputs, bit for bit (reward and episode return included),
+    at the eval/train paths' 512 lanes and the engine path's 16,384."""
+    state, moved, ids, fresh = _finish_inputs(cuda, n, auto_reset)
+    before = TStep._step_finish.launches
+    got = TStep._step_finish(state, moved, ids, fresh, TStep.RewardConfig(), auto_reset)
+    assert TStep._step_finish.launches == before + 1
+    want = TStep._step_finish_plain(state, moved, ids, fresh, TStep.RewardConfig(),
+                                    auto_reset)
+    _assert_same_step(got, want)
+    assert want[3].any() and moved.need.any() and (~moved.valid).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 16384])
+def test_step_matches_plain_step(cuda, n):
+    """The whole step on the card (K6, K7, K6: one launch each a step)
+    against the plain step on the card, from one mid-game fleet and one
+    generator state, for 8 steps of random valid actions: every field,
+    the obs, reward, done, info and regen's attempts, bit for bit."""
+    state, obs, _ = _midgame(cuda, n=n, moves=14, seed=17)
+    rng_state = state.rng.get_state()
+    plain = state.replace(rng=torch.Generator(device=cuda))
+    plain.rng.set_state(rng_state)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    counters = (TStep._move_core, TStep._step_finish, TState.regen_pieces)
+    before = [c.launches for c in counters]
+    for _ in range(8):
+        u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+        acts = torch.where(obs["action_mask"], u, -1.0).argmax(1)
+        got = step(state, acts, auto_reset=True)
+        want = TStep._step_plain(plain, acts, TStep.RewardConfig(), True)
+        _assert_same_step(got, want)
+        state, plain, obs = got.state, want.state, got.obs
+    assert [c.launches - b for c, b in zip(counters, before)] == [8, 8, 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [31, 32, 33, 4097])
+def test_regen_kernel_at_chunk_edges(cuda, n):
+    """K7 around its 32-lane chunks (N one short of, at and one past a
+    chunk; 4,097 lanes), at every block width it takes and with one block,
+    the default grid and more blocks than chunks: ids and attempts equal to
+    `regen_pieces_plain`, launch after launch (the claim counter resets)."""
+    state, obs, _ = _midgame(cuda, n=4097, moves=20, seed=19)
+    g = torch.Generator(device=cuda).manual_seed(19)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+    moved = TStep._move_core(state, torch.where(obs["action_mask"], u, -1.0).argmax(1))
+    bits, ids = moved.bits[:n].contiguous(), state.piece_ids[:n].contiguous()
+    need = torch.rand(n, generator=g, device=cuda) < 0.5
+    need[-1] = True
+    seed = TState.regen_seed(g, cuda)
+    want = TState.regen_pieces_plain(bits, ids, seed, need)
+    for threads in (128, 192, 256, 384):
+        for blocks in (1, None, 2 * (n // 32 + 1)):
+            got = TState._regen_pieces_cuda(bits, ids, seed, need, blocks=blocks,
+                                            threads=threads)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (threads, blocks)

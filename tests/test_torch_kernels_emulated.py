@@ -3,7 +3,8 @@
 `bbx_torch/csrc/*.cu` is compiled as C++20 with ``-DBBX_EMULATE`` against
 `tests/cuda_emulation/cuda_runtime.h`, which emulates the few CUDA features
 the kernels use (one std::thread per CUDA thread, a std::barrier for
-__syncthreads).  The port's launch helpers (`_*_cuda`) then call those
+__syncthreads and one per warp for the warp votes, atomics; the blocks of
+a grid run one after another).  The port's launch helpers (`_*_cuda`) then call those
 libraries with CPU tensors, and the outputs must equal the plain PyTorch
 versions exactly.  This checks the kernels' logic here, before the card
 compiles them; `tests/test_torch_kernels.py` checks the real build on the
@@ -23,6 +24,7 @@ from bbx_torch.engine import solvability as S
 from bbx_torch.engine import state as TState
 from bbx_torch.engine import step as TStep
 from bbx_torch.engine.step import observe, step
+from bbx_torch.engine.tables import tables as TTables
 from bbx_torch.models import afterstate as A
 from bbx_torch.ops import build
 
@@ -47,12 +49,14 @@ def emulated(tmp_path_factory):
                "-o", lib, os.path.join(build.CSRC, src), "-lpthread"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
+    libs = {}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{name} does not compile:\n{log}"
-        symbol, argtypes = build.SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(lib), symbol)
+        libs[name] = ctypes.CDLL(lib)
+    fns = {}
+    for name, (lib, symbol, argtypes) in build.SIGNATURES.items():
+        fn = getattr(libs[lib], symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
@@ -61,7 +65,8 @@ def emulated(tmp_path_factory):
 @pytest.fixture
 def kernels(emulated, monkeypatch):
     """The launch helpers routed to the emulated libraries, with the
-    wrappers' dtype, shape and contiguity checks kept."""
+    wrappers' dtype, shape and contiguity checks kept, and K7's persistent
+    grid at 3 blocks."""
     def require(name, t, dtype, shape):
         assert t.dtype == dtype, (name, t.dtype)
         assert tuple(t.shape) == tuple(shape), (name, tuple(t.shape))
@@ -70,6 +75,7 @@ def kernels(emulated, monkeypatch):
     monkeypatch.setattr(build, "function", emulated.__getitem__)
     monkeypatch.setattr(build, "require", require)
     monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "resident_blocks", lambda t, threads: 3)
 
 
 def _reachable(n=96, moves=14, seed=5):
@@ -147,6 +153,12 @@ def test_emulated_kernels_take_empty_batches(kernels):
     empty = TState.reset(0, TState.make_generator(0, "cpu"), "cpu")
     out = TStep._move_core_cuda(empty, torch.zeros(0, dtype=torch.int32))
     assert out[3].shape == (0, 8, 8) and out[11].shape == (0, 3)
+    assert out.bits.shape == (0, 2) and out.need.shape == (0,)
+    got_ids, got_att = TState._regen_pieces_cuda(
+        out.bits, empty.piece_ids, torch.tensor(1, dtype=torch.int64), out.need)
+    assert got_ids.shape == (0, 3) and got_att.shape == (0,)
+    fin = TStep._step_finish_cuda(empty, out, got_ids, got_ids, TStep.RewardConfig(), True)
+    assert fin[0].board.shape == (0, 8, 8) and fin[1]["pieces"].shape == (0, 3, 8, 8)
     adv, ret = P._compute_gae_cuda(P.PPOConfig(), torch.zeros((4, 0)),
                                    torch.zeros((4, 0), dtype=torch.bool),
                                    torch.zeros((4, 0)), torch.zeros(0))
@@ -154,9 +166,10 @@ def test_emulated_kernels_take_empty_batches(kernels):
 
 
 def test_emulated_move_kernel_matches_plain(kernels):
-    """K6 on reachable boards with used slots, finished lanes, streaks, and
-    actions that are valid, invalid, or on a used slot: every output equal,
-    dtypes included."""
+    """K6's `bbx_move` on reachable boards with used slots, finished lanes,
+    streaks, and actions that are valid, invalid, or on a used slot: every
+    output equal, dtypes included (the new board's bits and regen's need
+    flag too)."""
     state, _, _ = _reachable(n=96, moves=18, seed=6)
     rng = np.random.default_rng(11)
     n = state.num_envs
@@ -172,12 +185,13 @@ def test_emulated_move_kernel_matches_plain(kernels):
     got = TStep._move_core_cuda(state, torch.from_numpy(acts))
     want = TStep._move_core_plain(state, torch.from_numpy(acts))
     assert TStep._move_core.launches == before + 1
-    assert len(got) == len(want) == 15
+    assert len(got) == len(want) == 17
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype, i
         assert torch.equal(g, w), i
     valid, lines = want[0], want[4]
     assert valid.any() and (~valid).any() and (lines > 0).any()
+    assert want.need.any() and (~want.need).any()
 
 
 def test_emulated_gae_kernel_matches_plain(kernels):
@@ -236,3 +250,187 @@ def test_emulated_regen_kernel_matches_plain(kernels, which):
         assert need.any() and (want_att[need] >= 1).all()
     if which == "all":
         assert (want_att > 1).any()  # some lane needed a second draw
+
+
+def _regen_case(which):
+    """(bits, ids, need, blocks) of a K7 edge case: no lane in need; N = 77
+    (not a multiple of 32) with some in need; 20 lanes on 5 blocks (fewer
+    chunks than blocks); 160 crowded random boards (half to three quarters
+    full), all in need, where the exact tier decides many draws (seed 4's
+    make a round's last exact-tier item decisive for one draw)."""
+    if which.startswith("crowded"):
+        rng = np.random.default_rng(int(which.split("_")[1]))
+        fills = rng.uniform(0.5, 0.75, 160)[:, None, None]
+        board = torch.from_numpy((rng.random((160, 8, 8)) < fills).astype(np.uint8))
+        ids = torch.from_numpy(rng.integers(0, 37, (160, 3)).astype(np.int32))
+        return S.board_bits(board), ids, torch.ones(160, dtype=torch.bool), None
+    n = {"none": 64, "ragged": 77, "fewer_lanes_than_blocks": 20}[which]
+    state, obs, _ = _reachable(n=n, moves=10, seed=8)
+    rng = np.random.default_rng(14)
+    acts = torch.tensor([rng.choice(np.flatnonzero(m))
+                         for m in obs["action_mask"].numpy()], dtype=torch.int32)
+    moved = TStep._move_core_plain(state, acts)
+    need = {"none": torch.zeros(n, dtype=torch.bool),
+            "ragged": torch.from_numpy(rng.random(n) < 0.4),
+            "fewer_lanes_than_blocks": torch.from_numpy(rng.random(n) < 0.5)}[which]
+    need[-1] = which != "none"  # the ragged chunk's last lane
+    blocks = 5 if which == "fewer_lanes_than_blocks" else None
+    return moved.bits, state.piece_ids, need, blocks
+
+
+@pytest.mark.parametrize("which", ["none", "ragged", "fewer_lanes_than_blocks",
+                                   "crowded_4", "crowded_17"])
+def test_emulated_regen_kernel_edge_cases(kernels, which):
+    """K7 equals `regen_pieces_plain` with no lane in need, with N not a
+    multiple of its 32-lane chunks, with more blocks than chunks, and on
+    crowded boards where the exact tier decides; run twice, so the second
+    launch finds the claim counter its first launch's last block reset."""
+    bits, ids, need, blocks = _regen_case(which)
+    seed = torch.tensor(424242, dtype=torch.int64)
+    want = TState.regen_pieces_plain(bits, ids, seed, need)
+    for _ in range(2):
+        got = TState._regen_pieces_cuda(bits, ids, seed, need, blocks=blocks)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(want[0][~need], ids[~need]) and (want[1][~need] == 0).all()
+    assert (want[1][need] >= 1).all()
+    assert not TState._regen_counters(bits.device, 0).any()
+
+
+@pytest.mark.parametrize("threads", [128, 192, 256, 384])
+def test_emulated_regen_kernel_block_widths(kernels, threads):
+    """Every block width K7 takes gives `regen_pieces_plain`'s ids and
+    attempts, with every lane of reachable boards in need (the exact tier
+    runs in 384 / width passes)."""
+    state, obs, _ = _reachable(n=40, moves=12, seed=9)
+    rng = np.random.default_rng(15)
+    acts = torch.tensor([rng.choice(np.flatnonzero(m))
+                         for m in obs["action_mask"].numpy()], dtype=torch.int32)
+    bits = TStep._move_core_plain(state, acts).bits
+    need = torch.ones(state.num_envs, dtype=torch.bool)
+    seed = torch.tensor(31337, dtype=torch.int64)
+    got = TState._regen_pieces_cuda(bits, state.piece_ids, seed, need,
+                                    threads=threads)
+    want = TState.regen_pieces_plain(bits, state.piece_ids, seed, need)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[1] > 1).any()
+
+
+def _finish_inputs(seed=16):
+    """`_step_finish`'s inputs on reachable boards with finished lanes,
+    used slots, streaks, valid and random (often invalid) actions, and 12
+    lanes on a crowded board (empty cells only where (r + c) % 4 == 0: two
+    in every row and column, no two side by side) that place their last
+    unused piece, a single cell, and get a regen triple of pieces with two
+    cells side by side, none of which fits: they end their game."""
+    state, _, _ = _reachable(n=96, moves=18, seed=seed)
+    rng = np.random.default_rng(seed)
+    n = state.num_envs
+    single = int(np.flatnonzero(TTables("cpu").PIECE_NBLOCKS.numpy() == 1)[0])
+    board = state.board.clone()
+    ids = state.piece_ids.clone()
+    used = torch.from_numpy(rng.random((n, 3)) < 0.3)
+    crowded = np.add.outer(np.arange(8), np.arange(8)) % 4 != 0
+    board[:12] = torch.from_numpy(crowded.astype(np.uint8))
+    ids[:12, 0] = single
+    used[:12] = torch.tensor([False, True, True])
+    state = state.replace(
+        board=board, piece_ids=ids, used=used,
+        done=torch.from_numpy((rng.random(n) < 0.1) & (np.arange(n) >= 12)),
+        streak=torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)),
+        prev_holes=torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)),
+        prev_center=torch.from_numpy(rng.choice([0.75, 0.875, 1.0], n).astype(np.float32)),
+        ep_return=torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+        ep_len=torch.from_numpy(rng.integers(0, 50, n).astype(np.int32)))
+    mask = observe(state.replace(done=torch.zeros(n, dtype=torch.bool)))
+    mask = mask["action_mask"].numpy()
+    acts = np.array([rng.choice(np.flatnonzero(m)) if m.any() and i % 4 else
+                     rng.integers(192) for i, m in enumerate(mask)], np.int32)
+    acts[:12] = 0  # slot 0 at cell (0, 0), which is empty
+    moved = TStep._move_core_plain(state, torch.from_numpy(acts))
+    masks = TTables("cpu").PIECE_MASKS.numpy() > 0
+    side_by_side = np.flatnonzero((masks[:, :, 1:] & masks[:, :, :-1]).any((1, 2))
+                                  | (masks[:, 1:] & masks[:, :-1]).any((1, 2)))
+    regen = torch.from_numpy(rng.integers(0, 37, (n, 3)).astype(np.int32))
+    regen[:12] = torch.from_numpy(rng.choice(side_by_side, (12, 3)).astype(np.int32))
+    ids_after = torch.where(moved.need[:, None], regen, state.piece_ids)
+    fresh = torch.from_numpy(rng.integers(0, 37, (n, 3)).astype(np.int32))
+    return state, moved, ids_after, fresh
+
+
+def _assert_step_outputs_equal(got, want):
+    """(state, obs, reward, done, info[, regen_attempts]) equal, bit for
+    bit and dtype for dtype."""
+    g_state, w_state = got[0], want[0]
+    for f in ("board", "piece_ids", "used", "score", "streak", "moves",
+              "lines_total", "max_streak", "blocks_total", "done", "prev_holes",
+              "prev_center", "ep_return", "ep_len"):
+        g, w = getattr(g_state, f), getattr(w_state, f)
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+    for k in want[1]:
+        assert got[1][k].dtype == want[1][k].dtype and torch.equal(got[1][k], want[1][k]), k
+    assert set(got[4]) == set(want[4])
+    for k in want[4]:
+        assert got[4][k].dtype == want[4][k].dtype and torch.equal(got[4][k], want[4][k]), k
+    for g, w in zip(got[2:4], want[2:4]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for g, w in zip(got[5:], want[5:]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("auto_reset", [True, False])
+def test_emulated_step_finish_kernel_matches_plain(kernels, auto_reset):
+    """K6's `bbx_step_finish` equals `_step_finish_plain` bit for bit (the
+    reward and episode return too) on lanes with invalid actions, finished
+    lanes, lanes in need of regen and lanes whose game ends, with auto-reset
+    on (the default rewards) and off (other coefficients, which round
+    differently to float32)."""
+    state, moved, ids_after, fresh = _finish_inputs()
+    rc = TStep.RewardConfig() if auto_reset else TStep.RewardConfig(
+        line_clear_base=1.3, block_placed=0.017, game_over_penalty=-2.1,
+        hole_penalty=-0.07, center_bonus=0.03, combo_multiplier_bonus=0.45,
+        survival_bonus=0.0013)
+    before = TStep._step_finish.launches
+    got = TStep._step_finish_cuda(state, moved, ids_after, fresh, rc, auto_reset)
+    want = TStep._step_finish_plain(state, moved, ids_after, fresh, rc, auto_reset)
+    assert TStep._step_finish.launches == before + 1
+    _assert_step_outputs_equal(got, want)
+    done = want[3]
+    assert done[:12].all() and (~moved.valid).any() and state.done.any()
+    assert (moved.need & ~done).any() and (moved.lines > 0).any()
+    if auto_reset:
+        assert (want[0].board[:12] == 0).all() and torch.equal(want[0].piece_ids[:12], fresh[:12])
+    else:
+        assert want[0].done[:12].all()
+
+
+def test_emulated_step_matches_plain_step(kernels):
+    """The whole step through the emulated K6 (both entry points) and K7
+    against the plain step: two fleets of 64 lanes from one seed, 40 steps
+    of numpy-chosen actions (valid, and every fifth lane's random), with
+    auto-reset for 30 steps and without for 10; every state field, the obs,
+    reward, done, info and regen's attempts equal at every step, the
+    generator's draws alike, and each kernel launched once a step."""
+    n, steps = 64, 40
+    plain = TState.reset(n, TState.make_generator(21, "cpu"), "cpu")
+    emul = TState.reset(n, TState.make_generator(21, "cpu"), "cpu")
+    obs = observe(plain)
+    rng = np.random.default_rng(21)
+    counters = (TStep._move_core, TStep._step_finish, TState.regen_pieces)
+    before = [c.launches for c in counters]
+    ended = regen = 0
+    for i in range(steps):
+        mask = obs["action_mask"].numpy()
+        acts = torch.tensor([rng.choice(np.flatnonzero(m)) if m.any() and (i + k) % 5
+                             else rng.integers(192) for k, m in enumerate(mask)],
+                            dtype=torch.int32)
+        want = TStep._step_plain(plain, acts, TStep.RewardConfig(), i < 30)
+        got = TStep._step_cuda(emul, acts, TStep.RewardConfig(), i < 30)
+        _assert_step_outputs_equal(got, want)
+        assert torch.equal(plain.rng.get_state(), emul.rng.get_state())
+        ended += int(want.done.sum())
+        regen += int((want.regen_attempts > 0).sum())
+        plain, emul, obs = want.state, got.state, want.obs
+    assert [c.launches - b for c, b in zip(counters, before)] == [steps] * 3
+    assert ended > 0 and regen > 0 and plain.done.any()
