@@ -12,11 +12,10 @@
 // lane's first draw is accepted most of the time, so the kernel is latency
 // work spread thinly over the lanes; its time is that of the slowest lane,
 // one that needs 10 or 50 draws, most of them unsolvable.
-//   * A persistent grid (the wrapper passes about the SM count x resident
-//     blocks) whose blocks claim chunks of 32 lanes from an atomic counter
-//     in a scratch word; the last block to finish resets the counters, so
-//     nothing is cleared from the host.  A straggler holds one block while
-//     the others claim the rest.
+//   * One block of REGEN_THREADS threads a chunk of 32 lanes: a chunk whose
+//     lanes need nothing costs one ballot and a copy, not a block a lane,
+//     and the hardware hands the next chunk to whichever SM frees a slot
+//     first, so a straggler holds one block while the others run on.
 //   * Warp 0 `__ballot_sync`s the chunk's need, copies the ids of the
 //     lanes that keep their triple (attempts 0) and stages the boards of
 //     the others in shared memory -- no block for a lane without need.
@@ -39,7 +38,7 @@
 //     per warp).  One hard draw thus gets the whole block, and several get
 //     it side by side.
 //   * PLACE_U64, PIECE_SHIFTS and ANCHOR_OK (20.5 KB) are staged once per
-//     persistent block in static shared memory; NO_CONFLICT_U64 (700 KB)
+//     block in static shared memory; NO_CONFLICT_U64 (700 KB)
 //     stays in L2 and is read through the read-only path.
 // Draw j of lane i is the counter-based hash `regen_draw(seed, i, j)` that
 // the plain version computes too, so ids and attempts agree bit for bit.
@@ -55,6 +54,10 @@
 #define REGEN_MAX_ATTEMPTS 100
 #define REGEN_CHUNK 32
 #define REGEN_FULL_WARP 0xFFFFFFFFu
+// Block width: 12 warps, so 12 draws are decided side by side in a round
+// (of 128, 192, 256 and 384 threads, 384 was the fastest at the engine
+// step's inputs; PERF.md).
+#define REGEN_THREADS 384
 
 // A 32-bit mixing hash (xorshift-multiply, multipliers below 2^31 so that
 // the plain version's int64 products stay below 2^63).  A bijection.
@@ -145,8 +148,7 @@ __device__ __forceinline__ int regen_exact_item(int u, u64 board, const int* id,
                            s_aok[id[h]], found);
 }
 
-template <int W>
-__global__ void __launch_bounds__(W)
+__global__ void __launch_bounds__(REGEN_THREADS)
 regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
              const unsigned char* __restrict__ need,
              const long long* __restrict__ seed,
@@ -154,8 +156,8 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
              const int* __restrict__ shifts,
              const long long* __restrict__ anchor_ok,
              const long long* __restrict__ no_conflict,
-             int* __restrict__ out_ids, int* __restrict__ attempts,
-             int* __restrict__ counters, int n) {
+             int* __restrict__ out_ids, int* __restrict__ attempts, int n) {
+    constexpr int W = REGEN_THREADS;
     constexpr int NW = W / 32;
     __shared__ u64 s_place[BB_NUM_PIECES * BB_ANCHORS];
     __shared__ int s_shift[BB_NUM_PIECES * BB_SHIFTS];
@@ -170,7 +172,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
     // Per lane of the chunk: its board and its next attempt to issue.
     __shared__ u64 s_board[REGEN_CHUNK];
     __shared__ int s_next[REGEN_CHUNK];
-    __shared__ int s_chunk, s_busy;
+    __shared__ int s_busy;
 
     const int t = threadIdx.x;
     const int w = t / 32;
@@ -181,160 +183,136 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
     const uint32_t seed_key = regen_mix32((uint32_t)seed[0]);
     const u64* nc = (const u64*)no_conflict;
 
+    const int base = blockIdx.x * REGEN_CHUNK;
+    __syncthreads();
+    // Warp 0, thread l for the chunk's lane l: copy the ids of a lane
+    // that keeps its triple; stage a needy lane's board.
+    bool open = false;
+    if (w == 0) {
+        const int lane = base + l;
+        const bool in = lane < n;
+        const u64 board = in ? bb_load(bits + 2 * lane) : 0;
+        open = in && need[lane] != 0;
+        if (open) {
+            s_board[l] = board;
+            s_next[l] = 0;
+        } else if (in) {
+            for (int s = 0; s < 3; ++s) out_ids[3 * lane + s] = ids[3 * lane + s];
+            attempts[lane] = 0;
+        }
+        if (l < NW) s_lane[l] = -1;
+    }
+    __syncwarp();
+
     for (;;) {
-        if (t == 0) s_chunk = atomicAdd(&counters[0], 1);
-        __syncthreads();
-        const int base = s_chunk * REGEN_CHUNK;
-        if (base >= n) break;
-        // Warp 0, thread l for the chunk's lane l: copy the ids of a lane
-        // that keeps its triple; stage a needy lane's board.
-        bool open = false;
+        // Warp 0 settles the last round and hands out this one's
+        // (lane, attempt) pairs, thread l for lane l.  Every attempt a
+        // round issued is decided by its end, so a lane is done at its
+        // lowest accepted attempt, or once all 100 are spent.
         if (w == 0) {
             const int lane = base + l;
-            const bool in = lane < n;
-            const u64 board = in ? bb_load(bits + 2 * lane) : 0;
-            open = in && need[lane] != 0;
             if (open) {
-                s_board[l] = board;
-                s_next[l] = 0;
-            } else if (in) {
-                for (int s = 0; s < 3; ++s) out_ids[3 * lane + s] = ids[3 * lane + s];
-                attempts[lane] = 0;
+                int best = REGEN_MAX_ATTEMPTS, q_best = -1;
+                for (int q = 0; q < NW; ++q)
+                    if (s_lane[q] == l && (s_ok[q] || s_found[q]) && s_attempt[q] < best) {
+                        best = s_attempt[q];
+                        q_best = q;
+                    }
+                if (q_best >= 0 || s_next[l] == REGEN_MAX_ATTEMPTS) {
+                    int id[3];
+                    if (q_best >= 0) {
+                        for (int s = 0; s < 3; ++s) id[s] = s_id[q_best][s];
+                    } else {
+                        const uint32_t key =
+                            regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
+                                        (uint32_t)(REGEN_MAX_ATTEMPTS - 1));
+                        for (int s = 0; s < 3; ++s) id[s] = regen_shape(key, s);
+                    }
+                    for (int s = 0; s < 3; ++s) out_ids[3 * lane + s] = id[s];
+                    attempts[lane] = best + (q_best >= 0 ? 1 : 0);
+                    open = false;
+                }
             }
-            if (l < NW) s_lane[l] = -1;
+            // The open lanes in turn, round robin over the warps: the
+            // open lane of rank r takes warps r, r + c, ... (c open
+            // lanes), at its next attempts.
+            const unsigned mask = __ballot_sync(REGEN_FULL_WARP, open);
+            const int c = BB_POPC((u64)mask);
+            __syncwarp();
+            if (open) {
+                const int r = BB_POPC((u64)(mask & ((1u << l) - 1)));
+                int next = s_next[l];
+                for (int q = r; q < NW; q += c) {
+                    const bool go = next < REGEN_MAX_ATTEMPTS;
+                    s_lane[q] = go ? l : -1;
+                    s_attempt[q] = next;
+                    next += go ? 1 : 0;
+                }
+                s_next[l] = next;
+            } else if (c == 0 && l < NW) {
+                s_lane[l] = -1;
+            }
+            if (l < NW) s_found[l] = 0;
+            if (l == 0) s_busy = c;
         }
-        __syncwarp();
+        __syncthreads();
+        if (s_busy == 0) break;
 
-        for (;;) {
-            // Warp 0 settles the last round and hands out this one's
-            // (lane, attempt) pairs, thread l for lane l.  Every attempt a
-            // round issued is decided by its end, so a lane is done at its
-            // lowest accepted attempt, or once all 100 are spent.
-            if (w == 0) {
-                const int lane = base + l;
-                if (open) {
-                    int best = REGEN_MAX_ATTEMPTS, q_best = -1;
-                    for (int q = 0; q < NW; ++q)
-                        if (s_lane[q] == l && (s_ok[q] || s_found[q]) && s_attempt[q] < best) {
-                            best = s_attempt[q];
-                            q_best = q;
-                        }
-                    if (q_best >= 0 || s_next[l] == REGEN_MAX_ATTEMPTS) {
-                        int id[3];
-                        if (q_best >= 0) {
-                            for (int s = 0; s < 3; ++s) id[s] = s_id[q_best][s];
-                        } else {
-                            const uint32_t key =
-                                regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
-                                            (uint32_t)(REGEN_MAX_ATTEMPTS - 1));
-                            for (int s = 0; s < 3; ++s) id[s] = regen_shape(key, s);
-                        }
-                        for (int s = 0; s < 3; ++s) out_ids[3 * lane + s] = id[s];
-                        attempts[lane] = best + (q_best >= 0 ? 1 : 0);
-                        open = false;
-                    }
-                }
-                // The open lanes in turn, round robin over the warps: the
-                // open lane of rank r takes warps r, r + c, ... (c open
-                // lanes), at its next attempts.
-                const unsigned mask = __ballot_sync(REGEN_FULL_WARP, open);
-                const int c = BB_POPC((u64)mask);
-                __syncwarp();
-                if (open) {
-                    const int r = BB_POPC((u64)(mask & ((1u << l) - 1)));
-                    int next = s_next[l];
-                    for (int q = r; q < NW; q += c) {
-                        const bool go = next < REGEN_MAX_ATTEMPTS;
-                        s_lane[q] = go ? l : -1;
-                        s_attempt[q] = next;
-                        next += go ? 1 : 0;
-                    }
-                    s_next[l] = next;
-                } else if (c == 0 && l < NW) {
-                    s_lane[l] = -1;
-                }
-                if (l < NW) s_found[l] = 0;
-                if (l == 0) s_busy = c;
+        // The disjoint tier, one draw a warp.
+        const int k = s_lane[w];
+        if (k >= 0) {
+            const int lane = base + k;
+            const uint32_t key = regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
+                                             (uint32_t)s_attempt[w]);
+            int id[3];
+            u64 v[3];
+            for (int s = 0; s < 3; ++s) {
+                id[s] = regen_shape(key, s);
+                v[s] = bb_fit(s_board[k], s_shift + BB_SHIFTS * id[s], s_aok[id[s]]);
             }
-            __syncthreads();
-            if (s_busy == 0) break;
-
-            // The disjoint tier, one draw a warp.
-            const int k = s_lane[w];
-            if (k >= 0) {
-                const int lane = base + k;
-                const uint32_t key = regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
-                                                 (uint32_t)s_attempt[w]);
-                int id[3];
-                u64 v[3];
+            const bool ok = regen_disjoint(id, v, l, nc, s_nc12[w]);
+            if (l == 0) {
+                s_ok[w] = ok ? 1 : 0;
+                s_items[w] = ok ? 0 : 2 * (BB_POPC(v[0]) + BB_POPC(v[1]) + BB_POPC(v[2]));
                 for (int s = 0; s < 3; ++s) {
-                    id[s] = regen_shape(key, s);
-                    v[s] = bb_fit(s_board[k], s_shift + BB_SHIFTS * id[s], s_aok[id[s]]);
+                    s_id[w][s] = id[s];
+                    s_valid[w][s] = v[s];
                 }
-                const bool ok = regen_disjoint(id, v, l, nc, s_nc12[w]);
-                if (l == 0) {
-                    s_ok[w] = ok ? 1 : 0;
-                    s_items[w] = ok ? 0 : 2 * (BB_POPC(v[0]) + BB_POPC(v[1]) + BB_POPC(v[2]));
-                    for (int s = 0; s < 3; ++s) {
-                        s_id[w][s] = id[s];
-                        s_valid[w][s] = v[s];
-                    }
-                }
-            } else if (l == 0) {
-                s_items[w] = 0;
+            }
+        } else if (l == 0) {
+            s_items[w] = 0;
+        }
+        __syncthreads();
+
+        // The exact tier over the block, for every draw the disjoint
+        // tier rejected: their items in passes of W.
+        int total = 0;
+        for (int q = 0; q < NW; ++q) total += s_items[q];
+        if (total) {
+            const volatile int* found = s_found;
+            for (int u = t; u < total; u += W) {
+                int q = 0, off = u;
+                while (off >= s_items[q]) off -= s_items[q++];
+                if (!found[q])
+                    regen_exact_item(off, s_board[s_lane[q]], s_id[q], s_valid[q],
+                                     s_place, s_shift, s_aok, &s_found[q]);
             }
             __syncthreads();
-
-            // The exact tier over the block, for every draw the disjoint
-            // tier rejected: their items in passes of W.
-            int total = 0;
-            for (int q = 0; q < NW; ++q) total += s_items[q];
-            if (total) {
-                const volatile int* found = s_found;
-                for (int u = t; u < total; u += W) {
-                    int q = 0, off = u;
-                    while (off >= s_items[q]) off -= s_items[q++];
-                    if (!found[q])
-                        regen_exact_item(off, s_board[s_lane[q]], s_id[q], s_valid[q],
-                                         s_place, s_shift, s_aok, &s_found[q]);
-                }
-                __syncthreads();
-            }
-
-        }
-    }
-
-    // The last block out resets the claim counter for the next launch.
-    if (t == 0) {
-        __threadfence();
-        if (atomicAdd(&counters[1], 1) == (int)gridDim.x - 1) {
-            counters[0] = 0;
-            counters[1] = 0;
         }
     }
 }
 
-// Block widths the entry point takes (4, 6, 8 or 12 warps: draws decided
-// side by side in a round).
 extern "C" int bbx_regen(const void* bits, const void* ids, const void* need,
                          const void* seed, const void* place,
                          const void* shifts, const void* anchor_ok,
                          const void* no_conflict, void* out_ids,
-                         void* attempts, void* counters, int n, int blocks,
-                         int threads, void* stream) {
-    if (n <= 0 || blocks <= 0) return (int)cudaGetLastError();
-#define REGEN_ARGS                                                              \
-    (const long long*)bits, (const int*)ids, (const unsigned char*)need,       \
-        (const long long*)seed, (const long long*)place, (const int*)shifts,   \
-        (const long long*)anchor_ok, (const long long*)no_conflict,            \
-        (int*)out_ids, (int*)attempts, (int*)counters, n
-    switch (threads) {
-        case 128: BBX_LAUNCH(regen_kernel<128>, blocks, 128, stream, REGEN_ARGS); break;
-        case 192: BBX_LAUNCH(regen_kernel<192>, blocks, 192, stream, REGEN_ARGS); break;
-        case 256: BBX_LAUNCH(regen_kernel<256>, blocks, 256, stream, REGEN_ARGS); break;
-        case 384: BBX_LAUNCH(regen_kernel<384>, blocks, 384, stream, REGEN_ARGS); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-#undef REGEN_ARGS
+                         void* attempts, int n, void* stream) {
+    if (n <= 0) return (int)cudaGetLastError();
+    BBX_LAUNCH(regen_kernel, (n + REGEN_CHUNK - 1) / REGEN_CHUNK, REGEN_THREADS,
+               stream, (const long long*)bits, (const int*)ids,
+               (const unsigned char*)need, (const long long*)seed,
+               (const long long*)place, (const int*)shifts,
+               (const long long*)anchor_ok, (const long long*)no_conflict,
+               (int*)out_ids, (int*)attempts, n);
     return (int)cudaGetLastError();
 }

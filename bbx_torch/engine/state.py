@@ -7,7 +7,7 @@ The draws match `bbx`'s threefry streams in distribution, not bit for bit.
 
 Regen (`regen_pieces`) dispatches on the device of its input: the plain
 round loop `regen_pieces_plain` for CPU tensors, the fused CUDA kernel K7
-(`csrc/regen.cu`, a persistent grid whose blocks claim chunks of lanes)
+(`csrc/regen.cu`, one block for each chunk of 32 lanes)
 for CUDA tensors, counting its launches in ``regen_pieces.launches``.
 Its draws are a counter-based hash of (seed, lane, attempt), `regen_draw`,
 which both versions compute: one seed per `step` comes from the fleet's
@@ -210,32 +210,8 @@ def regen_pieces(bits: torch.Tensor, piece_ids: torch.Tensor,
     return _regen_pieces_cuda(bits, piece_ids, seed, need)
 
 
-# K7's block width: warps whose draws are decided side by side in a round
-# (`csrc/regen.cu` takes 128, 192, 256 and 384; PERF.md has the times of
-# each).
-REGEN_THREADS = 384
-REGEN_CHUNK = 32  # lanes a block claims at a time
-
-# Per (device, stream): K7's claim and exit counters, two int32 zeros that
-# the kernel's last block resets, so that launches on one stream reuse
-# them without a host-side clear.
-_REGEN_COUNTERS: dict = {}
-
-
-def _regen_counters(device, stream: int) -> torch.Tensor:
-    key = (device, stream)
-    counters = _REGEN_COUNTERS.get(key)
-    if counters is None:
-        counters = torch.zeros(2, dtype=torch.int32, device=device)
-        _REGEN_COUNTERS[key] = counters
-    return counters
-
-
-def _regen_pieces_cuda(bits, piece_ids, seed, need, blocks=None,
-                       threads=REGEN_THREADS):
-    """K7 on a persistent grid of `blocks` blocks of `threads` threads
-    (default: as many as the card holds at once, at most one per chunk of
-    32 lanes)."""
+def _regen_pieces_cuda(bits, piece_ids, seed, need):
+    """K7 on the card: one block for each chunk of 32 lanes."""
     n = bits.shape[0]
     seed = seed.reshape(())
     build.require_many((
@@ -245,21 +221,18 @@ def _regen_pieces_cuda(bits, piece_ids, seed, need, blocks=None,
         ("regen_pieces: seed", seed, torch.int64, ())))
     return _launch_regen(bits.data_ptr(), piece_ids.data_ptr(), need.data_ptr(),
                          seed.data_ptr(), n, bits.device, build.stream_of(bits),
-                         tables(bits.device), blocks, threads)
+                         tables(bits.device))
 
 
-def _launch_regen(bits, piece_ids, need, seed, n, device, stream, tb,
-                  blocks=None, threads=REGEN_THREADS):
+def _launch_regen(bits, piece_ids, need, seed, n, device, stream, tb):
     """K7 on checked inputs given as device pointers: (ids, attempts)."""
     ids = torch.empty((n, PIECES_PER_TURN), dtype=torch.int32, device=device)
     attempts = torch.empty(n, dtype=torch.int32, device=device)
-    if blocks is None:
-        blocks = min(build.resident_blocks(device, threads), -(-n // REGEN_CHUNK))
     err = build.function("regen")(
         bits, piece_ids, need, seed, tb.PLACE_U64.data_ptr(),
         tb.PIECE_SHIFTS_I32.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
-        tb.NO_CONFLICT_U64.data_ptr(), ids.data_ptr(), attempts.data_ptr(),
-        _regen_counters(device, stream).data_ptr(), n, blocks, threads, stream)
+        tb.NO_CONFLICT_U64.data_ptr(), ids.data_ptr(), attempts.data_ptr(), n,
+        stream)
     build.check("regen", err)
     if n:
         regen_pieces.launches += 1

@@ -8,8 +8,8 @@ test, the shaped reward, the counters, auto-reset and the observation).
 On the card it makes three kernel launches: K6's two entry points
 (`csrc/move.cu`: `bbx_move` before regen, `bbx_step_finish` after it)
 around regen's K7 (`csrc/regen.cu`), counted in ``_move_core.launches``,
-``_step_finish.launches`` and ``regen_pieces.launches``; a CUDA tensor
-never takes a plain version.  There the step's outputs (the new state, obs,
+``_step_finish_cuda.launches`` and ``regen_pieces.launches``; a CUDA
+tensor never takes a plain version.  There the step's outputs (the new state, obs,
 reward, done and info) are views of `bbx_step_finish`'s two output blocks
 (info's holes, lines and score gained of `bbx_move`'s), so a caller that
 keeps one output keeps its block.  Both paths draw from the fleet's
@@ -204,51 +204,87 @@ _STATE_CHECKS = (
 ) + tuple((f"step: {f}", f, torch.int32, 1) for f in (
     "score", "streak", "moves", "lines_total", "max_streak", "blocks_total",
     "prev_holes", "ep_len"))
-# `bbx_move`'s two output blocks (`csrc/move.cu`): int32 words [bits 4n |
-# ten int32 rows | centre f32 n] and bytes [board 64n | used 3n | three
-# bool rows].
-_MV_INTS, _MV_FLAGS = 10, 3
-_MV_WORDS = 4 + _MV_INTS + 1
-_MV_BYTES = NUM_CELLS + PIECES_PER_TURN + _MV_FLAGS
-(_MV_PIECE, _MV_NBLOCKS, _MV_LINES, _MV_ROWS, _MV_COLS, _MV_STREAK, _MV_COMBO,
- _MV_SCORE, _MV_HOLES, _MV_FILL) = range(_MV_INTS)
 
 
-def _launch_move(state: EnvState, actions: torch.Tensor, stream: int, tb):
-    """`bbx_move` on a checked state into two fresh blocks: (words, raw)."""
+def _rows_at(layout) -> tuple:
+    """({field: (first row, rows)}, rows in all) of a block whose outputs
+    are `layout`'s (field, rows) in turn, each row n elements."""
+    at, row = {}, 0
+    for field, rows in layout:
+        at[field] = (row, rows)
+        row += rows
+    return at, row
+
+
+# `bbx_move`'s outputs in its two blocks, the one place that lays them out
+# (`csrc/move.cu` takes a pointer to each output; it writes the ten int32
+# rows from `piece` to `filled` and the three bool rows from `valid` to
+# `need` in this order).  The int32 block holds the bitboards [n, 2] i64,
+# ten int32 rows and the centre f32; the byte block the board [n, 8, 8],
+# `used` [n, 3] and three bool rows.
+_MV_WORD_AT, _MV_WORDS = _rows_at((
+    ("bits", 4), ("piece", 1), ("nblocks", 1), ("lines", 1), ("rows_cleared", 1),
+    ("cols_cleared", 1), ("streak_after", 1), ("combo_mult", 1),
+    ("score_gained", 1), ("holes", 1), ("filled", 1), ("center", 1)))
+_MV_BYTE_AT, _MV_BYTES = _rows_at((
+    ("new_board", NUM_CELLS), ("used_after", PIECES_PER_TURN), ("valid", 1),
+    ("cleared_any", 1), ("need", 1)))
+# dtype and per-lane shape of the outputs that are not one int32 a lane.
+_MV_VIEWS = {
+    "bits": (torch.int64, (2,)), "center": (torch.float32, ()),
+    "new_board": (torch.uint8, (BOARD_SIZE, BOARD_SIZE)),
+    "used_after": (torch.bool, (PIECES_PER_TURN,)), "valid": (torch.bool, ()),
+    "cleared_any": (torch.bool, ()), "need": (torch.bool, ())}
+
+
+class MoveBlocks(NamedTuple):
+    """`bbx_move`'s two output blocks and the device pointer of each of its
+    outputs, by `Moved`'s field names."""
+
+    words: torch.Tensor  # int32 [n * _MV_WORDS]
+    raw: torch.Tensor    # uint8 [n * _MV_BYTES]
+    ptrs: dict
+
+    def view(self, field: str) -> torch.Tensor:
+        """Output `field` as a view of its block."""
+        if field in _MV_WORD_AT:
+            block, (row, rows), size = self.words, _MV_WORD_AT[field], _MV_WORDS
+        else:
+            block, (row, rows), size = self.raw, _MV_BYTE_AT[field], _MV_BYTES
+        n = block.numel() // size
+        dtype, shape = _MV_VIEWS.get(field, (torch.int32, ()))
+        return block[row * n:(row + rows) * n].view(dtype).view(n, *shape)
+
+    def moved(self) -> Moved:
+        return Moved(*(self.view(f) for f in Moved._fields))
+
+
+def _launch_move(state: EnvState, actions: torch.Tensor, stream: int,
+                 tb) -> MoveBlocks:
+    """`bbx_move` on a checked state into two fresh blocks."""
     n = state.num_envs
     dev = state.board.device
     words = torch.empty(n * _MV_WORDS, dtype=torch.int32, device=dev)
     raw = torch.empty(n * _MV_BYTES, dtype=torch.uint8, device=dev)
     w, r = words.data_ptr(), raw.data_ptr()
+    ptrs = {f: w + 4 * n * row for f, (row, _) in _MV_WORD_AT.items()}
+    ptrs.update((f, r + n * row) for f, (row, _) in _MV_BYTE_AT.items())
     err = build.function("move")(
         state.board.data_ptr(), state.piece_ids.data_ptr(),
         state.used.data_ptr(), state.done.data_ptr(), state.streak.data_ptr(),
         actions.data_ptr(), tb.PLACE_U64.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
-        tb.PIECE_NBLOCKS.data_ptr(), r, w + 16 * n, r + (NUM_CELLS + PIECES_PER_TURN) * n,
-        r + NUM_CELLS * n, w + 56 * n, w, n, stream)
+        tb.PIECE_NBLOCKS.data_ptr(), ptrs["new_board"], ptrs["piece"],
+        ptrs["valid"], ptrs["used_after"], ptrs["center"], ptrs["bits"], n, stream)
     build.check("move", err)
     if n:
         _move_core.launches += 1
-    return words, raw
+    return MoveBlocks(words, raw, ptrs)
 
 
 def _move_core_cuda(state: EnvState, actions: torch.Tensor) -> Moved:
     """`bbx_move` on a checked state, its outputs as views of its blocks."""
-    n = state.num_envs
-    words, raw = _launch_move(state, actions, build.stream_of(state.board),
-                              tables(state.device))
-    bits, ints, center = words.split([4 * n, _MV_INTS * n, n])
-    new_board, used_after, flags = raw.split(
-        [NUM_CELLS * n, PIECES_PER_TURN * n, _MV_FLAGS * n])
-    (piece, nblocks, lines, rows_c, cols_c, streak, combo, score, holes,
-     fill) = ints.view(_MV_INTS, n).unbind(0)
-    valid, cleared, need = flags.view(torch.bool).view(_MV_FLAGS, n).unbind(0)
-    return Moved(
-        valid, piece, nblocks, new_board.view(n, BOARD_SIZE, BOARD_SIZE), lines,
-        rows_c, cols_c, cleared, streak, combo, score,
-        used_after.view(torch.bool).view(n, PIECES_PER_TURN), holes,
-        center.view(torch.float32), fill, bits.view(torch.int64).view(n, 2), need)
+    return _launch_move(state, actions, build.stream_of(state.board),
+                        tables(state.device)).moved()
 
 
 _move_core.launches = 0
@@ -261,7 +297,21 @@ _move_core.launches = 0
 def _step_finish_plain(state: EnvState, moved: Moved, ids_after: torch.Tensor,
                        fresh: Optional[torch.Tensor],
                        reward_config: RewardConfig, auto_reset: bool):
-    """Plain version of `_step_finish`."""
+    """The rest of `bbx/engine/step.py:step` after regen, per lane: the
+    game-over test, the shaped reward, the counters, auto-reset and the
+    observation (the plain version of `_step_finish_cuda`).
+
+    Args:
+      state: the EnvState before the step.
+      moved: `_move_core`'s outputs for the step's actions.
+      ids_after: [N, 3] int32, regen's ids (`regen_pieces` on
+        ``moved.bits`` and ``moved.need``).
+      fresh: [N, 3] int32, the triples of lanes that reset
+        (`fresh_pieces`); None without auto-reset.
+      reward_config, auto_reset: as `step`'s.
+    Returns:
+      (new state, obs, reward, done, info) as in `StepOutput`.
+    """
     tb = tables(state.device)
     n = state.num_envs
     (valid, _piece, nblocks, new_board, lines, _rows, _cols, cleared_any,
@@ -376,44 +426,6 @@ def _step_finish_plain(state: EnvState, moved: Moved, ids_after: torch.Tensor,
     return new_state, obs, reward, game_over_now, info
 
 
-def _step_finish(state: EnvState, moved: Moved, ids_after: torch.Tensor,
-                 fresh: Optional[torch.Tensor],
-                 reward_config: RewardConfig = RewardConfig(),
-                 auto_reset: bool = True):
-    """The rest of `bbx/engine/step.py:step` after regen, per lane.
-
-    Args:
-      state: the EnvState before the step.
-      moved: `_move_core`'s outputs for the step's actions.
-      ids_after: [N, 3] int32, regen's ids (`regen_pieces` on
-        ``moved.bits`` and ``moved.need``).
-      fresh: [N, 3] int32, the triples of lanes that reset
-        (`fresh_pieces`); None without auto-reset.
-      reward_config, auto_reset: as `step`'s.
-    Returns:
-      (new state, obs, reward, done, info) as in `StepOutput`.
-    """
-    if not state.board.is_cuda:
-        return _step_finish_plain(state, moved, ids_after, fresh,
-                                  reward_config, auto_reset)
-    _require_state(state)
-    n = state.num_envs
-    i32, b = torch.int32, torch.bool
-    checks = [("ids_after", ids_after, i32, (n, PIECES_PER_TURN)),
-              ("used_after", moved.used_after, b, (n, PIECES_PER_TURN)),
-              ("center", moved.center, torch.float32, (n,)),
-              ("bits", moved.bits, torch.int64, (n, 2))]
-    checks += [(f, getattr(moved, f), b, (n,)) for f in ("valid", "cleared_any", "need")]
-    checks += [(f, getattr(moved, f), i32, (n,)) for f in (
-        "nblocks", "lines", "combo_mult", "score_gained", "holes", "filled",
-        "streak_after")]
-    if auto_reset:
-        checks.append(("fresh", fresh, i32, (n, PIECES_PER_TURN)))
-    build.require_many([(f"_step_finish: {name}", *rest) for name, *rest in checks])
-    return _step_finish_cuda(state, moved, ids_after, fresh, reward_config,
-                             auto_reset)
-
-
 def _reward_coefficients(rc: RewardConfig) -> tuple:
     """The reward's coefficients as the plain version's float32 arithmetic
     sees them: each Python double (``center_bonus * 0.1`` a double product)
@@ -426,15 +438,18 @@ def _reward_coefficients(rc: RewardConfig) -> tuple:
 # Rows of `bbx_step_finish`'s output blocks (`csrc/move.cu`).
 _FIN_FLOATS, _FIN_INTS, _FIN_BOOLS = 5, 16, 3
 _OBS_FLOATS = NUM_CELLS + NUM_ACTIONS  # board and pieces planes a lane
+# bbx_move's outputs that `bbx_step_finish` reads, in its argument order.
+_FIN_MOVED = ("valid", "cleared_any", "need", "used_after", "nblocks", "lines",
+              "combo_mult", "score_gained", "holes", "filled", "streak_after",
+              "center", "bits")
 
 
-def _launch_finish(state: EnvState, moved_ptrs, ids_after: int,
-                   fresh: Optional[int], reward_config: RewardConfig,
-                   auto_reset: bool, stream: int, tb):
-    """`bbx_step_finish` on checked inputs (`moved_ptrs`: the device
-    pointers of bbx_move's valid, cleared_any, need, used_after, nblocks,
-    lines, combo_mult, score_gained, holes, filled, streak_after, center
-    and bits) into two fresh blocks: (words, raw)."""
+def _step_finish_cuda(state: EnvState, moved: MoveBlocks, ids_after: torch.Tensor,
+                      fresh: Optional[torch.Tensor], reward_config: RewardConfig,
+                      auto_reset: bool, stream: int, tb):
+    """`bbx_step_finish` on a checked state, `bbx_move`'s blocks for it,
+    regen's ids and (with auto-reset) the fresh triples, into two fresh
+    blocks: (new state, obs, reward, done, info) as views of them."""
     n = state.num_envs
     dev = state.board.device
     words = torch.empty(n * (_OBS_FLOATS + _FIN_FLOATS + PIECES_PER_TURN + _FIN_INTS),
@@ -446,20 +461,24 @@ def _launch_finish(state: EnvState, moved_ptrs, ids_after: int,
         state.lines_total.data_ptr(), state.max_streak.data_ptr(),
         state.blocks_total.data_ptr(), state.prev_holes.data_ptr(),
         state.ep_len.data_ptr(), state.done.data_ptr(),
-        state.prev_center.data_ptr(), state.ep_return.data_ptr(), *moved_ptrs,
-        ids_after, fresh if auto_reset else None, tb.PLACE_U64.data_ptr(),
+        state.prev_center.data_ptr(), state.ep_return.data_ptr(),
+        *(moved.ptrs[f] for f in _FIN_MOVED), ids_after.data_ptr(),
+        fresh.data_ptr() if auto_reset else None, tb.PLACE_U64.data_ptr(),
         tb.PIECE_SHIFTS_I32.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
         *_reward_coefficients(reward_config), int(auto_reset), words.data_ptr(),
         raw.data_ptr(), n, stream)
     build.check("step_finish", err)
     if n:
-        _step_finish.launches += 1
-    return words, raw
+        _step_finish_cuda.launches += 1
+    return _finish_views(state, words, raw, moved)
 
 
-def _finish_views(state: EnvState, words, raw, holes, lines, score_gained):
+_step_finish_cuda.launches = 0
+
+
+def _finish_views(state: EnvState, words, raw, moved: MoveBlocks):
     """(new state, obs, reward, done, info) as views of `bbx_step_finish`'s
-    blocks (info's holes, lines and score_gained are bbx_move's)."""
+    blocks (info's holes, lines and score_gained of `bbx_move`'s)."""
     n = state.num_envs
     obs_board, obs_pieces, floats, _ = words.view(torch.float32).split(
         [NUM_CELLS * n, NUM_ACTIONS * n, _FIN_FLOATS * n,
@@ -489,9 +508,10 @@ def _finish_views(state: EnvState, words, raw, holes, lines, score_gained):
     info = {
         "score": score_i, "moves": moves_i, "lines_cleared": lines_i,
         "max_combo": max_streak_i, "blocks_placed": blocks_i,
-        "board_fill": fill, "holes": holes, "invalid_action": invalid,
-        "last_blocks_placed": last_blocks, "last_lines_cleared": lines,
-        "last_combo_multiplier": last_combo, "last_score_gained": score_gained,
+        "board_fill": fill, "holes": moved.view("holes"), "invalid_action": invalid,
+        "last_blocks_placed": last_blocks, "last_lines_cleared": moved.view("lines"),
+        "last_combo_multiplier": last_combo,
+        "last_score_gained": moved.view("score_gained"),
         "final_score": score_i, "final_length": ep_len_i,
         "final_return": final_return, "final_lines": lines_i,
         "final_max_combo": max_streak_i,
@@ -499,22 +519,6 @@ def _finish_views(state: EnvState, words, raw, holes, lines, score_gained):
     return new_state, obs, reward, game_over, info
 
 
-def _step_finish_cuda(state: EnvState, moved: Moved, ids_after: torch.Tensor,
-                      fresh: Optional[torch.Tensor], reward_config: RewardConfig,
-                      auto_reset: bool):
-    """`bbx_step_finish` on checked inputs."""
-    m = moved
-    ptrs = tuple(t.data_ptr() for t in (
-        m.valid, m.cleared_any, m.need, m.used_after, m.nblocks, m.lines,
-        m.combo_mult, m.score_gained, m.holes, m.filled, m.streak_after,
-        m.center, m.bits))
-    words, raw = _launch_finish(
-        state, ptrs, ids_after.data_ptr(), fresh.data_ptr() if auto_reset else None,
-        reward_config, auto_reset, build.stream_of(state.board), tables(state.device))
-    return _finish_views(state, words, raw, m.holes, m.lines, m.score_gained)
-
-
-_step_finish.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -554,29 +558,18 @@ def _step_plain(state, actions, reward_config, auto_reset) -> StepOutput:
 
 def _step_cuda(state, actions, reward_config, auto_reset) -> StepOutput:
     """K6, K7, K6: three launches and the generator's draws, the state
-    checked once, the kernels' inputs passed as pointers into the previous
-    kernel's output blocks, no host synchronisation."""
+    checked once, each kernel reading the previous one's output blocks
+    through `MoveBlocks.ptrs`, no host synchronisation."""
     actions = _require_state(state, actions)
     n = state.num_envs
     dev = state.board.device
     stream = build.stream_of(state.board)
     tb = tables(dev)
-    words, raw = _launch_move(state, actions, stream, tb)
-    w, r = words.data_ptr(), raw.data_ptr()
+    moved = _launch_move(state, actions, stream, tb)
     seed = regen_seed(state.rng, dev)
-    flags = r + (NUM_CELLS + PIECES_PER_TURN) * n
-    ids, attempts = _launch_regen(w, state.piece_ids.data_ptr(), flags + 2 * n,
-                                  seed.data_ptr(), n, dev, stream, tb)
+    ids, attempts = _launch_regen(moved.ptrs["bits"], state.piece_ids.data_ptr(),
+                                  moved.ptrs["need"], seed.data_ptr(), n, dev,
+                                  stream, tb)
     fresh = fresh_pieces(n, state.rng, dev) if auto_reset else None
-    row = w + 16 * n  # the int32 row i of bbx_move is at row + 4 * n * i
-    moved_ptrs = (flags, flags + n, flags + 2 * n, r + NUM_CELLS * n,
-                  row + 4 * n * _MV_NBLOCKS, row + 4 * n * _MV_LINES,
-                  row + 4 * n * _MV_COMBO, row + 4 * n * _MV_SCORE,
-                  row + 4 * n * _MV_HOLES, row + 4 * n * _MV_FILL,
-                  row + 4 * n * _MV_STREAK, w + 56 * n, w)
-    fin_words, fin_raw = _launch_finish(
-        state, moved_ptrs, ids.data_ptr(), fresh.data_ptr() if auto_reset else None,
-        reward_config, auto_reset, stream, tb)
-    ints = words[4 * n:(4 + _MV_INTS) * n].view(_MV_INTS, n)
-    return StepOutput(*_finish_views(state, fin_words, fin_raw, ints[_MV_HOLES],
-                                     ints[_MV_LINES], ints[_MV_SCORE]), attempts)
+    return StepOutput(*_step_finish_cuda(state, moved, ids, fresh, reward_config,
+                                         auto_reset, stream, tb), attempts)

@@ -13,7 +13,6 @@ Every exported C function launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -65,8 +64,8 @@ SIGNATURES = {
     "step_finish": ("move", "bbx_step_finish",
                     [_P] * 28 + [_F] * 7 + [_I, _P, _P, _I, _P]),
     # bits, ids, need, seed, place, shifts, anchor_ok, no_conflict,
-    # out_ids, attempts, counters, n, blocks, threads, stream
-    "regen": ("regen", "bbx_regen", [_P] * 11 + [_I, _I, _I, _P]),
+    # out_ids, attempts, n, stream
+    "regen": ("regen", "bbx_regen", [_P] * 10 + [_I, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}
@@ -161,18 +160,6 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-@functools.lru_cache(maxsize=None)
-def resident_blocks(device, threads: int) -> int:
-    """How many blocks of `threads` threads the card `device` holds at
-    once: its SM count times the blocks an SM's thread slots take (an upper
-    bound; registers or shared memory may hold fewer)."""
-    import torch
-
-    props = torch.cuda.get_device_properties(device)
-    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // threads
-    return props.multi_processor_count * max(1, per_sm)
 
 
 def require_many(checks) -> None:

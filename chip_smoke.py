@@ -15,11 +15,12 @@ Phases, each of which must pass (exit code 1 otherwise):
    2048; K6's two entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
    train paths' 512; K7 on that step's inputs (its attempts equal to the
-   step's own) at each block width it takes, at 512 lanes, and at the
-   FLEET lanes' realistic need and with every lane in need; each timed as
-   wrapper calls between CUDA events (`ms`), as device time by
-   `torch.profiler` (`device_ms`, K6 and K7) and as host time a call
-   (`host_us`, K6 and K7);
+   step's own), at 512 lanes, and at the FLEET lanes' realistic need and
+   with every lane in need; each timed as wrapper calls between CUDA
+   events (`ms`), as device time by `torch.profiler` (`device_ms`, K6 and
+   K7) and as host time a call (`host_us`, K6 and K7; K6's entry points
+   through the launch helpers the step calls, on the step's checked
+   inputs);
 4. the engine path through `bbx_torch.cli.benchmark`: random-policy
    env-steps/s of 16,384 lanes (chunks of 64 steps, 5 windows of 10
    chunks, the 20% spread gate; a measurement that breaks it is taken
@@ -130,13 +131,13 @@ RUN9_REWARDS = {
 # and K3 run inside K7 on the step paths; their standalone kernels serve
 # the parity engine.  K1 runs on the step paths only in `observe` at a
 # reset: the step's own game-over test and masks are K6's
-# (`_step_finish`).
+# (`_step_finish_cuda`).
 PATH_KERNELS = {
-    "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish",
+    "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
              "regen_pieces"),
     "train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
-              "_step_finish", "regen_pieces"),
-    "engine": ("valid3_bits", "_move_core", "_step_finish", "regen_pieces"),
+              "_step_finish_cuda", "regen_pieces"),
+    "engine": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces"),
     "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
                "_move_core"),
 }
@@ -148,7 +149,7 @@ ROW_COUNTERS = {
     "solvable_exact_bits": ("solvable_exact_bits",),
     "afterstate_buffer": ("afterstate_buffer",),
     "compute_gae": ("compute_gae",),
-    "_move_core/_step_finish": ("_move_core", "_step_finish"),
+    "_move_core/_step_finish_cuda": ("_move_core", "_step_finish_cuda"),
     "regen_pieces": ("regen_pieces",),
 }
 ENGINE_LANES = 16384             # bench.py's fleet
@@ -169,7 +170,6 @@ SWEEP_ATTEMPTS = 4
 # Kernel launches a step of the engine path may take, by the profiler:
 # K6 twice, K7, the generator's two draws, the sampler and the reward sum.
 ENGINE_MAX_LAUNCHES_PER_STEP = 25
-REGEN_WIDTHS = (128, 192, 256, 384)  # K7's block widths, timed in phase 3
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, used as the ceiling for the
@@ -442,7 +442,7 @@ def kernel_phase(device, report):
     k6 = k6_case(sub, eng["actions"][:n].contiguous(), eng["rng_state"])
     with_bound(at_engine)
     rows.append(dict(
-        name="_move_core/_step_finish", source="bbx_torch/csrc/move.cu",
+        name="_move_core/_step_finish_cuda", source="bbx_torch/csrc/move.cu",
         replaces="bbx/engine/step.py:89,143-289 (_move_core and the reward / "
                  "auto-reset block of step; count_holes, center_openness, "
                  "total_blocks of bbx/engine/kernel.py:135,163,187)",
@@ -464,25 +464,15 @@ def kernel_phase(device, report):
               f"bound {at_engine['bound_ms']:.6f} ms"))
 
     # K7 on the inputs of the same engine-path step (16,384 lanes), which the
-    # kernels line reports, at each block width it takes; then at the eval
-    # and train paths' 512 lanes and at the FLEET mid-game boards after the
-    # move above with its valid actions (`pick`): the lanes that used their
-    # triple in need, then every lane in need.  Each case runs the kernel and
+    # kernels line reports; then at the eval and train paths' 512 lanes and
+    # at the FLEET mid-game boards after the move above with its valid
+    # actions (`pick`): the lanes that used their triple in need, then every
+    # lane in need.  Each case runs the kernel and
     # its plain version on one seed tensor.
     engine = k7_case(eng["bits"], eng["ids"], eng["seed"], eng["need"])
     engine["matches_the_step"] = torch.equal(engine.pop("attempts"),
                                              eng["step_attempts"])
     engine["equal"] = engine["equal"] and engine["matches_the_step"]
-    widths = {}
-    for threads in REGEN_WIDTHS:
-        def regen(threads=threads):
-            return ES._regen_pieces_cuda(eng["bits"], eng["ids"], eng["seed"],
-                                         eng["need"], threads=threads)
-        equal, _ = compare(regen(), ES.regen_pieces(eng["bits"], eng["ids"], eng["seed"],
-                                                    eng["need"]))
-        widths[str(threads)] = {"equal": equal, "ms": time_ms(regen),
-                                "device_ms": kernel_device_ms(regen, "regen_kernel")}
-    engine["equal"] = engine["equal"] and all(w["equal"] for w in widths.values())
     moved = ST._move_core(state, pick.to(torch.int32))
     seed = ES.regen_seed(g, device)
     other = {"eval_and_train_lanes": k7_case(moved.bits[:K7_LANES].contiguous(),
@@ -502,14 +492,11 @@ def kernel_phase(device, report):
         max_abs_err=max(c["max_abs_err"] for c in (engine, *other.values())),
         ms=engine["ms"], plain_ms=engine["plain_ms"], device_ms=engine["device_ms"],
         host_us=engine["host_us"], nbytes=engine["nbytes"], ops=engine["ops"],
-        block_widths=widths, at_other_shapes=other,
+        at_other_shapes=other,
         shape=f"bits [{k},2], ids [{k},3], need [{k}] of one engine-path step "
               f"({engine['needy']} in need, {engine['attempts_mean']:.3f} draws each "
               f"on average, at most {engine['attempts_max']}; attempts equal to the "
-              f"step's: {engine['matches_the_step']}) -> ids, attempts, at "
-              f"{ES.REGEN_THREADS} threads a block; at each block width: "
-              + ", ".join(f"{t}: {w['ms']:.4f} ms (device {w['device_ms']})"
-                          for t, w in widths.items()) + "; "
+              f"step's: {engine['matches_the_step']}) -> ids, attempts; "
               + "; ".join(f"{name} ({c['lanes']} lanes, {c['needy']} in need, "
                           f"{c['attempts_mean']:.3f} draws on average, at most "
                           f"{c['attempts_max']}): equal={c['equal']}, {c['ms']:.4f} ms "
@@ -576,10 +563,10 @@ def k6_move_ops(n: int) -> int:
 def k6_finish_bytes(n: int) -> int:
     """`bbx_step_finish`: ten state fields (37 B), thirteen of bbx_move's
     outputs (54 B), regen's ids and the fresh draw (24 B) read; the
-    observation (1,024 B f32 planes, 192 B mask), board (64 B), ids, used,
-    five f32, sixteen int32 and three bool rows written (1,358 B); the
-    tables once."""
-    return n * (115 + 1358) + 37 * 64 * 8 + 37 * 9 * 4 + 37 * 8
+    observation (1,024 B of f32 planes, a 192 B mask), the board (64 B),
+    ids (12 B), used (3 B), five f32 rows (20 B), sixteen int32 rows (64 B)
+    and three bool rows (3 B) written (1,382 B); the tables once."""
+    return n * (115 + 1382) + 37 * 64 * 8 + 37 * 9 * 4 + 37 * 8
 
 
 def k6_finish_ops(n: int) -> int:
@@ -630,22 +617,29 @@ def k6_case(state, actions, rng_state) -> dict:
     `rng_state` (regen's seed, then the fresh draw, as `step` draws them):
     `bbx_move` against `_move_core_plain`, `bbx_step_finish` against
     `_step_finish_plain` on K6's and K7's outputs, and the step (K6, K7,
-    K6) against `_step_plain` and against its parts.  Each entry point's
-    time (CUDA events around wrapper calls), device time (profiler), host
-    time a call, plain time and bound's bytes and operations; the step's
-    time, host time, plain time, and device time and launches a step."""
+    K6) against `_step_plain` and against its parts.  Each entry point is
+    called as the step calls it (`_launch_move` and `_step_finish_cuda` on
+    the state checked once, `bbx_move`'s blocks handed on by pointer): its
+    time (CUDA events around calls), device time (profiler), host time a
+    call, plain time and bound's bytes and operations; the step's time,
+    host time, plain time, and device time and launches a step."""
     import torch
 
     from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
+    from bbx_torch.engine.tables import tables
+    from bbx_torch.ops import build
 
     device, n, rc, gen = state.device, state.num_envs, ST.RewardConfig(), state.rng
+    checked = ST._require_state(state, actions)
+    stream, tb = build.stream_of(state.board), tables(device)
     gen.set_state(rng_state)
-    moved = ST._move_core(state, actions)
+    blocks = ST._launch_move(state, checked, stream, tb)
+    moved = blocks.moved()
     seed = ES.regen_seed(gen, device)
-    fresh = ES.fresh_pieces(n, gen, device)
     ids, _ = ES.regen_pieces(moved.bits, state.piece_ids, seed, moved.need)
-    finished = ST._step_finish(state, moved, ids, fresh)
+    fresh = ES.fresh_pieces(n, gen, device)
+    finished = ST._step_finish_cuda(state, blocks, ids, fresh, rc, True, stream, tb)
     gen.set_state(rng_state)
     whole = ST.step(state, actions)
     gen.set_state(rng_state)
@@ -662,11 +656,11 @@ def k6_case(state, actions, rng_state) -> dict:
                                nbytes=nbytes, ops=ops))
 
     entry_points = {
-        "bbx_move": entry(lambda: ST._move_core(state, actions),
+        "bbx_move": entry(lambda: ST._launch_move(state, checked, stream, tb),
                           lambda: ST._move_core_plain(state, actions), "move_kernel",
                           k6_move_bytes(n), k6_move_ops(n)),
         "bbx_step_finish": entry(
-            lambda: ST._step_finish(state, moved, ids, fresh),
+            lambda: ST._step_finish_cuda(state, blocks, ids, fresh, rc, True, stream, tb),
             lambda: ST._step_finish_plain(state, moved, ids, fresh, rc, True),
             "step_finish_kernel", k6_finish_bytes(n), k6_finish_ops(n))}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -885,7 +879,7 @@ def kernel_counters():
             "afterstate_buffer": A.afterstate_buffer,
             "compute_gae": P.compute_gae,
             "_move_core": ST._move_core,
-            "_step_finish": ST._step_finish,
+            "_step_finish_cuda": ST._step_finish_cuda,
             "regen_pieces": ES.regen_pieces}
 
 
@@ -1606,7 +1600,7 @@ def main() -> int:
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "shape")} | {
                 k: r[k] for k in ("device_ms", "host_us", "entry_points", "step",
-                                  "block_widths", "at_update_shape", "at_engine_shape",
+                                  "at_update_shape", "at_engine_shape",
                                   "at_other_shapes") if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:

@@ -20,7 +20,7 @@ using std::min;
 
 struct bbx_dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local bbx_dim3 threadIdx;
-inline bbx_dim3 blockIdx, blockDim, gridDim;
+inline bbx_dim3 blockIdx, blockDim;
 
 #define __global__
 #define __device__
@@ -70,12 +70,6 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 
 inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
 
-inline int atomicAdd(int* address, int value) {
-    return std::atomic_ref<int>(*address).fetch_add(value);
-}
-
-inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
-
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
@@ -94,7 +88,6 @@ inline int __syncthreads_or(int pred) {
 template <class Body>
 void bbx_emulate_launch(int grid, int block, Body body) {
     blockDim.x = block;
-    gridDim.x = grid;
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         std::barrier<> bar(block);

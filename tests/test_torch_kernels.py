@@ -22,6 +22,7 @@ from bbx_torch.engine import step as TStep
 from bbx_torch.engine import state as TState
 from bbx_torch.engine.parity import ParityEngine
 from bbx_torch.engine.step import observe, step
+from bbx_torch.engine.tables import tables as TTables
 from bbx_torch.models import afterstate as A
 from bbx_torch.models import network_from_config
 from bbx_torch.utils.checkpoints import save_checkpoint
@@ -132,12 +133,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         step(state.replace(used=state.used.t().contiguous().t()), acts)
     moved = TStep._move_core(state, acts)
-    fresh = TState.fresh_pieces(4, state.rng, cuda)
-    with pytest.raises(ValueError, match="bool"):
-        TStep._step_finish(state, moved._replace(need=moved.need.int()),
-                           state.piece_ids, fresh)
-    with pytest.raises(ValueError, match="shape"):
-        TStep._step_finish(state, moved, state.piece_ids, fresh[:2])
     seed = TState.regen_seed(state.rng, cuda)
     with pytest.raises(ValueError, match="int64"):
         TState.regen_pieces(moved.bits.int(), state.piece_ids, seed, moved.need)
@@ -331,20 +326,24 @@ def test_step_makes_no_host_sync(cuda):
 
 
 def _finish_inputs(device, n, auto_reset, seed=13):
-    """`_step_finish`'s inputs for one step of a mid-game fleet of n lanes
-    on the card: K6's move outputs for random valid (and every fourth lane
-    random) actions, K7's ids, a fresh draw."""
+    """`bbx_step_finish`'s inputs for one step of a mid-game fleet of n
+    lanes on the card, as the step makes them: `bbx_move`'s blocks for
+    random valid (and every fourth lane random) actions, K7's ids on them,
+    a fresh draw; and the plain move core's outputs for the oracle."""
     state, obs, _ = _midgame(device, n=n, moves=20, seed=seed)
     g = torch.Generator(device=device).manual_seed(seed)
     u = torch.rand(obs["action_mask"].shape, generator=g, device=device)
     acts = torch.where(torch.arange(n, device=device) % 4 == 0,
                        torch.randint(0, 192, (n,), generator=g, device=device),
                        torch.where(obs["action_mask"], u, -1.0).argmax(1))
-    moved = TStep._move_core(state, acts)
+    acts = TStep._require_state(state, acts)
+    blocks = TStep._launch_move(state, acts, torch.cuda.current_stream().cuda_stream,
+                                TTables(device))
+    moved = TStep._move_core_plain(state, acts)
     seed_t = TState.regen_seed(g, device)
     ids, _ = TState.regen_pieces(moved.bits, state.piece_ids, seed_t, moved.need)
     fresh = TState.fresh_pieces(n, g, device) if auto_reset else None
-    return state, moved, ids, fresh
+    return state, blocks, moved, ids, fresh
 
 
 def _assert_same_step(got, want):
@@ -366,13 +365,16 @@ def _assert_same_step(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,auto_reset", [(512, True), (512, False), (16384, True)])
 def test_step_finish_kernel_matches_plain(cuda, n, auto_reset):
-    """K6's `bbx_step_finish` equals `_step_finish_plain` run on the card
-    on the same inputs, bit for bit (reward and episode return included),
-    at the eval/train paths' 512 lanes and the engine path's 16,384."""
-    state, moved, ids, fresh = _finish_inputs(cuda, n, auto_reset)
-    before = TStep._step_finish.launches
-    got = TStep._step_finish(state, moved, ids, fresh, TStep.RewardConfig(), auto_reset)
-    assert TStep._step_finish.launches == before + 1
+    """K6's `bbx_step_finish`, on `bbx_move`'s blocks as the step passes
+    them, equals `_step_finish_plain` run on the card on the same inputs,
+    bit for bit (reward and episode return included), at the eval/train
+    paths' 512 lanes and the engine path's 16,384."""
+    state, blocks, moved, ids, fresh = _finish_inputs(cuda, n, auto_reset)
+    before = TStep._step_finish_cuda.launches
+    got = TStep._step_finish_cuda(state, blocks, ids, fresh, TStep.RewardConfig(),
+                                  auto_reset, torch.cuda.current_stream().cuda_stream,
+                                  TTables(cuda))
+    assert TStep._step_finish_cuda.launches == before + 1
     want = TStep._step_finish_plain(state, moved, ids, fresh, TStep.RewardConfig(),
                                     auto_reset)
     _assert_same_step(got, want)
@@ -391,7 +393,7 @@ def test_step_matches_plain_step(cuda, n):
     plain = state.replace(rng=torch.Generator(device=cuda))
     plain.rng.set_state(rng_state)
     g = torch.Generator(device=cuda).manual_seed(17)
-    counters = (TStep._move_core, TStep._step_finish, TState.regen_pieces)
+    counters = (TStep._move_core, TStep._step_finish_cuda, TState.regen_pieces)
     before = [c.launches for c in counters]
     for _ in range(8):
         u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
@@ -407,9 +409,7 @@ def test_step_matches_plain_step(cuda, n):
 @pytest.mark.parametrize("n", [31, 32, 33, 4097])
 def test_regen_kernel_at_chunk_edges(cuda, n):
     """K7 around its 32-lane chunks (N one short of, at and one past a
-    chunk; 4,097 lanes), at every block width it takes and with one block,
-    the default grid and more blocks than chunks: ids and attempts equal to
-    `regen_pieces_plain`, launch after launch (the claim counter resets)."""
+    chunk; 4,097 lanes): ids and attempts equal to `regen_pieces_plain`."""
     state, obs, _ = _midgame(cuda, n=4097, moves=20, seed=19)
     g = torch.Generator(device=cuda).manual_seed(19)
     u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
@@ -419,9 +419,6 @@ def test_regen_kernel_at_chunk_edges(cuda, n):
     need[-1] = True
     seed = TState.regen_seed(g, cuda)
     want = TState.regen_pieces_plain(bits, ids, seed, need)
-    for threads in (128, 192, 256, 384):
-        for blocks in (1, None, 2 * (n // 32 + 1)):
-            got = TState._regen_pieces_cuda(bits, ids, seed, need, blocks=blocks,
-                                            threads=threads)
-            for a, b in zip(got, want):
-                assert torch.equal(a, b), (threads, blocks)
+    got = TState.regen_pieces(bits, ids, seed, need)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -3,8 +3,8 @@
 `bbx_torch/csrc/*.cu` is compiled as C++20 with ``-DBBX_EMULATE`` against
 `tests/cuda_emulation/cuda_runtime.h`, which emulates the few CUDA features
 the kernels use (one std::thread per CUDA thread, a std::barrier for
-__syncthreads and one per warp for the warp votes, atomics; the blocks of
-a grid run one after another).  The port's launch helpers (`_*_cuda`) then call those
+__syncthreads and one per warp for the warp votes; the blocks of a grid
+run one after another).  The port's launch helpers (`_*_cuda`) then call those
 libraries with CPU tensors, and the outputs must equal the plain PyTorch
 versions exactly.  This checks the kernels' logic here, before the card
 compiles them; `tests/test_torch_kernels.py` checks the real build on the
@@ -65,8 +65,7 @@ def emulated(tmp_path_factory):
 @pytest.fixture
 def kernels(emulated, monkeypatch):
     """The launch helpers routed to the emulated libraries, with the
-    wrappers' dtype, shape and contiguity checks kept, and K7's persistent
-    grid at 3 blocks."""
+    wrappers' dtype, shape and contiguity checks kept."""
     def require(name, t, dtype, shape):
         assert t.dtype == dtype, (name, t.dtype)
         assert tuple(t.shape) == tuple(shape), (name, tuple(t.shape))
@@ -75,7 +74,6 @@ def kernels(emulated, monkeypatch):
     monkeypatch.setattr(build, "function", emulated.__getitem__)
     monkeypatch.setattr(build, "require", require)
     monkeypatch.setattr(build, "stream_of", lambda t: 0)
-    monkeypatch.setattr(build, "resident_blocks", lambda t, threads: 3)
 
 
 def _reachable(n=96, moves=14, seed=5):
@@ -151,13 +149,15 @@ def test_emulated_kernels_take_empty_batches(kernels):
                                                        torch.zeros((0, 3, 8, 8)))
     assert planes.shape == (0, 192, 2, 8, 8) and lines.shape == (0, 192)
     empty = TState.reset(0, TState.make_generator(0, "cpu"), "cpu")
-    out = TStep._move_core_cuda(empty, torch.zeros(0, dtype=torch.int32))
+    blocks = TStep._launch_move(empty, torch.zeros(0, dtype=torch.int32), 0, TTables("cpu"))
+    out = blocks.moved()
     assert out[3].shape == (0, 8, 8) and out[11].shape == (0, 3)
     assert out.bits.shape == (0, 2) and out.need.shape == (0,)
     got_ids, got_att = TState._regen_pieces_cuda(
         out.bits, empty.piece_ids, torch.tensor(1, dtype=torch.int64), out.need)
     assert got_ids.shape == (0, 3) and got_att.shape == (0,)
-    fin = TStep._step_finish_cuda(empty, out, got_ids, got_ids, TStep.RewardConfig(), True)
+    fin = TStep._step_finish_cuda(empty, blocks, got_ids, got_ids, TStep.RewardConfig(),
+                                  True, 0, TTables("cpu"))
     assert fin[0].board.shape == (0, 8, 8) and fin[1]["pieces"].shape == (0, 3, 8, 8)
     adv, ret = P._compute_gae_cuda(P.PPOConfig(), torch.zeros((4, 0)),
                                    torch.zeros((4, 0), dtype=torch.bool),
@@ -192,6 +192,32 @@ def test_emulated_move_kernel_matches_plain(kernels):
     valid, lines = want[0], want[4]
     assert valid.any() and (~valid).any() and (lines > 0).any()
     assert want.need.any() and (~want.need).any()
+
+
+@pytest.mark.parametrize("n", [1, 33, 96])
+def test_emulated_move_blocks_views_match_pointers(kernels, n):
+    """`bbx_move`'s blocks: each output's view starts at the pointer the
+    kernels are given for it, the views tile both blocks with no gap or
+    overlap, and they equal `_move_core_plain`'s outputs (a lone lane and a
+    ragged 33 included)."""
+    state, obs, _ = _reachable(n=n, moves=6, seed=22)
+    rng = np.random.default_rng(22)
+    acts = torch.tensor([rng.choice(np.flatnonzero(m))
+                         for m in obs["action_mask"].numpy()], dtype=torch.int32)
+    blocks = TStep._launch_move(state, acts, 0, TTables("cpu"))
+    want = TStep._move_core_plain(state, acts)
+    spans = {id(blocks.words): [], id(blocks.raw): []}
+    for field, w in zip(want._fields, want):
+        v = blocks.view(field)
+        assert v.data_ptr() == blocks.ptrs[field], field
+        assert v.dtype == w.dtype and v.shape == w.shape and torch.equal(v, w), field
+        block = blocks.words if field in TStep._MV_WORD_AT else blocks.raw
+        spans[id(block)].append((v.data_ptr(), v.data_ptr() + v.numel() * v.element_size()))
+    for block in (blocks.words, blocks.raw):
+        edges = sorted(spans[id(block)])
+        assert edges[0][0] == block.data_ptr()
+        assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+        assert edges[-1][1] == block.data_ptr() + block.numel() * block.element_size()
 
 
 def test_emulated_gae_kernel_matches_plain(kernels):
@@ -253,18 +279,18 @@ def test_emulated_regen_kernel_matches_plain(kernels, which):
 
 
 def _regen_case(which):
-    """(bits, ids, need, blocks) of a K7 edge case: no lane in need; N = 77
-    (not a multiple of 32) with some in need; 20 lanes on 5 blocks (fewer
-    chunks than blocks); 160 crowded random boards (half to three quarters
-    full), all in need, where the exact tier decides many draws (seed 4's
-    make a round's last exact-tier item decisive for one draw)."""
+    """(bits, ids, need) of a K7 edge case: no lane in need; N = 77 (not a
+    multiple of 32) with some in need; 20 lanes (one partial chunk); a lone
+    lane; 160 crowded random boards (half to three quarters full), all in
+    need, where the exact tier decides many draws (seed 4's make a round's
+    last exact-tier item decisive for one draw)."""
     if which.startswith("crowded"):
         rng = np.random.default_rng(int(which.split("_")[1]))
         fills = rng.uniform(0.5, 0.75, 160)[:, None, None]
         board = torch.from_numpy((rng.random((160, 8, 8)) < fills).astype(np.uint8))
         ids = torch.from_numpy(rng.integers(0, 37, (160, 3)).astype(np.int32))
-        return S.board_bits(board), ids, torch.ones(160, dtype=torch.bool), None
-    n = {"none": 64, "ragged": 77, "fewer_lanes_than_blocks": 20}[which]
+        return S.board_bits(board), ids, torch.ones(160, dtype=torch.bool)
+    n = {"none": 64, "ragged": 77, "partial_chunk": 20, "one_lane": 1}[which]
     state, obs, _ = _reachable(n=n, moves=10, seed=8)
     rng = np.random.default_rng(14)
     acts = torch.tensor([rng.choice(np.flatnonzero(m))
@@ -272,53 +298,30 @@ def _regen_case(which):
     moved = TStep._move_core_plain(state, acts)
     need = {"none": torch.zeros(n, dtype=torch.bool),
             "ragged": torch.from_numpy(rng.random(n) < 0.4),
-            "fewer_lanes_than_blocks": torch.from_numpy(rng.random(n) < 0.5)}[which]
+            "partial_chunk": torch.from_numpy(rng.random(n) < 0.5),
+            "one_lane": torch.ones(n, dtype=torch.bool)}[which]
     need[-1] = which != "none"  # the ragged chunk's last lane
-    blocks = 5 if which == "fewer_lanes_than_blocks" else None
-    return moved.bits, state.piece_ids, need, blocks
+    return moved.bits, state.piece_ids, need
 
 
-@pytest.mark.parametrize("which", ["none", "ragged", "fewer_lanes_than_blocks",
+@pytest.mark.parametrize("which", ["none", "ragged", "partial_chunk", "one_lane",
                                    "crowded_4", "crowded_17"])
 def test_emulated_regen_kernel_edge_cases(kernels, which):
     """K7 equals `regen_pieces_plain` with no lane in need, with N not a
-    multiple of its 32-lane chunks, with more blocks than chunks, and on
-    crowded boards where the exact tier decides; run twice, so the second
-    launch finds the claim counter its first launch's last block reset."""
-    bits, ids, need, blocks = _regen_case(which)
+    multiple of its 32-lane chunks, with fewer lanes than one chunk, and on
+    crowded boards where the exact tier decides."""
+    bits, ids, need = _regen_case(which)
     seed = torch.tensor(424242, dtype=torch.int64)
     want = TState.regen_pieces_plain(bits, ids, seed, need)
-    for _ in range(2):
-        got = TState._regen_pieces_cuda(bits, ids, seed, need, blocks=blocks)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
+    got = TState._regen_pieces_cuda(bits, ids, seed, need)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(want[0][~need], ids[~need]) and (want[1][~need] == 0).all()
     assert (want[1][need] >= 1).all()
-    assert not TState._regen_counters(bits.device, 0).any()
-
-
-@pytest.mark.parametrize("threads", [128, 192, 256, 384])
-def test_emulated_regen_kernel_block_widths(kernels, threads):
-    """Every block width K7 takes gives `regen_pieces_plain`'s ids and
-    attempts, with every lane of reachable boards in need (the exact tier
-    runs in 384 / width passes)."""
-    state, obs, _ = _reachable(n=40, moves=12, seed=9)
-    rng = np.random.default_rng(15)
-    acts = torch.tensor([rng.choice(np.flatnonzero(m))
-                         for m in obs["action_mask"].numpy()], dtype=torch.int32)
-    bits = TStep._move_core_plain(state, acts).bits
-    need = torch.ones(state.num_envs, dtype=torch.bool)
-    seed = torch.tensor(31337, dtype=torch.int64)
-    got = TState._regen_pieces_cuda(bits, state.piece_ids, seed, need,
-                                    threads=threads)
-    want = TState.regen_pieces_plain(bits, state.piece_ids, seed, need)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert (want[1] > 1).any()
 
 
 def _finish_inputs(seed=16):
-    """`_step_finish`'s inputs on reachable boards with finished lanes,
+    """`bbx_step_finish`'s inputs on reachable boards with finished lanes,
     used slots, streaks, valid and random (often invalid) actions, and 12
     lanes on a crowded board (empty cells only where (r + c) % 4 == 0: two
     in every row and column, no two side by side) that place their last
@@ -348,7 +351,8 @@ def _finish_inputs(seed=16):
     acts = np.array([rng.choice(np.flatnonzero(m)) if m.any() and i % 4 else
                      rng.integers(192) for i, m in enumerate(mask)], np.int32)
     acts[:12] = 0  # slot 0 at cell (0, 0), which is empty
-    moved = TStep._move_core_plain(state, torch.from_numpy(acts))
+    acts = torch.from_numpy(acts)
+    moved = TStep._move_core_plain(state, acts)
     masks = TTables("cpu").PIECE_MASKS.numpy() > 0
     side_by_side = np.flatnonzero((masks[:, :, 1:] & masks[:, :, :-1]).any((1, 2))
                                   | (masks[:, 1:] & masks[:, :-1]).any((1, 2)))
@@ -356,7 +360,7 @@ def _finish_inputs(seed=16):
     regen[:12] = torch.from_numpy(rng.choice(side_by_side, (12, 3)).astype(np.int32))
     ids_after = torch.where(moved.need[:, None], regen, state.piece_ids)
     fresh = torch.from_numpy(rng.integers(0, 37, (n, 3)).astype(np.int32))
-    return state, moved, ids_after, fresh
+    return state, acts, moved, ids_after, fresh
 
 
 def _assert_step_outputs_equal(got, want):
@@ -381,20 +385,23 @@ def _assert_step_outputs_equal(got, want):
 
 @pytest.mark.parametrize("auto_reset", [True, False])
 def test_emulated_step_finish_kernel_matches_plain(kernels, auto_reset):
-    """K6's `bbx_step_finish` equals `_step_finish_plain` bit for bit (the
-    reward and episode return too) on lanes with invalid actions, finished
-    lanes, lanes in need of regen and lanes whose game ends, with auto-reset
-    on (the default rewards) and off (other coefficients, which round
-    differently to float32)."""
-    state, moved, ids_after, fresh = _finish_inputs()
+    """K6's `bbx_step_finish`, on `bbx_move`'s blocks as the step passes
+    them, equals `_step_finish_plain` bit for bit (the reward and episode
+    return too) on lanes with invalid actions, finished lanes, lanes in need
+    of regen and lanes whose game ends, with auto-reset on (the default
+    rewards) and off (other coefficients, which round differently to
+    float32)."""
+    state, acts, moved, ids_after, fresh = _finish_inputs()
     rc = TStep.RewardConfig() if auto_reset else TStep.RewardConfig(
         line_clear_base=1.3, block_placed=0.017, game_over_penalty=-2.1,
         hole_penalty=-0.07, center_bonus=0.03, combo_multiplier_bonus=0.45,
         survival_bonus=0.0013)
-    before = TStep._step_finish.launches
-    got = TStep._step_finish_cuda(state, moved, ids_after, fresh, rc, auto_reset)
+    tb = TTables("cpu")
+    blocks = TStep._launch_move(state, acts, 0, tb)
+    before = TStep._step_finish_cuda.launches
+    got = TStep._step_finish_cuda(state, blocks, ids_after, fresh, rc, auto_reset, 0, tb)
     want = TStep._step_finish_plain(state, moved, ids_after, fresh, rc, auto_reset)
-    assert TStep._step_finish.launches == before + 1
+    assert TStep._step_finish_cuda.launches == before + 1
     _assert_step_outputs_equal(got, want)
     done = want[3]
     assert done[:12].all() and (~moved.valid).any() and state.done.any()
@@ -417,7 +424,7 @@ def test_emulated_step_matches_plain_step(kernels):
     emul = TState.reset(n, TState.make_generator(21, "cpu"), "cpu")
     obs = observe(plain)
     rng = np.random.default_rng(21)
-    counters = (TStep._move_core, TStep._step_finish, TState.regen_pieces)
+    counters = (TStep._move_core, TStep._step_finish_cuda, TState.regen_pieces)
     before = [c.launches for c in counters]
     ended = regen = 0
     for i in range(steps):
