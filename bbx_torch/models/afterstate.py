@@ -11,12 +11,17 @@ Counterpart of `bbx/models/afterstate.py`.  The forward pass
   3. returns those scores as the 192 policy logits (masked), plus a value
      head on the current state.
 
-Layouts follow PyTorch (NCHW).  Parameters are float32; each layer casts
-its input and weights to ``compute_dtype`` (bf16 or f32), as Flax's
-``dtype=`` does, and the evaluator's last Dense emits the compute type
-before the float32 cast.  Weights converted from Flax
-(`bbx_torch.models.convert`) have the Dense rows that follow a conv flatten
-permuted from NHWC to NCHW order, so no activation is transposed here.
+K4 writes the planes in ``compute_dtype`` in bbx's stack order, [B, 192,
+8, 8, 2], with the three per-move features beside them, so the forward
+casts no plane and builds no float32 feature tensor.  The evaluator runs
+channels-last: its input is a view of K4's planes, and conv2's output
+flattens in (h, w, c) order as a view, Flax's order, so `evaluator.dense0`
+keeps Flax's rows.  The value head runs NCHW; weights converted from Flax
+(`bbx_torch.models.convert`) have its Dense rows after the flatten permuted
+from NHWC to NCHW order once.  Parameters are float32; each layer casts its
+input and weights to ``compute_dtype`` (bf16 or f32), as Flax's ``dtype=``
+does, and the evaluator's last Dense emits the compute type before the
+float32 cast.
 """
 from __future__ import annotations
 
@@ -35,16 +40,22 @@ BOARD = 8
 NUM_SLOTS = 3
 NUM_ANCHORS = 64
 NUM_ACTIONS = NUM_SLOTS * NUM_ANCHORS
-NUM_FEATS = 3  # lines / 4, lines > 0, nblocks / 5 (then the context)
+NUM_FEATS = 3  # K4's per-move features: lines / 4, lines > 0, nblocks / 5
 
 
 # ---------------------------------------------------------------------------
 # K4: the afterstate expansion.
 # ---------------------------------------------------------------------------
 
-def afterstate_buffer_plain(board: torch.Tensor, pieces: torch.Tensor):
-    """Plain version of `afterstate_buffer`, op for op as `bbx`'s
-    `afterstate_planes`."""
+_DTYPES = (torch.float32, torch.bfloat16)
+_PLANES_PER_LANE = NUM_ACTIONS * BOARD * BOARD * 2
+_PLANE_STRIDES = (_PLANES_PER_LANE, BOARD * BOARD * 2, BOARD * 2, 2, 1)
+_FEAT_STRIDES = (NUM_ACTIONS * NUM_FEATS, NUM_FEATS, 1)
+
+
+def _expand_plain(board: torch.Tensor, pieces: torch.Tensor):
+    """`bbx`'s `afterstate_planes`, op for op: (after, placed [B,192,8,8]
+    float32, lines [B,192] float32, overlap [B,192] bool)."""
     b = board.shape[0]
     # All 64 anchor shifts of each piece plane: pad 7 zeros before each
     # spatial dim; the window starting at (7 - r, 7 - c) is the piece
@@ -67,56 +78,89 @@ def afterstate_buffer_plain(board: torch.Tensor, pieces: torch.Tensor):
     keep = ~(row_full[:, :, :, None] | col_full[:, :, None, :])
     after = pre * keep.to(pre.dtype)
     lines = (row_full.sum(dim=2) + col_full.sum(dim=2)).to(torch.float32)
-    return torch.stack([after, placed], dim=2), lines, overlap
+    return after, placed, lines, overlap
 
 
-def afterstate_buffer(board: torch.Tensor, pieces: torch.Tensor):
-    """The 192 afterstates of each lane in the evaluator's input layout.
+def afterstate_buffer_plain(board: torch.Tensor, pieces: torch.Tensor,
+                            dtype: torch.dtype = torch.float32):
+    """Plain version of `afterstate_buffer`: `bbx`'s expansion, stack and
+    per-move features, op for op, then one cast to `dtype`."""
+    after, placed, lines, overlap = _expand_plain(board, pieces)
+    planes = torch.stack([after, placed], dim=-1)               # [B,192,8,8,2]
+    nblocks = placed.sum(dim=(2, 3))
+    # bbx divides by 4 and 5; XLA compiles a division by a constant into a
+    # product with its float32 reciprocal (exact for 4; 9 / 5 is then
+    # 1.8000001, not 1.7999999), so the products are bbx's arithmetic.
+    feats = torch.stack([lines * 0.25, (lines > 0).to(torch.float32),
+                         nblocks * 0.2], dim=-1)                # [B, 192, 3]
+    return planes.to(dtype), feats.to(dtype), overlap
+
+
+def afterstate_buffer(board: torch.Tensor, pieces: torch.Tensor,
+                      dtype: torch.dtype = torch.float32):
+    """The 192 afterstates of each lane as the evaluator's input.
 
     Args:
       board: [B, 8, 8] float32 0/1.
       pieces: [B, 3, 8, 8] float32 0/1 piece masks anchored at the top-left
         (zeroed for used slots, as `observe` emits them).
+      dtype: the evaluator's compute dtype, float32 or bf16.
     Returns:
-      planes: [B, 192, 2, 8, 8] float32 -- channel 0 the post-clear
-        afterboard, channel 1 the shifted piece alone (action =
-        slot*64 + r*8 + c); reshapes without a copy to the evaluator's
-        NCHW [B*192, 2, 8, 8] input.
-      lines: [B, 192] float32 rows + columns cleared by the move.
+      planes: [B, 192, 8, 8, 2] `dtype` 0/1 (bbx's stack order, NHWC) --
+        channel 0 the post-clear afterboard, channel 1 the shifted piece
+        alone (action = slot*64 + r*8 + c); as
+        ``planes.view(-1, 8, 8, 2).permute(0, 3, 1, 2)`` the evaluator's
+        channels-last [B*192, 2, 8, 8] input, with no copy.
+      feats: [B, 192, 3] `dtype` -- lines / 4, lines > 0 and nblocks / 5
+        (lines: rows + columns the move clears; nblocks: the placed piece's
+        cells on the board), each computed in float32 as bbx computes it
+        (a product with 0.25 or the float32 0.2) and then rounded to
+        `dtype`.
       overlap: [B, 192] bool -- the placement collides with the board or
         loses cells off its edge.
+    On the card the three are views of one buffer that the kernel writes.
     """
     if not board.is_cuda:
-        return afterstate_buffer_plain(board, pieces)
-    return _afterstate_buffer_cuda(board, pieces)
+        return afterstate_buffer_plain(board, pieces, dtype)
+    return _afterstate_buffer_cuda(board, pieces, dtype)
 
 
-def _afterstate_buffer_cuda(board: torch.Tensor, pieces: torch.Tensor):
+def _afterstate_buffer_cuda(board: torch.Tensor, pieces: torch.Tensor,
+                            dtype: torch.dtype, tma: bool = False):
     b = board.shape[0]
-    build.require("afterstate: board", board, torch.float32, (b, BOARD, BOARD))
-    build.require("afterstate: pieces", pieces, torch.float32,
-                  (b, NUM_SLOTS, BOARD, BOARD))
-    dev = board.device
-    planes = torch.empty((b, NUM_ACTIONS, 2, BOARD, BOARD),
-                         dtype=torch.float32, device=dev)
-    lines = torch.empty((b, NUM_ACTIONS), dtype=torch.float32, device=dev)
-    overlap = torch.empty((b, NUM_ACTIONS), dtype=torch.bool, device=dev)
-    err = build.function("afterstate")(
-        board.data_ptr(), pieces.data_ptr(), planes.data_ptr(),
-        lines.data_ptr(), overlap.data_ptr(), b, build.stream_of(board))
+    build.require_many((
+        ("afterstate: board", board, torch.float32, (b, BOARD, BOARD)),
+        ("afterstate: pieces", pieces, torch.float32, (b, NUM_SLOTS, BOARD, BOARD))))
+    if dtype not in _DTYPES:
+        raise ValueError(f"afterstate: dtype must be one of {_DTYPES}, got {dtype}")
+    # One buffer in `dtype`: the planes, the features, then the overlap
+    # bytes (192 a lane, a whole number of elements).
+    elem = dtype.itemsize
+    n_planes = b * _PLANES_PER_LANE
+    n_feats = b * NUM_ACTIONS * NUM_FEATS
+    buf = torch.empty(n_planes + n_feats + b * NUM_ACTIONS // elem, dtype=dtype,
+                      device=board.device)
+    err = build.function("afterstate")(board.data_ptr(), pieces.data_ptr(),
+                                       buf.data_ptr(), b, elem, int(tma),
+                                       build.stream_of(board))
     build.check("afterstate", err)
     afterstate_buffer.launches += 1
-    return planes, lines, overlap
+    planes = buf.as_strided((b, NUM_ACTIONS, BOARD, BOARD, 2), _PLANE_STRIDES)
+    feats = buf.as_strided((b, NUM_ACTIONS, NUM_FEATS), _FEAT_STRIDES, n_planes)
+    overlap = buf.view(torch.bool).as_strided((b, NUM_ACTIONS), (NUM_ACTIONS, 1),
+                                              (n_planes + n_feats) * elem)
+    return planes, feats, overlap
 
 
 afterstate_buffer.launches = 0
 
 
 def afterstate_planes(board: torch.Tensor, pieces: torch.Tensor):
-    """`bbx`'s contract: (after, placed [B,192,8,8], lines [B,192] f32,
-    overlap [B,192] bool); after and placed are views of one buffer."""
-    planes, lines, overlap = afterstate_buffer(board, pieces)
-    return planes[:, :, 0], planes[:, :, 1], lines, overlap
+    """`bbx`'s contract: (after, placed [B,192,8,8] f32, lines [B,192] f32,
+    overlap [B,192] bool); after and placed are views of the float32
+    planes, lines is 4 x the first feature (exact)."""
+    planes, feats, overlap = afterstate_buffer(board, pieces, torch.float32)
+    return planes[..., 0], planes[..., 1], feats[..., 0] * 4.0, overlap
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +194,15 @@ class _Evaluator(nn.Module):
         self.dense0 = nn.Linear(chans[-1] * BOARD * BOARD + feat_dim, hidden)
         self.dense1 = nn.Linear(hidden, 1)
 
-    def forward(self, boards, feats, dt):
-        # boards: [M, 2, 8, 8]; feats: [M, F]
+    def forward(self, boards, feats, ctx, dt):
+        # boards: [M, 2, 8, 8] channels-last; feats: [M, 3]; ctx: [M, D];
+        # all in dt.
         x = boards
         for conv in self.convs:
-            x = F.relu(_conv(x, conv, dt))
-        x = torch.cat([x.reshape(x.shape[0], -1), feats.to(dt)], dim=-1)
+            w = conv.weight.to(dt, memory_format=torch.channels_last)
+            x = F.relu(F.conv2d(x, w, conv.bias.to(dt), padding=1))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # (h, w, c): a view
+        x = torch.cat([x, feats, ctx], dim=-1)
         x = F.relu(_dense(x, self.dense0, dt))
         return _dense(x, self.dense1, dt)[:, 0]
 
@@ -209,7 +256,7 @@ class AfterstateNetwork(nn.Module):
         b = board.shape[0]
         board = board.to(torch.float32).contiguous()
         pieces = pieces.to(torch.float32).contiguous()
-        planes, lines, _ = afterstate_buffer(board, pieces)
+        planes, feats, _ = afterstate_buffer(board, pieces, dt)
 
         # Remaining-pieces context per slot by the set-sum trick: context of
         # slot s = sum of the three embeddings - e_s.
@@ -217,25 +264,18 @@ class AfterstateNetwork(nn.Module):
         ctx = e.sum(dim=1, keepdim=True) - e                       # [B, 3, D]
         ctx = ctx.repeat_interleave(NUM_ANCHORS, dim=1)             # [B, 192, D]
 
-        nblocks = planes[:, :, 1].sum(dim=(2, 3))                   # [B, 192]
-        feats = torch.cat([
-            lines[..., None] / 4.0,
-            (lines[..., None] > 0).to(torch.float32),
-            nblocks[..., None] / 5.0,
-            ctx.to(torch.float32),
-        ], dim=-1)                                                  # [B, 192, F]
-
         m = b * NUM_ACTIONS
-        boards = planes.reshape(m, 2, BOARD, BOARD)
-        feats = feats.reshape(m, feats.shape[-1])
+        boards = planes.view(m, BOARD, BOARD, 2).permute(0, 3, 1, 2)
+        feats = feats.view(m, NUM_FEATS)
+        ctx = ctx.reshape(m, ctx.shape[-1])
         if torch.is_grad_enabled():
             # bbx's nn.remat: keep only the evaluator's inputs for the
             # backward and recompute its activations (each conv activation
             # is [B*192, C, 8, 8]); the math is unchanged.
-            scores = checkpoint(self.evaluator, boards, feats, dt,
+            scores = checkpoint(self.evaluator, boards, feats, ctx, dt,
                                 use_reentrant=False)
         else:
-            scores = self.evaluator(boards, feats, dt)
+            scores = self.evaluator(boards, feats, ctx, dt)
         logits = scores.reshape(b, NUM_ACTIONS).to(torch.float32)
 
         # Value head on the current state.

@@ -2,9 +2,11 @@
 
 The input is the nested dict of NumPy arrays that Flax's ``params`` (and,
 for BatchNorm, ``batch_stats``) holds (no JAX objects).  Conv kernels go from HWIO to OIHW and Dense kernels are
-transposed.  Flax flattens NHWC activations before a Dense; the port
-flattens NCHW, so the rows of a Dense that follows a conv flatten are
-permuted from (h, w, c) to (c, h, w) order here, once.  Adam's moments
+transposed.  Flax flattens NHWC activations before a Dense; where the port
+flattens NCHW, the rows of a Dense that follows a conv flatten are
+permuted from (h, w, c) to (c, h, w) order here, once.  The
+AfterstateNetwork's evaluator runs channels-last and flattens as Flax
+does, so its first Dense keeps Flax's rows.  Adam's moments
 (`adam_state_from_optax`) are permuted the same way, so a bbx train state
 carries over whole.
 """
@@ -49,8 +51,9 @@ def afterstate_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.T
     n_eval = sum(1 for k in ev if k.startswith("Conv_"))
     for i in range(n_eval):
         put(f"evaluator.convs.{i}", _conv(ev[f"Conv_{i}"]))
-    last_eval = np.asarray(ev[f"Conv_{n_eval - 1}"]["kernel"]).shape[-1]
-    put("evaluator.dense0", _dense(ev["Dense_0"], flat_channels=last_eval))
+    # The evaluator runs channels-last and flattens in Flax's (h, w, c)
+    # order, so its first Dense keeps Flax's rows.
+    put("evaluator.dense0", _dense(ev["Dense_0"]))
     put("evaluator.dense1", _dense(ev["Dense_1"]))
 
     put("ctx", _dense(params["Dense_0"]))

@@ -253,6 +253,116 @@ def host_us(fn, reps: int = 100) -> float:
     return statistics.median(samples)
 
 
+def calls_device(fn, reps: int = 20) -> dict:
+    """Every kernel one call of `fn` launches, by `torch.profiler` over
+    `reps` calls after a warm-up: ``{"device_ms", "launches", "kernels":
+    {name: [device ms, launches] a call}}``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = device_ms_by_kernel(prof)
+    if not by_name:
+        return {"device_ms": "not measured", "launches": "not measured", "kernels": {}}
+    return {"device_ms": sum(t for t, _ in by_name.values()) / reps,
+            "launches": sum(c for _, c in by_name.values()) / reps,
+            "kernels": {k[:90]: [t / reps, c / reps] for k, (t, c) in
+                        sorted(by_name.items(), key=lambda kv: -kv[1][0])}}
+
+
+def forward_kernels(device, b: int = EVAL_EPISODES) -> dict:
+    """The kernels of one eval forward of the seeded AfterstateNetwork at
+    run9 widths (bf16, inference mode) on `b` fresh lanes (`calls_device`)."""
+    import torch
+
+    from bbx_torch.engine.state import make_generator, reset
+    from bbx_torch.engine.step import observe
+    from bbx_torch.models import network_from_config
+
+    net = network_from_config(RUN9_NETWORK, generator=torch.Generator().manual_seed(SEED))
+    net = net.to(device).eval()
+    obs = observe(reset(b, make_generator(SEED, device), device))
+    with torch.inference_mode():
+        return calls_device(lambda: net(obs["board"], obs["pieces"], obs["action_mask"]))
+
+
+EVAL_LAYOUT_ORDER = ("nchw", "channels_last", "channels_last", "nchw")
+
+
+def evaluator_layouts(device) -> dict:
+    """The evaluator alone (two convs, dense0, dense1) at run9 widths in
+    bf16, with its input and activations in NCHW and in channels-last,
+    timed in turns (`EVAL_LAYOUT_ORDER`) between CUDA events: a forward at
+    M = 512 x 192 afterstates under ``no_grad`` (a rollout or eval step),
+    and a forward plus backward under activation checkpointing at M = 2048
+    x 192 (an update minibatch).  Seeded 0/1 planes and features; float32
+    weights cast to bf16 in the call (channels-last conv weights cast and
+    laid out in one copy), as the model casts them; channels-last flattens
+    conv2's output in (h, w, c) order, a view."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    dt = torch.bfloat16
+    chans = [2, *RUN9_NETWORK["eval_channels"]]
+    hidden, feat = RUN9_NETWORK["eval_hidden"], 3 + RUN9_NETWORK["ctx_dim"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+
+    def weight(*shape):
+        return ((torch.rand(shape, generator=g, device=device) - 0.5) * 0.2).requires_grad_()
+
+    convs = [(weight(co, ci, 3, 3), weight(co)) for ci, co in zip(chans[:-1], chans[1:])]
+    dense = [(weight(hidden, chans[-1] * 64 + feat), weight(hidden)),
+             (weight(1, hidden), weight(1))]
+    params = [t for layer in (*convs, *dense) for t in layer]
+
+    def evaluator(boards, feats, channels_last):
+        x = boards
+        for w, b in convs:
+            w = w.to(dt, memory_format=torch.channels_last) if channels_last else w.to(dt)
+            x = F.relu(F.conv2d(x, w, b.to(dt), padding=1))
+        if channels_last:
+            x = x.permute(0, 2, 3, 1)
+        x = torch.cat([x.reshape(x.shape[0], -1), feats], dim=-1)
+        x = F.relu(F.linear(x, dense[0][0].to(dt), dense[0][1].to(dt)))
+        return F.linear(x, dense[1][0].to(dt), dense[1][1].to(dt))[:, 0]
+
+    def inputs(m, channels_last):
+        shape = (m, 8, 8, 2) if channels_last else (m, 2, 8, 8)
+        planes = (torch.rand(shape, generator=g, device=device) < 0.4).to(dt)
+        feats = torch.rand((m, feat), generator=g, device=device).to(dt)
+        return (planes.permute(0, 3, 1, 2) if channels_last else planes), feats
+
+    turns = []
+    for fmt in EVAL_LAYOUT_ORDER:
+        cl = fmt == "channels_last"
+        boards, feats = inputs(K4_LANES * 192, cl)
+        with torch.no_grad():
+            fwd = time_ms(lambda: evaluator(boards, feats, cl))
+        boards, feats = inputs(RUN9_TRAINING["batch_size"] * 192, cl)
+
+        def train_step():
+            for p in params:
+                p.grad = None
+            scores = checkpoint(evaluator, boards, feats, cl, use_reentrant=False)
+            scores.float().sum().backward()
+
+        turns.append({"layout": fmt, "forward_ms": fwd,
+                      "train_ms": time_ms(train_step, reps=7, inner=3)})
+        del boards, feats
+        torch.cuda.empty_cache()
+    out = {"turns": turns}
+    for fmt in ("nchw", "channels_last"):
+        mine = [t for t in turns if t["layout"] == fmt]
+        out[fmt] = {k: statistics.mean(t[k] for t in mine) for k in ("forward_ms", "train_ms")}
+    return out
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
@@ -307,6 +417,8 @@ def kernel_phase(device, report):
         replaces="bbx/engine/solvability.py:163 (valid3_bits; piece_fit_words :133)",
         equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: S.valid3_bits(b1, i1)),
+        device_ms=kernel_device_ms(lambda: S.valid3_bits(b1, i1), "valid3_kernel"),
+        host_us=host_us(lambda: S.valid3_bits(b1, i1)),
         plain_ms=time_ms(lambda: S.valid3_bits_plain(b1, i1)),
         nbytes=k1_bytes(k), ops=k1_ops(k),
         shape=f"bits [{k},2], ids [{k},3] -> [{k},3,64]"))
@@ -325,6 +437,9 @@ def kernel_phase(device, report):
         replaces="bbx/engine/solvability.py:180 (solvable_disjoint_bits)",
         equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: S.solvable_disjoint_bits(bits, ids, v3)),
+        device_ms=kernel_device_ms(lambda: S.solvable_disjoint_bits(bits, ids, v3),
+                                   "disjoint_kernel"),
+        host_us=host_us(lambda: S.solvable_disjoint_bits(bits, ids, v3)),
         plain_ms=time_ms(lambda: S.solvable_disjoint_bits_plain(bits, ids, v3)),
         # valid3 + ids read, the 700 KB table once, one bool out; an OR step
         # (OR, lowest bit, clear lowest) per (valid a0, a1) pair.
@@ -347,46 +462,74 @@ def kernel_phase(device, report):
         equal=torch.equal(got, want) and torch.equal(got_all, want_all),
         max_abs_err=max(max_abs_err(got, want), max_abs_err(got_all, want_all)),
         ms=time_ms(lambda: S.solvable_exact_bits(rb, ri, rv)),
+        device_ms=kernel_device_ms(lambda: S.solvable_exact_bits(rb, ri, rv), "exact_kernel"),
+        host_us=host_us(lambda: S.solvable_exact_bits(rb, ri, rv)),
         plain_ms=time_ms(lambda: S.solvable_exact_bits_plain(rb, ri, rv), reps=5, inner=2),
         nbytes=k * (16 + 12 + 192 + 1) + 37 * 64 * 8 + 37 * 9 * 4 + 37 * 8,
         ops=exact_ops(rb, ri, rv, want),
         shape=f"bits [{k},2], ids [{k},3], valid3 [{k},3,64] -> [{k}] "
               f"(the {k} of {FLEET} draws the disjoint tier leaves)"))
 
-    # K4 at the rollout's B = 512 (observations) and at the update's
-    # B = 2048 (planes rebuilt from the compact buffer by the update's own
-    # `_minibatch_obs`, used slots zeroed): both exactly equal.
+    # K4 at the rollout's and the eval's B = 512 (observations) and at the
+    # update's B = 2048 (planes rebuilt from the compact buffer by the
+    # update's own `_minibatch_obs`, used slots zeroed), in run9's bf16 and
+    # in float32: planes, features and overlap exactly equal to the plain
+    # version, dtypes included.  The row's times are bf16 at B = 512; the
+    # evaluator's layout timings (`evaluator_layouts`) ride along.
     from bbx_torch.agent import ppo as P
 
-    def k4_row(bd, pc):
-        got, want = A.afterstate_buffer(bd, pc), A.afterstate_buffer_plain(bd, pc)
-        b = bd.shape[0]
-        return dict(
-            equal=all(torch.equal(x, y) for x, y in zip(got, want)),
-            max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-            ms=time_ms(lambda: A.afterstate_buffer(bd, pc)),
-            plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc)),
-            nbytes=b * 256 + b * 768 + b * 192 * (2 * 64 * 4 + 4 + 1),
-            ops=b * 192 * 2 * 64)
+    def k4_case(bd, pc, dtype):
+        def fn():
+            return A.afterstate_buffer(bd, pc, dtype)
 
-    b = K4_LANES
-    row = k4_row(obs["board"][:b].contiguous(), obs["pieces"][:b].contiguous())
-    b2 = RUN9_TRAINING["batch_size"]
+        equal, err = compare(fn(), A.afterstate_buffer_plain(bd, pc, dtype))
+        b = bd.shape[0]
+        return dict(lanes=b, dtype=str(dtype), equal=equal, max_abs_err=err,
+                    ms=time_ms(fn), device_ms=kernel_device_ms(fn, "afterstate_kernel"),
+                    host_us=host_us(fn),
+                    plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc, dtype)),
+                    nbytes=k4_bytes(b, dtype.itemsize), ops=k4_ops(b))
+
+    def store_variants(bd, pc, dtype):
+        """Device ms of the 16-byte-store and the TMA-store kernels, in
+        turns (16-byte, TMA, TMA, 16-byte); the TMA one's outputs equal to
+        the plain version."""
+        want = A.afterstate_buffer_plain(bd, pc, dtype)
+        out = {"tma_equal": compare(A._afterstate_buffer_cuda(bd, pc, dtype, tma=True),
+                                    want)[0], "stores16": [], "tma": []}
+        for tma in (False, True, True, False):
+            out["tma" if tma else "stores16"].append(kernel_device_ms(
+                lambda: A._afterstate_buffer_cuda(bd, pc, dtype, tma=tma),
+                "afterstate_kernel"))
+        return out
+
+    b, b2 = K4_LANES, RUN9_TRAINING["batch_size"]
     mb = P._minibatch_obs({"board": state.board[:b2], "mask": obs["action_mask"][:b2],
                            "piece_ids": state.piece_ids[:b2].to(torch.int8),
                            "used": state.used[:b2]})
-    at_update = k4_row(mb["board"].contiguous(), mb["pieces"].contiguous())
-    with_bound(at_update)["lanes"] = b2
+    k4_in = {b: (obs["board"][:b].contiguous(), obs["pieces"][:b].contiguous()),
+             b2: (mb["board"].contiguous(), mb["pieces"].contiguous())}
+    bf16, f32 = torch.bfloat16, torch.float32
+    row = k4_case(*k4_in[b], bf16)
+    cases = {f"{n}_{str(dt)[6:]}": (k4_case(*k4_in[n], dt) if (n, dt) != (b, bf16) else None)
+             for n in (b, b2) for dt in (bf16, f32)}
+    others = {k: with_bound(c) for k, c in cases.items() if c is not None}
+    variants = {f"{n}_{str(dt)[6:]}": store_variants(*k4_in[n], dt)
+                for n in (b, b2) for dt in (bf16, f32)}
     row.update(
         name="afterstate_buffer", source="bbx_torch/csrc/afterstate.cu",
-        replaces="bbx/models/afterstate.py:52 (afterstate_planes)",
-        equal=row["equal"] and at_update["equal"],
-        max_abs_err=max(row["max_abs_err"], at_update["max_abs_err"]),
-        at_update_shape=at_update,
-        shape=f"board [{b},8,8], pieces [{b},3,8,8] -> planes [{b},192,2,8,8], "
-              f"lines, overlap; also at the update's B = {b2} "
-              f"(equal={at_update['equal']}, {at_update['ms']:.4f} ms, plain "
-              f"{at_update['plain_ms']:.4f} ms, bound {at_update['bound_ms']:.6f} ms)")
+        replaces="bbx/models/afterstate.py:52 (afterstate_planes; the feature "
+                 "concatenation and casts of AfterstateNetwork.__call__, :178-189)",
+        equal=row["equal"] and all(c["equal"] for c in others.values())
+        and all(v["tma_equal"] for v in variants.values()),
+        max_abs_err=max([row["max_abs_err"]] + [c["max_abs_err"] for c in others.values()]),
+        at_update_shape=others[f"{b2}_bfloat16"], at_other_shapes=others,
+        store_variants=variants, evaluator_layouts=evaluator_layouts(device),
+        shape=f"board [{b},8,8], pieces [{b},3,8,8] f32 -> one buffer: planes "
+              f"[{b},192,8,8,2], feats [{b},192,3] (bf16), overlap [{b},192]; also "
+              + "; ".join(f"{k}: equal={c['equal']}, {c['ms']:.4f} ms (device "
+                          f"{c['device_ms']}), plain {c['plain_ms']:.4f} ms, bound "
+                          f"{c['bound_ms']:.6f} ms" for k, c in others.items()))
     rows.append(row)
     # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -404,6 +547,8 @@ def kernel_phase(device, report):
         equal=all(torch.equal(x, y) for x, y in zip(got, want)),
         max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
         ms=time_ms(lambda: P.compute_gae(cfg, *gae_in)),
+        device_ms=kernel_device_ms(lambda: P.compute_gae(cfg, *gae_in), "gae_kernel"),
+        host_us=host_us(lambda: P.compute_gae(cfg, *gae_in)),
         plain_ms=time_ms(lambda: P.compute_gae_plain(cfg, *gae_in), reps=5, inner=2),
         # rewards, dones, values read, adv and ret written; 8 flops a step.
         nbytes=t * n * (4 + 1 + 4 + 4 + 4) + n * 4, ops=t * n * 8,
@@ -511,6 +656,9 @@ def kernel_phase(device, report):
     e = rows[0]["at_engine_shape"] = with_bound(dict(
         lanes=k, equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: S.valid3_bits(eng["bits"], k1_ids)),
+        device_ms=kernel_device_ms(lambda: S.valid3_bits(eng["bits"], k1_ids),
+                                   "valid3_kernel"),
+        host_us=host_us(lambda: S.valid3_bits(eng["bits"], k1_ids)),
         plain_ms=time_ms(lambda: S.valid3_bits_plain(eng["bits"], k1_ids)),
         nbytes=k1_bytes(k), ops=k1_ops(k)))
     rows[0]["equal"] = rows[0]["equal"] and e["equal"]
@@ -523,9 +671,18 @@ def kernel_phase(device, report):
         with_bound(r)
         r["route"] = "cuda"
         r["library_ms"] = None
-        log(f"  {r['name']}: equal to plain (exact)={r['equal']}, kernel {r['ms']:.4f} ms, "
+        log(f"  {r['name']}: equal to plain (exact)={r['equal']}, kernel {r['ms']:.4f} ms "
+            f"(device {r.get('device_ms')} ms, host {r.get('host_us')} us a call), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}); {r['shape']}")
+    k4 = next(r for r in rows if r["name"] == "afterstate_buffer")
+    for k, v in k4["store_variants"].items():
+        log(f"  K4 store variants at {k}, device ms in turns: 16-byte stores "
+            f"{v['stores16']}, TMA {v['tma']} (TMA equal to plain: {v['tma_equal']})")
+    for t in k4["evaluator_layouts"]["turns"]:
+        log(f"  evaluator alone, {t['layout']}: forward at M = {K4_LANES} x 192 "
+            f"{t['forward_ms']:.4f} ms, forward + backward (checkpointed) at M = "
+            f"{RUN9_TRAINING['batch_size']} x 192 {t['train_ms']:.4f} ms")
     report["kernels"] = rows
     bad = [r["name"] for r in rows if not r["equal"]]
     if bad:
@@ -536,6 +693,18 @@ def with_bound(d: dict) -> dict:
     """Replace a case's `nbytes` and `ops` by its bound."""
     d["bound_ms"], d["bound_by"] = bound_ms(d.pop("nbytes"), d.pop("ops"))
     return d
+
+
+def k4_bytes(b: int, elem: int) -> int:
+    """K4: board and pieces read (1,024 B a lane); 192 actions x (128
+    plane values and 3 features of `elem` bytes, and an overlap byte)
+    written."""
+    return b * 1024 + b * 192 * (131 * elem + 1)
+
+
+def k4_ops(b: int) -> int:
+    """K4: about 60 64-bit operations an action for the move (120 32-bit)."""
+    return b * 192 * 120
 
 
 def k1_bytes(k: int) -> int:
@@ -1023,7 +1192,11 @@ def profile_phase(device, report):
         "top_device_kernels": [{"name": k[:90], "ms_per_step": t / steps,
                                 "calls_per_step": n / steps} for k, (t, n) in top],
     }
+    prof_out["forward"] = fwd_k = forward_kernels(device)
     report["profile"] = prof_out
+    log(f"  one forward at {EVAL_EPISODES} lanes: {fwd_k['launches']} kernel launches, "
+        f"device {fwd_k['device_ms']} ms; kernels (device ms, launches): "
+        + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in fwd_k["kernels"].items()))
     log(f"  per step (host clock, synchronised): forward {prof_out['host_ms_per_step_forward']:.3f} ms, "
         f"step {prof_out['host_ms_per_step_step']:.3f} ms; profiled: wall "
         f"{prof_out['profiled_wall_ms_per_step']:.3f} ms, device {prof_out['device_ms_per_step']}"
@@ -1601,7 +1774,8 @@ def main() -> int:
                                   "bound_by", "library_ms", "shape")} | {
                 k: r[k] for k in ("device_ms", "host_us", "entry_points", "step",
                                   "at_update_shape", "at_engine_shape",
-                                  "at_other_shapes") if k in r})
+                                  "at_other_shapes", "store_variants",
+                                  "evaluator_layouts") if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)

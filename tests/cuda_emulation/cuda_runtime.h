@@ -5,12 +5,16 @@
 // of a grid run one after another, so no block may wait on another;
 // __syncthreads is a std::barrier over the block, and the warp intrinsics
 // (__syncwarp, __ballot_sync, __any_sync) a std::barrier over the warp's
-// 32 threads, which must all take part (a full mask).  Only what the
-// kernels use is here.
+// 32 threads, which must all take part (a full mask).  The emulated card
+// has BBX_EMULATED_SMS multiprocessors that hold one block each, so a
+// kernel that sizes its grid by occupancy walks several items a block.
+// Only what the kernels use is here.
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cstdlib>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -20,7 +24,7 @@ using std::min;
 
 struct bbx_dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local bbx_dim3 threadIdx;
-inline bbx_dim3 blockIdx, blockDim;
+inline bbx_dim3 blockIdx, blockDim, gridDim;
 
 #define __global__
 #define __device__
@@ -33,10 +37,37 @@ inline bbx_dim3 blockIdx, blockDim;
 
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
+#define BBX_EMULATED_SMS 3
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = BBX_EMULATED_SMS; return 0; }
+template <class F>
+inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+    *n = 1;
+    return 0;
+}
 
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+    return {x, y, z, w};
+}
+
+// bf16 as its bit pattern; float -> bf16 rounds to nearest even, as
+// PyTorch's conversion does (a NaN stays a quiet NaN).
+struct __nv_bfloat16 { unsigned short bits; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+    unsigned u;
+    std::memcpy(&u, &f, 4);
+    if ((u & 0x7FFFFFFFu) > 0x7F800000u) return {(unsigned short)((u >> 16) | 0x40u)};
+    u += 0x7FFFu + ((u >> 16) & 1u);
+    return {(unsigned short)(u >> 16)};
+}
 
 // Float intrinsics with one rounding per operation (the host compiler runs
 // without FMA contraction: -std=c++20 sets -ffp-contract=off).
@@ -85,9 +116,16 @@ inline int __syncthreads_or(int pred) {
     return any;
 }
 
+// Dynamic shared memory of the running launch (BBX_DYNAMIC_SMEM).
+inline unsigned char* bbx_dynamic_smem;
+
 template <class Body>
-void bbx_emulate_launch(int grid, int block, Body body) {
+void bbx_emulate_launch(int grid, int block, Body body, size_t smem = 0) {
     blockDim.x = block;
+    gridDim.x = grid;
+    std::unique_ptr<unsigned char, decltype(&std::free)> dyn(
+        (unsigned char*)std::aligned_alloc(64, (smem + 63) / 64 * 64 + 64), &std::free);
+    bbx_dynamic_smem = dyn.get();
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         std::barrier<> bar(block);

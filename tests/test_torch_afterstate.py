@@ -6,6 +6,8 @@ tiny widths (evaluator (4, 4), hidden 8, value (4, 4), hidden 16) and
 converted with `afterstate_state_dict_from_flax`.  Tolerances are stated in
 each test; the expansion is exact.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +105,57 @@ def test_afterstate_planes_plain_equal(reachable_obs):
     assert np.asarray(want[2]).max() >= 2  # some move clears two lines
 
 
+def _j_buffer(board, pieces, dt):
+    """bbx's expansion, NHWC stack and per-move features as
+    `bbx.models.afterstate.AfterstateNetwork.__call__` builds them, cast to
+    `dt` as its evaluator casts them; and bbx's lines and overlap."""
+    after, placed, lines, overlap = j_afterstate_planes(board, pieces)
+    nblocks = jnp.sum(placed, axis=(2, 3))
+    feats = jnp.concatenate([lines[..., None] / 4.0,
+                             (lines[..., None] > 0).astype(jnp.float32),
+                             nblocks[..., None] / 5.0], axis=-1)
+    stack = jnp.stack([after, placed], axis=-1)
+    return stack.astype(dt), feats.astype(dt), lines, overlap
+
+
+_j_buffers = {dt: jax.jit(functools.partial(_j_buffer, dt=dt))
+              for dt in (jnp.float32, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_afterstate_buffer_plain_equals_bbx(reachable_obs, dtype):
+    """K4's plain version == bbx's planes (NHWC stack), lines, overlap and
+    the three per-move features in the compute dtype, exactly: on
+    reachable boards and on numpy-seeded random boards with every piece
+    (the 9-cell square among them, whose nblocks / 5 is 1.8000001 in bbx's
+    float32)."""
+    rng = np.random.default_rng(17)
+    n = 48
+    fills = rng.uniform(0.1, 0.9, n)
+    board = (rng.random((n, 8, 8)) < fills[:, None, None]).astype(np.float32)
+    ids = rng.integers(0, 37, (n, 3))
+    ids[:13] = np.arange(39).reshape(13, 3) % 37
+    used = rng.random((n, 3)) < 0.2
+    pieces = (TP.PIECE_MASKS[ids] * ~used[:, :, None, None]).astype(np.float32)
+    board = np.concatenate([reachable_obs["board"], board])
+    pieces = np.concatenate([reachable_obs["pieces"], pieces])
+    j_planes, j_feats, j_lines, j_overlap = _j_buffers[getattr(jnp, dtype)](
+        jnp.asarray(board), jnp.asarray(pieces))
+    t_board, t_pieces = torch.from_numpy(board), torch.from_numpy(pieces)
+    planes, feats, overlap = TA.afterstate_buffer_plain(t_board, t_pieces,
+                                                        getattr(torch, dtype))
+    assert planes.dtype == feats.dtype == getattr(torch, dtype)
+    for name, g, w in (("planes", planes, j_planes), ("feats", feats, j_feats)):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w).astype(np.float32),
+                                      err_msg=name)
+    np.testing.assert_array_equal(overlap.numpy(), np.asarray(j_overlap))
+    np.testing.assert_array_equal(TA.afterstate_planes(t_board, t_pieces)[2].numpy(),
+                                  np.asarray(j_lines))
+    assert np.asarray(j_lines).max() >= 2
+    assert feats[..., 2].float().max() > 1.79  # a 9-cell piece placed whole
+
+
 def test_forward_float32_matches(reachable_obs):
     """Converted params, float32: logits and value within atol 1e-4 of JAX
     (float32 convolutions summed in another order); masked logits equal."""
@@ -117,6 +170,16 @@ def test_forward_float32_matches(reachable_obs):
     np.testing.assert_array_equal(tl.numpy()[~m], jl[~m])
     np.testing.assert_allclose(tv.numpy(), jv, rtol=0, atol=1e-4)
     assert np.abs(jl[m]).max() > 0.1  # the comparison is not of zeros
+    # The agreement rests on `evaluator.dense0` keeping Flax's (h, w, c)
+    # rows: the same rows in NCHW order move the logits far past 1e-4.
+    net = _torch_net(params, torch.float32)
+    w = net.evaluator.dense0.weight.data
+    n = 64 * net.evaluator.convs[-1].out_channels
+    nchw = w[:, :n].reshape(-1, 8, 8, n // 64).permute(0, 3, 1, 2).reshape(-1, n)
+    w[:, :n] = nchw
+    with torch.no_grad():
+        moved = net(torch.from_numpy(b), torch.from_numpy(p), torch.from_numpy(m))[0]
+    assert np.abs(moved.numpy()[m] - jl[m]).max() > 1e-2
 
 
 def test_forward_bfloat16_matches(reachable_obs):
@@ -184,6 +247,14 @@ def test_converter_loads_run9_widths_strictly():
     sd = afterstate_state_dict_from_flax(params)
     net.load_state_dict(sd, strict=True)
     assert net.compute_dtype == torch.bfloat16
+    # The evaluator flattens channels-last in Flax's (h, w, c) order: its
+    # first Dense keeps Flax's rows; the value head's is permuted to NCHW.
+    np.testing.assert_array_equal(
+        sd["evaluator.dense0.weight"].numpy(),
+        params["Checkpoint_Evaluator_0"]["Dense_0"]["kernel"].T)
+    v = params["Dense_1"]["kernel"].reshape(8, 8, 64, 256).transpose(2, 0, 1, 3)
+    np.testing.assert_array_equal(sd["value_dense0.weight"].numpy(),
+                                  v.reshape(4096, 256).T)
     assert all(v.dtype == torch.float32 for v in net.state_dict().values())
 
 

@@ -80,17 +80,24 @@ def test_verdict_kernels_match_plain(cuda, which):
     assert fast.any() and (~fast).any() and (~exact).any()
 
 
+def _assert_k4_equal(board, pieces, dtype):
+    got = A.afterstate_buffer(board, pieces, dtype)
+    want = A.afterstate_buffer_plain(board, pieces, dtype)
+    for name, a, b in zip(("planes", "feats", "overlap"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.gpu
-def test_afterstate_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_afterstate_kernel_matches_plain(cuda, dtype):
     _, obs, _ = _midgame(cuda, n=64)
-    board, pieces = obs["board"], obs["pieces"]
-    for got, want in zip(A.afterstate_buffer(board, pieces),
-                         A.afterstate_buffer_plain(board, pieces)):
-        assert torch.equal(got, want)
+    _assert_k4_equal(obs["board"], obs["pieces"], dtype)
 
 
 @pytest.mark.gpu
-def test_afterstate_kernel_matches_plain_at_update_minibatch(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_afterstate_kernel_matches_plain_at_update_minibatch(cuda, dtype):
     """At run9's minibatch of 2048, on the planes the update rebuilds from
     its compact buffer (used slots zeroed)."""
     state, obs, _ = _midgame(cuda, n=2048)
@@ -99,9 +106,7 @@ def test_afterstate_kernel_matches_plain_at_update_minibatch(cuda):
                            "used": state.used})
     board, pieces = mb["board"].contiguous(), mb["pieces"].contiguous()
     assert not pieces.flatten(2).any(2).all()
-    for got, want in zip(A.afterstate_buffer(board, pieces),
-                         A.afterstate_buffer_plain(board, pieces)):
-        assert torch.equal(got, want)
+    _assert_k4_equal(board, pieces, dtype)
 
 
 @pytest.mark.gpu
@@ -121,6 +126,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     board = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        A.afterstate_buffer(board, torch.zeros((2, 3, 8, 8), device=cuda), torch.float16)
     # K6's two entry points, the step and K7.
     state = TState.reset(4, TState.make_generator(0, cuda), cuda)
     acts = torch.zeros(4, dtype=torch.int32, device=cuda)

@@ -121,7 +121,13 @@ def test_emulated_verdict_kernels_match_plain(kernels, which):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 
-def test_emulated_afterstate_kernel_matches_plain(kernels):
+@pytest.mark.parametrize("tma", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_afterstate_kernel_matches_plain(kernels, dtype, tma):
+    """K4 at both output dtypes: planes, features and overlap equal to the
+    plain version (dtypes and bits too), on reachable boards and boards
+    with near-full lines; 26 lanes on the emulator's 3 resident blocks, so
+    each block walks several lanes through both buffers."""
     _, obs, _ = _reachable(n=24)
     board, pieces = obs["board"], obs["pieces"]
     extra = torch.zeros((2, 8, 8))
@@ -132,11 +138,15 @@ def test_emulated_afterstate_kernel_matches_plain(kernels):
     extra[1, 5, 5] = 0.0
     board = torch.cat([board, extra])
     pieces = torch.cat([pieces, pieces[:2]])
-    got = A._afterstate_buffer_cuda(board, pieces)
-    want = A.afterstate_buffer_plain(board, pieces)
-    for name, g, w in zip(("planes", "lines", "overlap"), got, want):
+    before = A.afterstate_buffer.launches
+    got = A._afterstate_buffer_cuda(board, pieces, dtype, tma=tma)
+    assert A.afterstate_buffer.launches == before + 1
+    want = A.afterstate_buffer_plain(board, pieces, dtype)
+    for name, g, w in zip(("planes", "feats", "overlap"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, w), name
-    assert want[1].max() >= 2
+    assert want[1][..., 0].max() >= 0.5  # some move clears two lines
+    assert (want[1][..., 2] * 5).round().unique().numel() >= 4
 
 
 def test_emulated_kernels_take_empty_batches(kernels):
@@ -145,9 +155,12 @@ def test_emulated_kernels_take_empty_batches(kernels):
     v3 = S._valid3_bits_cuda(bits, ids)
     assert v3.shape == (0, 3, 64)
     assert S._solvable_exact_bits_cuda(bits, ids, v3).shape == (0,)
-    planes, lines, overlap = A._afterstate_buffer_cuda(torch.zeros((0, 8, 8)),
-                                                       torch.zeros((0, 3, 8, 8)))
-    assert planes.shape == (0, 192, 2, 8, 8) and lines.shape == (0, 192)
+    for dtype in (torch.float32, torch.bfloat16):
+        planes, feats, overlap = A._afterstate_buffer_cuda(
+            torch.zeros((0, 8, 8)), torch.zeros((0, 3, 8, 8)), dtype)
+        assert planes.shape == (0, 192, 8, 8, 2) and planes.dtype == dtype
+        assert feats.shape == (0, 192, 3) and feats.dtype == dtype
+        assert overlap.shape == (0, 192) and overlap.dtype == torch.bool
     empty = TState.reset(0, TState.make_generator(0, "cpu"), "cpu")
     blocks = TStep._launch_move(empty, torch.zeros(0, dtype=torch.int32), 0, TTables("cpu"))
     out = blocks.moved()

@@ -257,6 +257,18 @@ def test_update_matches_bbx_fresh_and_carried(trajectory):
     p1 = _np_tree(jts1.params)
     adam = adam_state_from_optax(_np_tree(jts1.opt_state), p1)
     assert adam["step"] == 2
+    # The evaluator runs channels-last and flattens as Flax does, so its
+    # first Dense and that Dense's moments keep Flax's row order; the value
+    # head's Dense after the NCHW flatten has its rows permuted.
+    mu = _adam_mu(_np_tree(jts1.opt_state))
+    np.testing.assert_array_equal(
+        adam["exp_avg"]["evaluator.dense0.weight"].numpy(),
+        mu["Checkpoint_Evaluator_0"]["Dense_0"]["kernel"].T)
+    v_mu = mu["Dense_1"]["kernel"]
+    c = v_mu.shape[0] // 64
+    np.testing.assert_array_equal(
+        adam["exp_avg"]["value_dense0.weight"].numpy(),
+        v_mu.reshape(8, 8, c, -1).transpose(2, 0, 1, 3).reshape(64 * c, -1).T)
     ts2, m2 = _torch_update(_torch_net(p1), adam, 1, traj, adv, ret)
     _assert_update_equal(ts2, m2, jts2, jm2)
     # The carried moments moved the second step: a fresh Adam from the
@@ -265,6 +277,18 @@ def test_update_matches_bbx_fresh_and_carried(trajectory):
     diff = max((a - b).abs().max().item() for a, b in zip(
         ts_fresh.network.parameters(), ts2.network.parameters()))
     assert diff > 1e-3 * T_CFG.learning_rate
+
+
+def _adam_mu(opt_state):
+    """The ``mu`` tree of the ScaleByAdamState inside bbx's optax chain."""
+    for sub in opt_state:
+        if hasattr(sub, "mu"):
+            return sub.mu
+        if isinstance(sub, tuple):
+            found = _adam_mu(sub)
+            if found is not None:
+                return found
+    return None
 
 
 def test_advantage_normalisation_uses_population_std():
