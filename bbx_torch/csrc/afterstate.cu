@@ -22,7 +22,9 @@
 // features in shared memory (double-buffered, so a lane needs two block
 // barriers); the block then writes the lane's contiguous slab with
 // coalesced 16-byte stores, each expanding four (bf16) or two (float)
-// cells of both channels from the words.
+// cells of both channels from the words.  (A slab built in shared memory
+// and stored with TMA bulk copies, double-buffered, measured 3-20% slower
+// on the H100 at every shape of the paths, PERF.md.)
 #include <cuda_runtime.h>
 #ifndef BBX_EMULATE
 #include <cuda_bf16.h>
@@ -64,38 +66,7 @@ __device__ __forceinline__ uint4 slab_chunk(u64 after, u64 placed, int c0) {
     return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// The bulk (TMA) store of a shared-memory slab to global memory, its fence,
-// group commit and waits; in the emulator a copy.
-#ifdef BBX_EMULATE
-#include <cstring>
-static inline void bulk_store(void* dst, const void* src, unsigned bytes) {
-    std::memcpy(dst, src, bytes);
-}
-static inline void bulk_fence() {}
-static inline void bulk_commit() {}
-static inline void bulk_wait_read_1() {}
-static inline void bulk_wait_all() {}
-#else
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                 :: "l"(dst), "r"((unsigned)__cvta_generic_to_shared(src)), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void bulk_fence() {
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read_1() {
-    asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-#endif
-
-template <typename T, bool TMA>
+template <typename T>
 __global__ void __launch_bounds__(AFTER_ACTIONS)
 afterstate_kernel(const float* __restrict__ board, const float* __restrict__ pieces,
                   uint4* __restrict__ planes, uint4* __restrict__ feats,
@@ -112,10 +83,7 @@ afterstate_kernel(const float* __restrict__ board, const float* __restrict__ pie
     const int r = (t % 64) / 8;
     const int c = t % 8;
     int buf = 0;
-    uint4* s_slab = (uint4*)BBX_DYNAMIC_SMEM;  // TMA: [2][CHUNKS]
     for (int lane = blockIdx.x; lane < b; lane += gridDim.x, buf ^= 1) {
-        // TMA: the bulk copies from this buffer two lanes ago have read it.
-        if (TMA && t == 0) bulk_wait_read_1();
         // The lane's 256 cells (board, then the three pieces), 32 a ballot.
         const float* bd = board + 64 * (size_t)lane;
         const float* pc = pieces + 192 * (size_t)lane;
@@ -153,79 +121,53 @@ afterstate_kernel(const float* __restrict__ board, const float* __restrict__ pie
         // The lane's slab, [192 actions][8][8][2] of T, as 16-byte chunks;
         // then its [192][3] features.  The next lane writes the other
         // buffers, so no barrier is needed before it.
-        uint4* slab = TMA ? s_slab + buf * CHUNKS : planes + (size_t)lane * CHUNKS;
+        uint4* slab = planes + (size_t)lane * CHUNKS;
         for (int q = t; q < CHUNKS; q += AFTER_ACTIONS) {
             const int a = q / (64 / CELLS);
             slab[q] = slab_chunk<T>(s_words[buf][a][0], s_words[buf][a][1],
                                     (q % (64 / CELLS)) * CELLS);
         }
-        if (TMA) {
-            bulk_fence();
-            __syncthreads();
-            if (t == 0) {
-                bulk_store(planes + (size_t)lane * CHUNKS, slab, CHUNKS * 16);
-                bulk_store(feats + (size_t)lane * FEAT_CHUNKS, s_feats[buf],
-                           FEAT_CHUNKS * 16);
-                bulk_commit();
-            }
-        } else if (t < FEAT_CHUNKS) {
-            feats[(size_t)lane * FEAT_CHUNKS + t] = s_feats[buf][t];
-        }
+        if (t < FEAT_CHUNKS) feats[(size_t)lane * FEAT_CHUNKS + t] = s_feats[buf][t];
     }
-    if (TMA && t == 0) bulk_wait_all();
 }
 
 // One block of 192 threads a lane, as many blocks as fit on the card at
 // once; each block walks the lanes blockIdx.x, + gridDim.x, ...
-// TMA: two slabs of dynamic shared memory (96 KB in bf16, 192 KB in float).
-template <typename T, bool TMA>
-static int afterstate_grid(int b, int* smem) {
+template <typename T>
+static int afterstate_grid(int b) {
     static int resident = 0;
-    *smem = TMA ? 2 * AFTER_ACTIONS * 128 * (int)sizeof(T) : 0;
     if (resident == 0) {
         int dev = 0, sms = 1, per_sm = 1;
         cudaGetDevice(&dev);
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (TMA)
-            cudaFuncSetAttribute(afterstate_kernel<T, TMA>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, afterstate_kernel<T, TMA>,
-                                                      AFTER_ACTIONS, *smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, afterstate_kernel<T>,
+                                                      AFTER_ACTIONS, 0);
         resident = sms * max(per_sm, 1);
     }
     return min(b, resident);
 }
 
-template <typename T, bool TMA>
+template <typename T>
 static void afterstate_launch(const void* board, const void* pieces, void* out, int b,
                               void* stream) {
     unsigned char* base = (unsigned char*)out;
     const size_t plane_bytes = (size_t)b * AFTER_ACTIONS * 128 * sizeof(T);
     const size_t feat_bytes = (size_t)b * AFTER_ACTIONS * AFTER_FEATS * sizeof(T);
-    int smem = 0;
-    const int grid = afterstate_grid<T, TMA>(b, &smem);
-    auto kernel = afterstate_kernel<T, TMA>;
-    BBX_LAUNCH_SMEM(kernel, grid, AFTER_ACTIONS, smem, stream,
-                    (const float*)board, (const float*)pieces, (uint4*)base,
-                    (uint4*)(base + plane_bytes), base + plane_bytes + feat_bytes, b);
+    BBX_LAUNCH(afterstate_kernel<T>, afterstate_grid<T>(b), AFTER_ACTIONS, stream,
+               (const float*)board, (const float*)pieces, (uint4*)base,
+               (uint4*)(base + plane_bytes), base + plane_bytes + feat_bytes, b);
 }
 
 // `out`: one buffer of B * 192 * (131 * elem + 1) bytes, 16-byte aligned;
 // elem is 2 (bf16) or 4 (float32).
-// `tma`: store each slab with bulk copies from shared memory (1) or with
-// 16-byte stores from registers (0).
 extern "C" int bbx_afterstate(const void* board, const void* pieces, void* out, int b,
-                              int elem, int tma, void* stream) {
+                              int elem, void* stream) {
     if (elem != 2 && elem != 4) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        if (elem == 2 && tma)
-            afterstate_launch<__nv_bfloat16, true>(board, pieces, out, b, stream);
-        else if (elem == 2)
-            afterstate_launch<__nv_bfloat16, false>(board, pieces, out, b, stream);
-        else if (tma)
-            afterstate_launch<float, true>(board, pieces, out, b, stream);
+        if (elem == 2)
+            afterstate_launch<__nv_bfloat16>(board, pieces, out, b, stream);
         else
-            afterstate_launch<float, false>(board, pieces, out, b, stream);
+            afterstate_launch<float>(board, pieces, out, b, stream);
     }
     return (int)cudaGetLastError();
 }

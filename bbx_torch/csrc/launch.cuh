@@ -3,19 +3,12 @@
 // With BBX_EMULATE defined (tests/cuda_emulation/ compiles these sources as
 // C++ for the CPU tests) the launch runs the kernel through the emulator's
 // bbx_emulate_launch; otherwise it is an ordinary launch on `stream`.
-// BBX_LAUNCH_SMEM also gives the block `smem` bytes of dynamic shared
-// memory, which the kernel reaches as BBX_DYNAMIC_SMEM (16-byte aligned).
 #pragma once
 
 #ifdef BBX_EMULATE
-#define BBX_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
-    bbx_emulate_launch((grid), (block), [&] { kernel(__VA_ARGS__); }, (smem))
-#define BBX_DYNAMIC_SMEM bbx_dynamic_smem
-#else
-#define BBX_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
-    kernel<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>(__VA_ARGS__)
-extern __shared__ __align__(16) unsigned char bbx_dynamic_smem_[];
-#define BBX_DYNAMIC_SMEM bbx_dynamic_smem_
-#endif
 #define BBX_LAUNCH(kernel, grid, block, stream, ...) \
-    BBX_LAUNCH_SMEM(kernel, grid, block, 0, stream, __VA_ARGS__)
+    bbx_emulate_launch((grid), (block), [&] { kernel(__VA_ARGS__); })
+#else
+#define BBX_LAUNCH(kernel, grid, block, stream, ...) \
+    kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#endif

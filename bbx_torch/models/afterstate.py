@@ -82,7 +82,7 @@ def _expand_plain(board: torch.Tensor, pieces: torch.Tensor):
 
 
 def afterstate_buffer_plain(board: torch.Tensor, pieces: torch.Tensor,
-                            dtype: torch.dtype = torch.float32):
+                            dtype: torch.dtype):
     """Plain version of `afterstate_buffer`: `bbx`'s expansion, stack and
     per-move features, op for op, then one cast to `dtype`."""
     after, placed, lines, overlap = _expand_plain(board, pieces)
@@ -97,7 +97,7 @@ def afterstate_buffer_plain(board: torch.Tensor, pieces: torch.Tensor,
 
 
 def afterstate_buffer(board: torch.Tensor, pieces: torch.Tensor,
-                      dtype: torch.dtype = torch.float32):
+                      dtype: torch.dtype):
     """The 192 afterstates of each lane as the evaluator's input.
 
     Args:
@@ -126,7 +126,7 @@ def afterstate_buffer(board: torch.Tensor, pieces: torch.Tensor,
 
 
 def _afterstate_buffer_cuda(board: torch.Tensor, pieces: torch.Tensor,
-                            dtype: torch.dtype, tma: bool = False):
+                            dtype: torch.dtype):
     b = board.shape[0]
     build.require_many((
         ("afterstate: board", board, torch.float32, (b, BOARD, BOARD)),
@@ -141,7 +141,7 @@ def _afterstate_buffer_cuda(board: torch.Tensor, pieces: torch.Tensor,
     buf = torch.empty(n_planes + n_feats + b * NUM_ACTIONS // elem, dtype=dtype,
                       device=board.device)
     err = build.function("afterstate")(board.data_ptr(), pieces.data_ptr(),
-                                       buf.data_ptr(), b, elem, int(tma),
+                                       buf.data_ptr(), b, elem,
                                        build.stream_of(board))
     build.check("afterstate", err)
     afterstate_buffer.launches += 1

@@ -51,8 +51,8 @@ SIGNATURES = {
     # bits, ids, valid3, place, shifts, anchor_ok, out, k, stream
     "solvable_exact": ("solvable_exact", "bbx_solvable_exact",
                        [_P, _P, _P, _P, _P, _P, _P, _I, _P]),
-    # board, pieces, planes, lines, overlap, b, stream
-    "afterstate": ("afterstate", "bbx_afterstate", [_P, _P, _P, _P, _P, _I, _P]),
+    # board, pieces, out (planes, features, overlap), b, element size, stream
+    "afterstate": ("afterstate", "bbx_afterstate", [_P, _P, _P, _I, _I, _P]),
     # rewards, dones, values, last_value, adv, ret, gamma, gamma*lambda,
     # t, n, stream
     "gae": ("gae", "bbx_gae", [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _P]),

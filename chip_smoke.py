@@ -12,15 +12,15 @@ Phases, each of which must pass (exit code 1 otherwise):
    last bit: K5's, and the reward and episode return of K6's
    `bbx_step_finish`), on reachable mid-game boards made by the port's own
    engine from a seed: K4 at the rollout's 512 lanes and at the update's
-   2048; K6's two entry points and the whole step (K6, K7, K6) on one step
+   2048, in bf16 and float32 (planes, features and overlap); K6's two
+   entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
    train paths' 512; K7 on that step's inputs (its attempts equal to the
    step's own), at 512 lanes, and at the FLEET lanes' realistic need and
    with every lane in need; each timed as wrapper calls between CUDA
-   events (`ms`), as device time by `torch.profiler` (`device_ms`, K6 and
-   K7) and as host time a call (`host_us`, K6 and K7; K6's entry points
-   through the launch helpers the step calls, on the step's checked
-   inputs);
+   events (`ms`), as device time by `torch.profiler` (`device_ms`) and as
+   host time a call (`host_us`; K6's entry points through the launch
+   helpers the step calls, on the step's checked inputs);
 4. the engine path through `bbx_torch.cli.benchmark`: random-policy
    env-steps/s of 16,384 lanes (chunks of 64 steps, 5 windows of 10
    chunks, the 20% spread gate; a measurement that breaks it is taken
@@ -41,7 +41,8 @@ Phases, each of which must pass (exit code 1 otherwise):
    move (the parity path, which runs K2 and K3 standalone; its launches
    are counted);
 7. profile the first 16 steps of the eval loop (host time of the forward
-   and of the step, device time by kernel, the device's busy share);
+   and of the step, device time by kernel, the device's busy share) and
+   list the kernels of one forward;
 8. the train path: run9's PPO recipe at full width and shape (512 envs x
    128 steps, minibatch 2048, 2 epochs) for 3 iterations through
    `bbx_torch.cli.train.main` from a JSON config, with the launch
@@ -51,7 +52,8 @@ Phases, each of which must pass (exit code 1 otherwise):
 9. one float32 PPO update at run9 widths on a fixed batch, card against
    CPU (losses and post-Adam parameters);
 10. profile a 16-step rollout and a 4-minibatch update at run9 widths
-   (device time by kernel, the device's busy share in each);
+   (device time by kernel, the device's busy share in each), then time
+   the evaluator alone in NCHW and channels-last (`evaluator_layouts`);
 11. the flat CNN: the float32 forward at default widths, card against CPU
    in train mode (dropout off) and eval mode, then `bench_network` and
    `bench_train` at bbx's defaults (2 timed iterations, losses finite).
@@ -269,10 +271,13 @@ def calls_device(fn, reps: int = 20) -> dict:
     by_name = device_ms_by_kernel(prof)
     if not by_name:
         return {"device_ms": "not measured", "launches": "not measured", "kernels": {}}
+    kernels = {}  # by the first 120 characters of the name, summed
+    for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        t0, c0 = kernels.get(k[:120], (0.0, 0.0))
+        kernels[k[:120]] = [t0 + t / reps, c0 + c / reps]
     return {"device_ms": sum(t for t, _ in by_name.values()) / reps,
             "launches": sum(c for _, c in by_name.values()) / reps,
-            "kernels": {k[:90]: [t / reps, c / reps] for k, (t, c) in
-                        sorted(by_name.items(), key=lambda kv: -kv[1][0])}}
+            "kernels": kernels}
 
 
 def forward_kernels(device, b: int = EVAL_EPISODES) -> dict:
@@ -475,7 +480,7 @@ def kernel_phase(device, report):
     # update's own `_minibatch_obs`, used slots zeroed), in run9's bf16 and
     # in float32: planes, features and overlap exactly equal to the plain
     # version, dtypes included.  The row's times are bf16 at B = 512; the
-    # evaluator's layout timings (`evaluator_layouts`) ride along.
+    # evaluator's layout timings join it from phase 10.
     from bbx_torch.agent import ppo as P
 
     def k4_case(bd, pc, dtype):
@@ -490,19 +495,6 @@ def kernel_phase(device, report):
                     plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc, dtype)),
                     nbytes=k4_bytes(b, dtype.itemsize), ops=k4_ops(b))
 
-    def store_variants(bd, pc, dtype):
-        """Device ms of the 16-byte-store and the TMA-store kernels, in
-        turns (16-byte, TMA, TMA, 16-byte); the TMA one's outputs equal to
-        the plain version."""
-        want = A.afterstate_buffer_plain(bd, pc, dtype)
-        out = {"tma_equal": compare(A._afterstate_buffer_cuda(bd, pc, dtype, tma=True),
-                                    want)[0], "stores16": [], "tma": []}
-        for tma in (False, True, True, False):
-            out["tma" if tma else "stores16"].append(kernel_device_ms(
-                lambda: A._afterstate_buffer_cuda(bd, pc, dtype, tma=tma),
-                "afterstate_kernel"))
-        return out
-
     b, b2 = K4_LANES, RUN9_TRAINING["batch_size"]
     mb = P._minibatch_obs({"board": state.board[:b2], "mask": obs["action_mask"][:b2],
                            "piece_ids": state.piece_ids[:b2].to(torch.int8),
@@ -511,20 +503,15 @@ def kernel_phase(device, report):
              b2: (mb["board"].contiguous(), mb["pieces"].contiguous())}
     bf16, f32 = torch.bfloat16, torch.float32
     row = k4_case(*k4_in[b], bf16)
-    cases = {f"{n}_{str(dt)[6:]}": (k4_case(*k4_in[n], dt) if (n, dt) != (b, bf16) else None)
-             for n in (b, b2) for dt in (bf16, f32)}
-    others = {k: with_bound(c) for k, c in cases.items() if c is not None}
-    variants = {f"{n}_{str(dt)[6:]}": store_variants(*k4_in[n], dt)
-                for n in (b, b2) for dt in (bf16, f32)}
+    others = {f"{n}_{str(dt)[6:]}": with_bound(k4_case(*k4_in[n], dt))
+              for n, dt in ((b, f32), (b2, bf16), (b2, f32))}
     row.update(
         name="afterstate_buffer", source="bbx_torch/csrc/afterstate.cu",
         replaces="bbx/models/afterstate.py:52 (afterstate_planes; the feature "
                  "concatenation and casts of AfterstateNetwork.__call__, :178-189)",
-        equal=row["equal"] and all(c["equal"] for c in others.values())
-        and all(v["tma_equal"] for v in variants.values()),
+        equal=row["equal"] and all(c["equal"] for c in others.values()),
         max_abs_err=max([row["max_abs_err"]] + [c["max_abs_err"] for c in others.values()]),
         at_update_shape=others[f"{b2}_bfloat16"], at_other_shapes=others,
-        store_variants=variants, evaluator_layouts=evaluator_layouts(device),
         shape=f"board [{b},8,8], pieces [{b},3,8,8] f32 -> one buffer: planes "
               f"[{b},192,8,8,2], feats [{b},192,3] (bf16), overlap [{b},192]; also "
               + "; ".join(f"{k}: equal={c['equal']}, {c['ms']:.4f} ms (device "
@@ -675,14 +662,7 @@ def kernel_phase(device, report):
             f"(device {r.get('device_ms')} ms, host {r.get('host_us')} us a call), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}); {r['shape']}")
-    k4 = next(r for r in rows if r["name"] == "afterstate_buffer")
-    for k, v in k4["store_variants"].items():
-        log(f"  K4 store variants at {k}, device ms in turns: 16-byte stores "
-            f"{v['stores16']}, TMA {v['tma']} (TMA equal to plain: {v['tma_equal']})")
-    for t in k4["evaluator_layouts"]["turns"]:
-        log(f"  evaluator alone, {t['layout']}: forward at M = {K4_LANES} x 192 "
-            f"{t['forward_ms']:.4f} ms, forward + backward (checkpointed) at M = "
-            f"{RUN9_TRAINING['batch_size']} x 192 {t['train_ms']:.4f} ms")
+
     report["kernels"] = rows
     bad = [r["name"] for r in rows if not r["equal"]]
     if bad:
@@ -1322,7 +1302,8 @@ def train_profile_phase(device, report):
     512 lanes and an update of one epoch of 4 minibatches of 2048, both at
     run9 widths (bf16) from a seeded network.  Reports each window's host
     wall time, device time, busy share and top kernels; a profiler that
-    records no device time is reported as "not measured"."""
+    records no device time is reported as "not measured".  Then the
+    evaluator's layout timings (`evaluator_layouts`)."""
     import torch
 
     from bbx_torch.agent import ppo as P
@@ -1386,17 +1367,32 @@ def train_profile_phase(device, report):
             log(f"    {row['ms_per_unit']:.4f} ms/{unit}  x{row['calls_per_unit']:.2f}  "
                 f"{row['name']}")
     report["train_profile"] = out
+    # The evaluator in both layouts, after the train path so that neither
+    # path's first forward finds cuDNN's plans for these shapes made.
+    report["evaluator_layouts"] = layouts = evaluator_layouts(device)
+    for t in layouts["turns"]:
+        log(f"  evaluator alone, {t['layout']}: forward at M = {K4_LANES} x 192 "
+            f"{t['forward_ms']:.4f} ms, forward + backward (checkpointed) at M = "
+            f"{RUN9_TRAINING['batch_size']} x 192 {t['train_ms']:.4f} ms")
 
 
 def update_reference_phase(device, report):
     """Phase 9: one float32 PPO update at run9 widths (TF32 off) on a fixed
     batch of T = 4 x N = 64 transitions, one epoch of one minibatch, from
-    the same params on the card and on the CPU.  The stored log-probs are
-    drawn from [-6, -2] so that ratios spread and clipping is exercised.
-    Continuous metrics must agree within 1e-4 relative, the clip fraction
-    within one sample (1/256), the post-Adam params within 1e-6 + 1e-3 x
-    lr (Adam's step is about lr per element; the grads differ only by
-    summation order)."""
+    the same params on the card, and on the CPU in float64 (the reference)
+    and in float32.  The stored log-probs are drawn from [-6, -2] so that
+    ratios spread and clipping is exercised.  Against the float64 update,
+    the card's continuous metrics must agree within 1e-4 relative, the clip
+    fraction within one sample (1/256), the post-Adam params within 1e-6 +
+    1e-3 x lr (Adam's step is about lr per element; the grads differ only
+    by rounding).  The reference is float64, not
+    the CPU's float32: a float32 ReLU that flips on a pre-activation within
+    rounding of 0 moves a gradient element by its whole term, and Adam's
+    first step, about lr x sign(grad), carries that into the params (at
+    run9 widths the CPU's float32 update lies 5.5e-5 from the float64 one
+    in `evaluator.dense0.weight`, the card's within 1e-8 of it).  Each
+    parameter's error is reported, and the CPU's float32 update against
+    the float64 one and against the card."""
     import copy
 
     import numpy as np
@@ -1434,36 +1430,61 @@ def update_reference_phase(device, report):
 
     net = network_from_config(dict(RUN9_NETWORK, compute_dtype="float32"),
                               generator=torch.Generator().manual_seed(SEED))
+    exact = copy.deepcopy(net).double()
+    exact.compute_dtype = torch.float64
     res = {}
-    for dev in ("cpu", device):
-        net_d = copy.deepcopy(net).to(dev)
+    for name, dev, model in (("cpu_float64", "cpu", exact), ("cpu", "cpu", net),
+                             ("card", device, net)):
+        net_d = copy.deepcopy(model).to(dev)
+        wide = model is exact
         ts = P.TrainState(net_d, P.make_optimizer(cfg, net_d))
         with float32_exact():
-            metrics = P.update(cfg, ts, {k: v.to(dev) for k, v in traj.items()},
-                               adv.to(dev), ret.to(dev),
-                               torch.Generator(device=dev).manual_seed(SEED))
-        res[str(dev)] = ({k: float(v) for k, v in metrics.items()},
-                         {k: p.detach().cpu() for k, p in net_d.named_parameters()})
-    (m_cpu, p_cpu), (m_gpu, p_gpu) = res["cpu"], res[str(device)]
-    rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
-           for k in m_cpu if k not in ("clip_fraction", "bc_loss")}
-    clip_diff = abs(m_gpu["clip_fraction"] - m_cpu["clip_fraction"])
-    param_err = max(max_abs_err(p_gpu[k], p_cpu[k]) for k in p_cpu)
-    moved = max(max_abs_err(p_cpu[k], v) for k, v in net.named_parameters())
+            metrics = P.update(
+                cfg, ts, {k: (v.double() if wide and v.is_floating_point() else v).to(dev)
+                          for k, v in traj.items()},
+                (adv.double() if wide else adv).to(dev), (ret.double() if wide else ret).to(dev),
+                torch.Generator(device=dev).manual_seed(SEED))
+        res[name] = ({k: float(v) for k, v in metrics.items()},
+                     {k: p.detach().cpu().double() for k, p in net_d.named_parameters()})
+
+    def versus(a, b):
+        """(metrics' relative errors, clip-fraction difference, each
+        parameter's largest absolute error) of run `a` against run `b`."""
+        (ma, pa), (mb, pb) = res[a], res[b]
+        rel = {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+               for k in mb if k not in ("clip_fraction", "bc_loss")}
+        return rel, abs(ma["clip_fraction"] - mb["clip_fraction"]), {
+            k: max_abs_err(pa[k], pb[k]) for k in pb}
+
+    rel, clip_diff, param_errs = versus("card", "cpu_float64")
+    param_err = max(param_errs.values())
+    moved = max(max_abs_err(res["cpu_float64"][1][k], v.double())
+                for k, v in net.named_parameters())
     atol = 1e-6 + 1e-3 * cfg.learning_rate
     ok = (max(rel.values()) <= 1e-4 and clip_diff <= 1 / (t_len * n)
           and param_err <= atol)
-    report["update_reference"] = {"metrics_cpu": m_cpu, "metrics_card": m_gpu,
+    others = {pair: versus(*pair.split("_vs_"))[2]
+              for pair in ("cpu_vs_cpu_float64", "card_vs_cpu")}
+    report["update_reference"] = {"metrics": {k: m for k, (m, _) in res.items()},
                                   "rel_err": rel, "clip_fraction_diff": clip_diff,
                                   "param_max_abs_err": param_err,
                                   "param_atol": atol, "param_max_move": moved,
-                                  "ok": ok}
-    log(f"  update f32 card vs cpu: metrics max rel err {max(rel.values()):.3e} "
-        f"(limit 1e-4), clip_fraction {m_cpu['clip_fraction']:.4f} vs "
-        f"{m_gpu['clip_fraction']:.4f}, params max abs err {param_err:.3e} "
-        f"(limit {atol:.3e}; the update moved them by up to {moved:.3e}), ok={ok}")
+                                  "param_abs_err": param_errs,
+                                  "param_abs_err_of": others, "ok": ok}
+
+    def largest(errs):
+        return ", ".join(f"{k} {e:.3e}" for k, e in
+                         sorted(errs.items(), key=lambda kv: -kv[1])[:3])
+
+    log(f"  update f32 card vs float64 cpu: metrics max rel err {max(rel.values()):.3e} "
+        f"(limit 1e-4), clip_fraction {res['cpu_float64'][0]['clip_fraction']:.4f} vs "
+        f"{res['card'][0]['clip_fraction']:.4f}, params max abs err {param_err:.3e} "
+        f"(limit {atol:.3e}; the update moved them by up to {moved:.3e}); "
+        f"largest: {largest(param_errs)}; ok={ok}")
+    for pair, errs in others.items():
+        log(f"  params, {pair.replace('_vs_', ' vs ')} (reported): {largest(errs)}")
     if not ok:
-        raise AssertionError("the card's update disagrees with the CPU's")
+        raise AssertionError("the card's update disagrees with the CPU's float64 update")
 
 
 def engine_phase(device, report):
@@ -1765,6 +1786,8 @@ def main() -> int:
     kernels = []
     by_path = {p: report.get(p, {}).get("launches", {}) for p in PATH_KERNELS}
     for r in report.get("kernels", []):
+        if r["name"] == "afterstate_buffer" and "evaluator_layouts" in report:
+            r["evaluator_layouts"] = report["evaluator_layouts"]
         split = {p: sum(c.get(name, 0) for name in ROW_COUNTERS[r["name"]])
                  for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (
@@ -1774,8 +1797,8 @@ def main() -> int:
                                   "bound_by", "library_ms", "shape")} | {
                 k: r[k] for k in ("device_ms", "host_us", "entry_points", "step",
                                   "at_update_shape", "at_engine_shape",
-                                  "at_other_shapes", "store_variants",
-                                  "evaluator_layouts") if k in r})
+                                  "at_other_shapes", "evaluator_layouts")
+                if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)

@@ -13,7 +13,6 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
-#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -38,13 +37,10 @@ inline bbx_dim3 blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 #define BBX_EMULATED_SMS 3
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = BBX_EMULATED_SMS; return 0; }
-template <class F>
-inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F>
 inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
     *n = 1;
@@ -116,16 +112,10 @@ inline int __syncthreads_or(int pred) {
     return any;
 }
 
-// Dynamic shared memory of the running launch (BBX_DYNAMIC_SMEM).
-inline unsigned char* bbx_dynamic_smem;
-
 template <class Body>
-void bbx_emulate_launch(int grid, int block, Body body, size_t smem = 0) {
+void bbx_emulate_launch(int grid, int block, Body body) {
     blockDim.x = block;
     gridDim.x = grid;
-    std::unique_ptr<unsigned char, decltype(&std::free)> dyn(
-        (unsigned char*)std::aligned_alloc(64, (smem + 63) / 64 * 64 + 64), &std::free);
-    bbx_dynamic_smem = dyn.get();
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         std::barrier<> bar(block);

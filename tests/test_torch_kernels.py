@@ -125,7 +125,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         S.solvable_exact_bits(bits, ids, v3.transpose(0, 1).contiguous().transpose(0, 1))
     board = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
-        A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda))
+        A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda),
+                            torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         A.afterstate_buffer(board, torch.zeros((2, 3, 8, 8), device=cuda), torch.float16)
     # K6's two entry points, the step and K7.

@@ -121,9 +121,8 @@ def test_emulated_verdict_kernels_match_plain(kernels, which):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 
-@pytest.mark.parametrize("tma", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_emulated_afterstate_kernel_matches_plain(kernels, dtype, tma):
+def test_emulated_afterstate_kernel_matches_plain(kernels, dtype):
     """K4 at both output dtypes: planes, features and overlap equal to the
     plain version (dtypes and bits too), on reachable boards and boards
     with near-full lines; 26 lanes on the emulator's 3 resident blocks, so
@@ -139,7 +138,7 @@ def test_emulated_afterstate_kernel_matches_plain(kernels, dtype, tma):
     board = torch.cat([board, extra])
     pieces = torch.cat([pieces, pieces[:2]])
     before = A.afterstate_buffer.launches
-    got = A._afterstate_buffer_cuda(board, pieces, dtype, tma=tma)
+    got = A._afterstate_buffer_cuda(board, pieces, dtype)
     assert A.afterstate_buffer.launches == before + 1
     want = A.afterstate_buffer_plain(board, pieces, dtype)
     for name, g, w in zip(("planes", "feats", "overlap"), got, want):
