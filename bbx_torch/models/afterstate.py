@@ -6,14 +6,16 @@ Counterpart of `bbx/models/afterstate.py`.  The forward pass
      parameter-free map (shift -> union -> simultaneous row/col clears):
      `afterstate_planes`, the CUDA kernel K4 on the card;
   2. scores every afterboard with one shared evaluator (small CNN + per-move
-     scalar features + a remaining-pieces context), under activation
-     checkpointing when gradients are on (bbx's ``nn.remat``);
+     scalar features + a remaining-pieces context): with gradients on, the
+     plain evaluator under activation checkpointing (bbx's ``nn.remat``);
+     with none, `evaluator_scores`, the fused CUDA kernel K8 on the card;
   3. returns those scores as the 192 policy logits (masked), plus a value
      head on the current state.
 
 K4 writes the planes in ``compute_dtype`` in bbx's stack order, [B, 192,
 8, 8, 2], with the three per-move features beside them, so the forward
-casts no plane and builds no float32 feature tensor.  The evaluator runs
+casts no plane and builds no float32 feature tensor.  K8 reads them and
+the [B, 3, D] context as they are.  The plain evaluator runs
 channels-last: its input is a view of K4's planes, and conv2's output
 flattens in (h, w, c) order as a view, Flax's order, so `evaluator.dense0`
 keeps Flax's rows.  The value head runs NCHW; weights converted from Flax
@@ -207,6 +209,90 @@ class _Evaluator(nn.Module):
         return _dense(x, self.dense1, dt)[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# K8: the evaluator's forward.
+# ---------------------------------------------------------------------------
+
+# K8's widths (evaluator.cu): two convolutions of at most 32 channels, a
+# hidden width of at most 128 and a context of at most 256.
+EVALUATOR_LIMITS = "2 convs, channels <= 32, hidden <= 128, ctx_dim <= 256"
+
+
+def _plain_inputs(planes, feats, ctx):
+    """The plain evaluator's per-afterstate inputs: channels-last boards
+    [M, 2, 8, 8] (a view of the planes), features [M, 3], and each lane's
+    three context rows repeated over their slot's 64 anchors, [M, D]."""
+    m = planes.shape[0] * NUM_ACTIONS
+    boards = planes.view(m, BOARD, BOARD, 2).permute(0, 3, 1, 2)
+    ctx = ctx.repeat_interleave(NUM_ANCHORS, dim=1)
+    return boards, feats.reshape(m, NUM_FEATS), ctx.reshape(m, ctx.shape[-1])
+
+
+def evaluator_scores_plain(evaluator: "_Evaluator", planes, feats, ctx, dtype):
+    """Plain version of `evaluator_scores`: the evaluator module's own
+    forward (cuDNN and cuBLAS on the card)."""
+    return evaluator(*_plain_inputs(planes, feats, ctx), dtype)
+
+
+def evaluator_scores(evaluator: "_Evaluator", planes: torch.Tensor,
+                     feats: torch.Tensor, ctx: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Every afterstate's score, with no gradient.
+
+    Args:
+      evaluator: the network's `_Evaluator` (its float32 parameters).
+      planes: [B, 192, 8, 8, 2] and feats: [B, 192, 3], in `dtype`, as
+        `afterstate_buffer` writes them.
+      ctx: [B, 3, D] `dtype`, each slot's remaining-pieces context.
+      dtype: the compute dtype, float32 or bf16.
+    Returns:
+      scores: [B * 192] `dtype` (action = slot * 64 + anchor).
+    On the card this is K8, one fused kernel (and a small one that lays the
+    weights out); widths beyond `EVALUATOR_LIMITS` raise there.
+    """
+    if not planes.is_cuda:
+        return evaluator_scores_plain(evaluator, planes, feats, ctx, dtype)
+    return _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype)
+
+
+def _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype):
+    b, d = planes.shape[0], ctx.shape[-1]
+    if dtype not in _DTYPES:
+        raise ValueError(f"evaluator: dtype must be one of {_DTYPES}, got {dtype}")
+    build.require_many((
+        ("evaluator: planes", planes, dtype, (b, NUM_ACTIONS, BOARD, BOARD, 2)),
+        ("evaluator: feats", feats, dtype, (b, NUM_ACTIONS, NUM_FEATS)),
+        ("evaluator: ctx", ctx, dtype, (b, NUM_SLOTS, d))))
+    if planes.data_ptr() % 16:
+        raise ValueError("evaluator: planes must be 16-byte aligned")
+    convs, d0, d1 = evaluator.convs, evaluator.dense0, evaluator.dense1
+    c1 = convs[0].out_channels
+    c2 = convs[-1].out_channels
+    h = d0.out_features
+    size = (build.function("evaluator_layout_size")(c1, c2, h, d)
+            if len(convs) == 2 and d0.in_features == 64 * c2 + NUM_FEATS + d else 0)
+    if size == 0:
+        raise ValueError(f"evaluator: K8 takes {EVALUATOR_LIMITS} and a context of "
+                         f"dense0's width; got channels {[c.out_channels for c in convs]}, "
+                         f"hidden {h}, dense0 inputs {d0.in_features}, ctx_dim {d}")
+    params = (convs[0].weight, convs[0].bias, convs[1].weight, convs[1].bias,
+              d0.weight, d0.bias, d1.weight, d1.bias)
+    build.require_many((f"evaluator: parameter {i}", p, torch.float32, p.shape)
+                       for i, p in enumerate(params))
+    layout = torch.empty(size, dtype=dtype, device=planes.device)
+    scores = torch.empty(b * NUM_ACTIONS, dtype=dtype, device=planes.device)
+    err = build.function("evaluator")(
+        planes.data_ptr(), feats.data_ptr(), ctx.data_ptr(),
+        *(p.data_ptr() for p in params), layout.data_ptr(), scores.data_ptr(),
+        b, c1, c2, h, d, dtype.itemsize, build.stream_of(planes))
+    build.check("evaluator", err)
+    evaluator_scores.launches += 1
+    return scores
+
+
+evaluator_scores.launches = 0
+
+
 class AfterstateNetwork(nn.Module):
     """Policy = learned evaluation of each action's deterministic afterstate.
 
@@ -247,6 +333,17 @@ class AfterstateNetwork(nn.Module):
                     m.weight.copy_(w)
                     m.bias.zero_()
 
+    def afterstates(self, board: torch.Tensor, pieces: torch.Tensor):
+        """The evaluator's inputs: K4's planes [B, 192, 8, 8, 2] and
+        features [B, 192, 3], and the [B, 3, D] context, in the compute
+        dtype.  `board` and `pieces` are float32 and contiguous."""
+        dt = self.compute_dtype
+        planes, feats, _ = afterstate_buffer(board, pieces, dt)
+        # Remaining-pieces context per slot by the set-sum trick: context of
+        # slot s = sum of the three embeddings - e_s.
+        e = _dense(pieces.reshape(board.shape[0], NUM_SLOTS, BOARD * BOARD), self.ctx, dt)
+        return planes, feats, e.sum(dim=1, keepdim=True) - e
+
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
@@ -256,26 +353,15 @@ class AfterstateNetwork(nn.Module):
         b = board.shape[0]
         board = board.to(torch.float32).contiguous()
         pieces = pieces.to(torch.float32).contiguous()
-        planes, feats, _ = afterstate_buffer(board, pieces, dt)
-
-        # Remaining-pieces context per slot by the set-sum trick: context of
-        # slot s = sum of the three embeddings - e_s.
-        e = _dense(pieces.reshape(b, NUM_SLOTS, BOARD * BOARD), self.ctx, dt)
-        ctx = e.sum(dim=1, keepdim=True) - e                       # [B, 3, D]
-        ctx = ctx.repeat_interleave(NUM_ANCHORS, dim=1)             # [B, 192, D]
-
-        m = b * NUM_ACTIONS
-        boards = planes.view(m, BOARD, BOARD, 2).permute(0, 3, 1, 2)
-        feats = feats.view(m, NUM_FEATS)
-        ctx = ctx.reshape(m, ctx.shape[-1])
+        planes, feats, ctx = self.afterstates(board, pieces)
         if torch.is_grad_enabled():
             # bbx's nn.remat: keep only the evaluator's inputs for the
             # backward and recompute its activations (each conv activation
             # is [B*192, C, 8, 8]); the math is unchanged.
-            scores = checkpoint(self.evaluator, boards, feats, ctx, dt,
-                                use_reentrant=False)
+            scores = checkpoint(self.evaluator, *_plain_inputs(planes, feats, ctx),
+                                dt, use_reentrant=False)
         else:
-            scores = self.evaluator(boards, feats, ctx, dt)
+            scores = evaluator_scores(self.evaluator, planes, feats, ctx, dt)
         logits = scores.reshape(b, NUM_ACTIONS).to(torch.float32)
 
         # Value head on the current state.

@@ -32,6 +32,7 @@ SOURCES = {
     "gae": "gae.cu",
     "move": "move.cu",
     "regen": "regen.cu",
+    "evaluator": "evaluator.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -66,6 +67,11 @@ SIGNATURES = {
     # bits, ids, need, seed, place, shifts, anchor_ok, no_conflict,
     # out_ids, attempts, n, stream
     "regen": ("regen", "bbx_regen", [_P] * 10 + [_I, _P]),
+    # planes, feats, ctx, the 8 evaluator parameters, layout, scores, b,
+    # c1, c2, h, d, element size, stream
+    "evaluator": ("evaluator", "bbx_evaluator", [_P] * 13 + [_I] * 6 + [_P]),
+    # c1, c2, h, d -> elements of the weight layout (0 beyond the limits)
+    "evaluator_layout_size": ("evaluator", "bbx_evaluator_layout_size", [_I] * 4),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -6,13 +6,16 @@
 Phases, each of which must pass (exit code 1 otherwise):
 
 1. identify the card (``nvidia-smi`` name and power limit);
-2. build the CUDA kernels K1-K7 from `bbx_torch/csrc/` with nvcc;
+2. build the CUDA kernels K1-K8 from `bbx_torch/csrc/` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (outputs must be exactly equal; floats too, to the
    last bit: K5's, and the reward and episode return of K6's
-   `bbx_step_finish`), on reachable mid-game boards made by the port's own
-   engine from a seed: K4 at the rollout's 512 lanes and at the update's
-   2048, in bf16 and float32 (planes, features and overlap); K6's two
+   `bbx_step_finish`; K8's scores within the tolerance PERF.md states), on
+   reachable mid-game boards made by the port's own engine from a seed: K4
+   at the rollout's 512 lanes and at the update's 2048, in bf16 and
+   float32 (planes, features and overlap); K8 (the evaluator's no-grad
+   forward) at run9 widths at 512 and 2048 lanes in bf16 and float32, at
+   the tests' tiny widths, and at widths that fill no padded tile; K6's two
    entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
    train paths' 512; K7 on that step's inputs (its attempts equal to the
@@ -36,24 +39,31 @@ Phases, each of which must pass (exit code 1 otherwise):
    (bf16) through `bbx_torch.cli.evaluate.main`, with every kernel's
    launch counter set to 0 before and read after;
 6. check the results: finite statistics over 512 completed episodes, the
-   float32 forward on the card against the same forward on the CPU, and
+   float32 forward on the card (K8's float32 instantiation) against the
+   same forward on the CPU, and
    seeded games of `ParityEngine` on the card against the CPU, move for
    move (the parity path, which runs K2 and K3 standalone; its launches
    are counted);
 7. profile the first 16 steps of the eval loop (host time of the forward
    and of the step, device time by kernel, the device's busy share) and
-   list the kernels of one forward;
+   list the kernels of one forward, which must hold K8 once and no
+   convolution but the value head's two;
 8. the train path: run9's PPO recipe at full width and shape (512 envs x
    128 steps, minibatch 2048, 2 epochs) for 3 iterations through
    `bbx_torch.cli.train.main` from a JSON config, with the launch
    counters set to 0 before and read after, each iteration's rollout and
-   update timed and its losses checked finite; then `latest` is loaded and
-   one more iteration must be finite;
+   update timed and its losses checked finite, K8 launched on each rollout
+   step and the last value and never in the update, and the first
+   minibatch's largest |rollout logp - update logp| and clip fraction
+   before any optimizer step reported; then `latest` is loaded and one
+   more iteration must be finite;
 9. one float32 PPO update at run9 widths on a fixed batch, card against
    CPU (losses and post-Adam parameters);
 10. profile a 16-step rollout and a 4-minibatch update at run9 widths
    (device time by kernel, the device's busy share in each), then time
-   the evaluator alone in NCHW and channels-last (`evaluator_layouts`);
+   the evaluator alone in turns: cuDNN in NCHW and channels-last, K8, and
+   `torch.compile` of the plain evaluator where `import triton` works
+   (`evaluator_layouts`);
 11. the flat CNN: the float32 forward at default widths, card against CPU
    in train mode (dropout off) and eval mode, then `bench_network` and
    `bench_train` at bbx's defaults (2 timed iterations, losses finite).
@@ -136,9 +146,9 @@ RUN9_REWARDS = {
 # (`_step_finish_cuda`).
 PATH_KERNELS = {
     "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
-             "regen_pieces"),
+             "regen_pieces", "evaluator_scores"),
     "train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
-              "_step_finish_cuda", "regen_pieces"),
+              "_step_finish_cuda", "regen_pieces", "evaluator_scores"),
     "engine": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces"),
     "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
                "_move_core"),
@@ -153,6 +163,7 @@ ROW_COUNTERS = {
     "compute_gae": ("compute_gae",),
     "_move_core/_step_finish_cuda": ("_move_core", "_step_finish_cuda"),
     "regen_pieces": ("regen_pieces",),
+    "evaluator_scores": ("evaluator_scores",),
 }
 ENGINE_LANES = 16384             # bench.py's fleet
 ENGINE_SWEEP = (4096, 16384, 32768)
@@ -172,12 +183,27 @@ SWEEP_ATTEMPTS = 4
 # Kernel launches a step of the engine path may take, by the profiler:
 # K6 twice, K7, the generator's two draws, the sampler and the reward sum.
 ENGINE_MAX_LAUNCHES_PER_STEP = 25
+# Words in the names of cuDNN's and CUTLASS's convolution kernels (PR 5's
+# kernel lists: implicit_convolve_sgemm, convolve_common_engine,
+# cutlass ... fprop, sm90_xmma_fprop_implicit_gemm).
+CONV_KERNEL_WORDS = ("conv", "fprop", "winograd")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, used as the ceiling for the
 # kernels' 32-bit integer and bit operations (a 64-bit operation counts 2).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+# The dense bf16 rate of the tensor cores (NVIDIA data sheet), K8's ceiling
+# in bf16; in float32 it computes on the CUDA cores (the rate above).
+PEAK_BF16_FLOPS_PER_S = 989e12
+# K8 against its plain version (PERF.md): bf16 within 2e-2 |plain| + 2e-2
+# max |plain| (the forward tests' bf16 tolerance: K8 rounds each layer
+# once after its bias, where cuDNN also rounds the convolution before it,
+# and sums in another order); float32 (TF32 off) within 1e-4.
+K8_BF16_TOL = 2e-2
+K8_F32_ATOL = 1e-4
+RUN9_EVAL_WIDTHS = (tuple(RUN9_NETWORK["eval_channels"]), RUN9_NETWORK["eval_hidden"],
+                    RUN9_NETWORK["ctx_dim"])
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -296,35 +322,40 @@ def forward_kernels(device, b: int = EVAL_EPISODES) -> dict:
         return calls_device(lambda: net(obs["board"], obs["pieces"], obs["action_mask"]))
 
 
-EVAL_LAYOUT_ORDER = ("nchw", "channels_last", "channels_last", "nchw")
+EVAL_LAYOUT_ORDER = ("nchw", "channels_last", "k8", "compiled", "compiled", "k8",
+                     "channels_last", "nchw")
 
 
 def evaluator_layouts(device) -> dict:
-    """The evaluator alone (two convs, dense0, dense1) at run9 widths in
-    bf16, with its input and activations in NCHW and in channels-last,
-    timed in turns (`EVAL_LAYOUT_ORDER`) between CUDA events: a forward at
-    M = 512 x 192 afterstates under ``no_grad`` (a rollout or eval step),
-    and a forward plus backward under activation checkpointing at M = 2048
-    x 192 (an update minibatch).  Seeded 0/1 planes and features; float32
-    weights cast to bf16 in the call (channels-last conv weights cast and
-    laid out in one copy), as the model casts them; channels-last flattens
-    conv2's output in (h, w, c) order, a view."""
+    """The evaluator alone at run9 widths in bf16, timed in turns
+    (`EVAL_LAYOUT_ORDER`) between CUDA events: its forward at M = 512 x
+    192 afterstates under ``no_grad`` (a rollout or eval step) with the
+    input and activations in NCHW, in channels-last (the plain version's
+    layout: cuDNN and cuBLAS, K8's library time), by K8, and as
+    `torch.compile` of the channels-last forward where `import triton`
+    works (a yardstick only, never on the path); and the forward plus
+    backward under activation checkpointing at M = 2048 x 192 (an update
+    minibatch) in NCHW and channels-last.  A seeded `_Evaluator`; seeded
+    0/1 planes, features and context; the cuDNN forms take the features
+    and the context already joined ([M, 35]) and the channels-last
+    weights cast and laid out in one copy, as the model does; K8 takes
+    the planes, the features and the [B, 3, 32] context."""
     import torch
     import torch.nn.functional as F
     from torch.utils.checkpoint import checkpoint
 
+    from bbx_torch.models import afterstate as A
+
     dt = torch.bfloat16
-    chans = [2, *RUN9_NETWORK["eval_channels"]]
-    hidden, feat = RUN9_NETWORK["eval_hidden"], 3 + RUN9_NETWORK["ctx_dim"]
+    (c1, c2), hidden, ctx_dim = RUN9_EVAL_WIDTHS
     g = torch.Generator(device=device).manual_seed(SEED)
-
-    def weight(*shape):
-        return ((torch.rand(shape, generator=g, device=device) - 0.5) * 0.2).requires_grad_()
-
-    convs = [(weight(co, ci, 3, 3), weight(co)) for ci, co in zip(chans[:-1], chans[1:])]
-    dense = [(weight(hidden, chans[-1] * 64 + feat), weight(hidden)),
-             (weight(1, hidden), weight(1))]
-    params = [t for layer in (*convs, *dense) for t in layer]
+    ev = A._Evaluator((c1, c2), hidden, 3 + ctx_dim).to(device)
+    with torch.no_grad():
+        for p in ev.parameters():
+            p.copy_((torch.rand(p.shape, generator=g, device=device) - 0.5) * 0.2)
+    convs = [(conv.weight, conv.bias) for conv in ev.convs]
+    dense = [(ev.dense0.weight, ev.dense0.bias), (ev.dense1.weight, ev.dense1.bias)]
+    params = list(ev.parameters())
 
     def evaluator(boards, feats, channels_last):
         x = boards
@@ -337,40 +368,77 @@ def evaluator_layouts(device) -> dict:
         x = F.relu(F.linear(x, dense[0][0].to(dt), dense[0][1].to(dt)))
         return F.linear(x, dense[1][0].to(dt), dense[1][1].to(dt))[:, 0]
 
-    def inputs(m, channels_last):
-        shape = (m, 8, 8, 2) if channels_last else (m, 2, 8, 8)
-        planes = (torch.rand(shape, generator=g, device=device) < 0.4).to(dt)
-        feats = torch.rand((m, feat), generator=g, device=device).to(dt)
-        return (planes.permute(0, 3, 1, 2) if channels_last else planes), feats
+    def inputs(lanes):
+        m = lanes * 192
+        planes = (torch.rand((lanes, 192, 8, 8, 2), generator=g, device=device) < 0.4).to(dt)
+        feats = torch.rand((lanes, 192, 3), generator=g, device=device).to(dt)
+        ctx = torch.rand((lanes, 3, ctx_dim), generator=g, device=device).to(dt)
+        joined = torch.cat([feats.view(m, 3),
+                            ctx.repeat_interleave(64, dim=1).view(m, ctx_dim)], dim=-1)
+        return planes, feats, ctx, joined
 
+    # torch.compile's and Triton's caches inside the checkout's build/.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    try:
+        import triton  # noqa: F401
+
+        compiled = torch.compile(evaluator)
+        compiled_error = None
+    except Exception as e:  # the yardstick is optional
+        compiled, compiled_error = None, f"{type(e).__name__}: {e}"
     turns = []
     for fmt in EVAL_LAYOUT_ORDER:
-        cl = fmt == "channels_last"
-        boards, feats = inputs(K4_LANES * 192, cl)
-        with torch.no_grad():
-            fwd = time_ms(lambda: evaluator(boards, feats, cl))
-        boards, feats = inputs(RUN9_TRAINING["batch_size"] * 192, cl)
+        if fmt == "compiled" and compiled is None:
+            continue
+        planes, feats, ctx, joined = inputs(K4_LANES)
+        m = planes.shape[0] * 192
+        boards = planes.view(m, 8, 8, 2).permute(0, 3, 1, 2)
+        if fmt == "nchw":
+            boards = boards.contiguous()
+        fwd = {"nchw": lambda: evaluator(boards, joined, False),
+               "channels_last": lambda: evaluator(boards, joined, True),
+               "k8": lambda: A.evaluator_scores(ev, planes, feats, ctx, dt),
+               "compiled": lambda: compiled(boards, joined, True)}[fmt]
+        turn = {"layout": fmt}
+        try:
+            with torch.no_grad():
+                turn["forward_ms"] = time_ms(fwd)
+        except Exception as e:
+            if fmt != "compiled":
+                raise
+            compiled, compiled_error = None, f"{type(e).__name__}: {e}"
+            continue
+        if fmt in ("nchw", "channels_last"):
+            planes, feats, ctx, joined = inputs(RUN9_TRAINING["batch_size"])
+            m = planes.shape[0] * 192
+            boards = planes.view(m, 8, 8, 2).permute(0, 3, 1, 2)
+            if fmt == "nchw":
+                boards = boards.contiguous()
 
-        def train_step():
-            for p in params:
-                p.grad = None
-            scores = checkpoint(evaluator, boards, feats, cl, use_reentrant=False)
-            scores.float().sum().backward()
+            def train_step():
+                for p in params:
+                    p.grad = None
+                scores = checkpoint(evaluator, boards, joined, fmt == "channels_last",
+                                    use_reentrant=False)
+                scores.float().sum().backward()
 
-        turns.append({"layout": fmt, "forward_ms": fwd,
-                      "train_ms": time_ms(train_step, reps=7, inner=3)})
-        del boards, feats
+            turn["train_ms"] = time_ms(train_step, reps=7, inner=3)
+        turns.append(turn)
+        del planes, feats, ctx, joined, boards
         torch.cuda.empty_cache()
-    out = {"turns": turns}
-    for fmt in ("nchw", "channels_last"):
+    out = {"turns": turns, "compiled_status": compiled_error or "measured"}
+    for fmt in ("nchw", "channels_last", "k8", "compiled"):
         mine = [t for t in turns if t["layout"] == fmt]
-        out[fmt] = {k: statistics.mean(t[k] for t in mine) for k in ("forward_ms", "train_ms")}
+        if mine:
+            out[fmt] = {k: statistics.mean(t[k] for t in mine)
+                        for k in ("forward_ms", "train_ms") if k in mine[0]}
     return out
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_SCALAR_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -518,6 +586,40 @@ def kernel_phase(device, report):
                           f"{c['device_ms']}), plain {c['plain_ms']:.4f} ms, bound "
                           f"{c['bound_ms']:.6f} ms" for k, c in others.items()))
     rows.append(row)
+
+    # K8 at the rollout's and eval's B = 512 and the update minibatch's
+    # 2048 at run9 widths, in bf16 and float32; at the tests' tiny widths;
+    # and at widths that fill no padded tile on 3 lanes (channels 5 / 12,
+    # hidden 20, ctx 7): K8's tiles of 32 afterstates divide a lane's 192,
+    # so no row tile is ever partial, and these widths leave its k and n
+    # tiles partial instead.  The row's times are bf16 at B = 512; its
+    # library time, cuDNN's channels-last evaluator, joins it from phase 10.
+    k8_in = {n: (obs["board"][:n].float().contiguous(), obs["pieces"][:n].contiguous())
+             for n in (b, b2, 3)}
+    row = k8_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], bf16)
+    others = {"2048_bfloat16": k8_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], bf16),
+              "512_float32": k8_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], f32, fast=False),
+              "2048_float32": k8_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], f32, fast=False),
+              "tiny_512_bfloat16": k8_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
+              "tiny_512_float32": k8_case(device, ((4, 4), 8, 6), *k8_in[b], f32),
+              "ragged_3_bfloat16": k8_case(device, ((5, 12), 20, 7), *k8_in[3], bf16),
+              "ragged_3_float32": k8_case(device, ((5, 12), 20, 7), *k8_in[3], f32)}
+    row.update(
+        name="evaluator_scores", source="bbx_torch/csrc/evaluator.cu (+ mma.cuh)",
+        replaces="bbx/models/afterstate.py:106 (_Evaluator.__call__, :114-127; run "
+                 "under nn.remat at :185), the no-grad forward",
+        equal=row["equal"] and all(c["equal"] for c in others.values()),
+        max_abs_err=max([row["max_abs_err"]] + [c["max_abs_err"] for c in others.values()]),
+        at_update_shape=others["2048_bfloat16"], at_other_shapes=others,
+        shape=f"planes [{b},192,8,8,2], feats [{b},192,3], ctx [{b},3,32] bf16 at run9 "
+              f"widths -> scores [{b * 192}] (largest |plain| {row['max_abs_plain']:.4g}, "
+              f"err {row['max_abs_err']:.4g}, tolerance {row['tolerance']}); also "
+              + "; ".join(f"{k}: within tolerance={c['equal']} (err {c['max_abs_err']:.4g} of "
+                          f"largest {c['max_abs_plain']:.4g}), {c['ms']:.4f} ms (device "
+                          f"{c['device_ms']}), plain {c['plain_ms']:.4f} ms, bound "
+                          f"{c['bound_ms']:.6f} ms ({c['bound_by']})"
+                          for k, c in others.items()))
+    rows.append(row)
     # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
     g = torch.Generator(device=device).manual_seed(SEED)
     t, n = GAE_T, GAE_N
@@ -658,7 +760,8 @@ def kernel_phase(device, report):
         with_bound(r)
         r["route"] = "cuda"
         r["library_ms"] = None
-        log(f"  {r['name']}: equal to plain (exact)={r['equal']}, kernel {r['ms']:.4f} ms "
+        log(f"  {r['name']}: equal to plain (K8: within its tolerance)={r['equal']}, "
+            f"kernel {r['ms']:.4f} ms "
             f"(device {r.get('device_ms')} ms, host {r.get('host_us')} us a call), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}); {r['shape']}")
@@ -670,9 +773,95 @@ def kernel_phase(device, report):
 
 
 def with_bound(d: dict) -> dict:
-    """Replace a case's `nbytes` and `ops` by its bound."""
-    d["bound_ms"], d["bound_by"] = bound_ms(d.pop("nbytes"), d.pop("ops"))
+    """Replace a case's `nbytes` and `ops` by its bound (a case that has
+    its bound already keeps it)."""
+    if "bound_ms" not in d:
+        d["bound_ms"], d["bound_by"] = bound_ms(d.pop("nbytes"), d.pop("ops"))
     return d
+
+
+def k8_flops(b: int, widths) -> int:
+    """K8's operations on b lanes: per afterstate conv1 (64 x 18 x C1
+    multiply-adds), conv2 (64 x 9 C1 x C2), dense0's conv and feature
+    columns ((64 C2 + 3) x H) and dense1 (H); per (lane, slot) the
+    context's part of dense0 (D x H); two operations a multiply-add."""
+    (c1, c2), h, d = widths
+    per_afterstate = 64 * 18 * c1 + 64 * 9 * c1 * c2 + (64 * c2 + 3) * h + h
+    return 2 * (b * 192 * per_afterstate + b * 3 * d * h)
+
+
+def k8_bytes(b: int, widths, elem: int) -> int:
+    """K8: planes, features and context read, the scores written (in the
+    compute type), the float32 parameters read once."""
+    (c1, c2), h, d = widths
+    params = 18 * c1 + c1 + 9 * c1 * c2 + c2 + (64 * c2 + 3 + d) * h + h + h + 1
+    return b * 192 * (128 + 3 + 1) * elem + b * 3 * d * elem + params * 4
+
+
+def k8_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
+    """K8 against its plain version (cuDNN and cuBLAS; TF32 off) on the
+    afterstates of `board`/`pieces`, for a seeded network at `widths`
+    ((C1, C2), H, D) whose biases are seeded too: the largest error, the
+    tolerance (`K8_BF16_TOL`, `K8_F32_ATOL`), times (`ms` between events,
+    `device_ms` by the profiler, the forward kernel and the weight layout's
+    summed, `host_us`), the plain version's time and the bound (bf16 at
+    the tensor cores' dense rate, float32 at the CUDA cores')."""
+    import torch
+
+    from bbx_torch.device import float32_exact
+    from bbx_torch.models import afterstate as A
+    from bbx_torch.models import network_from_config
+
+    (c1, c2), h, d = widths
+    net = network_from_config(
+        dict(RUN9_NETWORK, eval_channels=[c1, c2], eval_hidden=h, ctx_dim=d,
+             compute_dtype=str(dtype)[6:]),
+        generator=torch.Generator().manual_seed(SEED)).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_((torch.rand(p.shape, generator=g, device=device) - 0.5) * 0.2)
+    b = board.shape[0]
+    with torch.inference_mode(), float32_exact():
+        planes, feats, ctx = net.afterstates(board, pieces)
+
+        def fn():
+            return A.evaluator_scores(net.evaluator, planes, feats, ctx, dtype)
+
+        def plain():
+            return A.evaluator_scores_plain(net.evaluator, planes, feats, ctx, dtype)
+
+        before = A.evaluator_scores.launches
+        got, want = fn(), plain()
+        launched = A.evaluator_scores.launches - before
+        err = (got.double() - want.double()).abs()
+        scale = float(want.double().abs().max())
+        if dtype == torch.bfloat16:
+            allowed = K8_BF16_TOL * want.double().abs() + K8_BF16_TOL * scale
+            tolerance = f"{K8_BF16_TOL} |plain| + {K8_BF16_TOL} max |plain|"
+        else:
+            allowed = torch.full_like(err, K8_F32_ATOL)
+            tolerance = f"{K8_F32_ATOL}"
+        reps, inner = (15, 10) if fast else (5, 2)
+        main = kernel_device_ms(fn, "evaluator_kernel")
+        layout = kernel_device_ms(fn, "evaluator_layout_kernel")
+        out = dict(
+            lanes=b, widths=[c1, c2, h, d], dtype=str(dtype), launches_a_call=launched,
+            equal=bool((err <= allowed).all()) and launched == 1
+            and bool(torch.isfinite(got).all()),
+            max_abs_err=float(err.max()), max_abs_plain=scale, tolerance=tolerance,
+            ms=time_ms(fn, reps, inner),
+            device_ms=(main + layout if isinstance(main, float) and isinstance(layout, float)
+                       else "not measured"),
+            device_ms_forward=main, device_ms_layout=layout, host_us=host_us(fn),
+            plain_ms=time_ms(plain, reps, inner))
+    nbytes, flops = k8_bytes(b, widths, dtype.itemsize), k8_flops(b, widths)
+    peak = PEAK_BF16_FLOPS_PER_S if dtype == torch.bfloat16 else PEAK_SCALAR_OPS_PER_S
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops, peak)
+    out["bound_flops_ms"] = flops / peak * 1e3
+    out["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    return out
 
 
 def k4_bytes(b: int, elem: int) -> int:
@@ -1022,7 +1211,8 @@ def kernel_counters():
     from bbx_torch.engine import step as ST
     from bbx_torch.models import afterstate as A
 
-    return {"valid3_bits": S.valid3_bits,
+    return {"evaluator_scores": A.evaluator_scores,
+            "valid3_bits": S.valid3_bits,
             "solvable_disjoint_bits": S.solvable_disjoint_bits,
             "solvable_exact_bits": S.solvable_exact_bits,
             "afterstate_buffer": A.afterstate_buffer,
@@ -1050,7 +1240,10 @@ def reference_phase(device, report):
     from bbx_torch.engine.step import observe
     from bbx_torch.models import network_from_config
 
-    # float32 forward at run9 widths, card vs CPU, with TF32 off.
+    # float32 forward at run9 widths, card (K8's float32 instantiation) vs
+    # CPU (the plain evaluator), with TF32 off.
+    from bbx_torch.models import afterstate as A
+
     cfg = dict(RUN9_NETWORK, compute_dtype="float32")
     net = network_from_config(cfg, generator=torch.Generator().manual_seed(SEED))
     state = reset(8, make_generator(SEED, "cpu"), "cpu")
@@ -1058,13 +1251,15 @@ def reference_phase(device, report):
     with float32_exact(), torch.inference_mode():
         l_cpu, v_cpu = net(obs["board"], obs["pieces"], obs["action_mask"])
         net_gpu = net.to(device)
+        before = A.evaluator_scores.launches
         l_gpu, v_gpu = net_gpu(*(obs[k].to(device) for k in
                                  ("board", "pieces", "action_mask")))
+        k8_launched = A.evaluator_scores.launches - before
     l_gpu, v_gpu = l_gpu.cpu(), v_gpu.cpu()
     mask = obs["action_mask"]
     fwd_err = max(max_abs_err(l_gpu[mask], l_cpu[mask]), max_abs_err(v_gpu, v_cpu))
     fwd_ok = (fwd_err <= 1e-4 and torch.equal(l_gpu[~mask], l_cpu[~mask])
-              and torch.isfinite(l_gpu).all().item())
+              and torch.isfinite(l_gpu).all().item() and k8_launched == 1)
 
     # Three seeded games, card vs CPU, move for move (exact), with the
     # launches of the parity engine's kernels counted.
@@ -1090,11 +1285,13 @@ def reference_phase(device, report):
             n_moves += 1
     launches = {name: fn.launches for name, fn in counters.items()}
     report["reference"] = {"forward_f32_max_abs_err": fwd_err,
+                           "forward_f32_k8_launches": k8_launched,
                            "forward_ok": fwd_ok, "game_moves": n_moves,
                            "game_ok": game_ok}
     report["parity"] = {"launches": launches}
-    log(f"  forward f32 card vs cpu: max abs err {fwd_err:.3e} (limit 1e-4), "
-        f"ok={fwd_ok}; 3 seeded games card vs cpu: {n_moves} moves, equal={game_ok}")
+    log(f"  forward f32 card (K8 launches: {k8_launched}) vs cpu: max abs err "
+        f"{fwd_err:.3e} (limit 1e-4), ok={fwd_ok}; 3 seeded games card vs cpu: "
+        f"{n_moves} moves, equal={game_ok}")
     if not (fwd_ok and game_ok):
         raise AssertionError("card disagrees with the CPU reference")
     check_launches("parity", launches)
@@ -1172,10 +1369,26 @@ def profile_phase(device, report):
         "top_device_kernels": [{"name": k[:90], "ms_per_step": t / steps,
                                 "calls_per_step": n / steps} for k, (t, n) in top],
     }
-    prof_out["forward"] = fwd_k = forward_kernels(device)
+    for _ in range(3):  # a session may record no kernel (a process's first)
+        prof_out["forward"] = fwd_k = forward_kernels(device)
+        if fwd_k["kernels"]:
+            break
+    # One forward runs K8 (and its weight layout) once, and no convolution
+    # but the value head's two.
+    names = fwd_k["kernels"]
+    checks = {
+        "k8_launches": sum(v[1] for k, v in names.items() if "evaluator_kernel" in k),
+        "k8_layout_launches": sum(v[1] for k, v in names.items()
+                                  if "evaluator_layout_kernel" in k),
+        "convolution_launches": sum(v[1] for k, v in names.items()
+                                    if any(w in k.lower() for w in CONV_KERNEL_WORDS)),
+    }
+    checks["ok"] = (checks["k8_launches"] == 1 and checks["k8_layout_launches"] == 1
+                    and checks["convolution_launches"] <= len(RUN9_NETWORK["value_channels"]))
+    prof_out["forward_checks"] = checks
     report["profile"] = prof_out
     log(f"  one forward at {EVAL_EPISODES} lanes: {fwd_k['launches']} kernel launches, "
-        f"device {fwd_k['device_ms']} ms; kernels (device ms, launches): "
+        f"device {fwd_k['device_ms']} ms; checks {checks}; kernels (device ms, launches): "
         + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in fwd_k["kernels"].items()))
     log(f"  per step (host clock, synchronised): forward {prof_out['host_ms_per_step_forward']:.3f} ms, "
         f"step {prof_out['host_ms_per_step_step']:.3f} ms; profiled: wall "
@@ -1183,6 +1396,9 @@ def profile_phase(device, report):
         f" ms, busy share {prof_out['device_busy_share']}")
     for row in prof_out["top_device_kernels"]:
         log(f"    {row['ms_per_step']:.4f} ms/step  x{row['calls_per_step']:.2f}  {row['name']}")
+    if not checks["ok"]:
+        raise AssertionError(f"one forward's kernels: {checks} (want K8 and its layout "
+                             f"once, and only the value head's convolutions)")
 
 
 def train_phase(device, report):
@@ -1209,23 +1425,28 @@ def train_phase(device, report):
     with open(cfg_path, "w") as f:
         json.dump(cfg, f, indent=2)
 
+    from bbx_torch.models import distributions as D
+
     counters = kernel_counters()
-    k4 = counters["afterstate_buffer"]
+    k4, k8 = counters["afterstate_buffer"], counters["evaluator_scores"]
     iters, stats = [], {}
-    rollout0, update0, train0 = P.rollout, P.update, cli_train.train
+    rollout0, update0, train0, loss0 = P.rollout, P.update, cli_train.train, P.ppo_loss
+    first_minibatch = {}
 
     def timed_rollout(*args, **kwargs):
-        before = k4.launches
+        before = k4.launches, k8.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = rollout0(*args, **kwargs)
         torch.cuda.synchronize()
         iters.append({"rollout_s": time.perf_counter() - t0,
-                      "afterstate_launches_rollout": k4.launches - before})
+                      "afterstate_launches_rollout": k4.launches - before[0],
+                      "evaluator_launches_rollout": k8.launches - before[1]})
         return out
 
     def timed_update(*args, **kwargs):
-        before = k4.launches
+        before = k4.launches, k8.launches
+        first_minibatch.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1233,9 +1454,23 @@ def train_phase(device, report):
         torch.cuda.synchronize()
         iters[-1].update(update_s=time.perf_counter() - t0,
                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                         afterstate_launches_update=k4.launches - before,
+                         afterstate_launches_update=k4.launches - before[0],
+                         evaluator_launches_update=k8.launches - before[1],
+                         first_minibatch={k: float(v) for k, v in first_minibatch.items()},
                          metrics={k: float(v) for k, v in metrics.items()})
         return metrics
+
+    def watched_loss(config, logits, value, batch, ent_coef):
+        # The update's first minibatch, before any optimizer step: its
+        # forward (the plain evaluator, with gradients) against the logp
+        # the rollout stored (K8).
+        out = loss0(config, logits, value, batch, ent_coef)
+        if not first_minibatch:
+            with torch.no_grad():
+                gap = (D.log_prob(logits, batch["action"]) - batch["logp"]).abs().max()
+            first_minibatch.update(max_abs_logp_gap=gap,
+                                   clip_fraction=out[1]["clip_fraction"].detach())
+        return out
 
     def captured_train(*args, **kwargs):
         out = train0(*args, **kwargs)
@@ -1243,6 +1478,7 @@ def train_phase(device, report):
         return out
 
     P.rollout, P.update, cli_train.train = timed_rollout, timed_update, captured_train
+    P.ppo_loss = watched_loss
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -1255,12 +1491,16 @@ def train_phase(device, report):
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         P.rollout, P.update, cli_train.train = rollout0, update0, train0
+        P.ppo_loss = loss0
 
     for i, r in enumerate(iters):
         log(f"  iteration {i + 1}: rollout {r['rollout_s']:.3f} s, update "
             f"{r['update_s']:.3f} s, update peak memory {r['peak_memory_gb']:.3f} GB, "
             f"K4 launches {r['afterstate_launches_rollout']} (rollout) + "
-            f"{r['afterstate_launches_update']} (update); "
+            f"{r['afterstate_launches_update']} (update), K8 launches "
+            f"{r['evaluator_launches_rollout']} (rollout) + "
+            f"{r['evaluator_launches_update']} (update); first minibatch, before any "
+            f"optimizer step: {r['first_minibatch']}; "
             + ", ".join(f"{k} {v:.6g}" for k, v in r["metrics"].items()))
     steps_per_s = stats.get("steps_per_sec", 0.0)
     log(f"  train: rc {rc}, {stats.get('global_step')} env-steps in "
@@ -1292,6 +1532,13 @@ def train_phase(device, report):
             r["afterstate_launches_rollout"] > 0 and r["afterstate_launches_update"] > 0
             for r in iters):
         raise AssertionError("GAE or the afterstate kernel missed an iteration")
+    # K8 scores every rollout step and the last value; the update's forward
+    # needs gradients and runs the plain evaluator.
+    if not all(r["evaluator_launches_rollout"] == RUN9_TRAINING["rollout_steps"] + 1
+               and r["evaluator_launches_update"] == 0 for r in iters):
+        raise AssertionError("K8 missed a rollout forward or ran in the update")
+    if not all(math.isfinite(v) for r in iters for v in r["first_minibatch"].values()):
+        raise AssertionError("the first minibatch's logp gap is not finite")
     if resumed_from != TRAIN_TIMESTEPS:
         raise AssertionError(f"latest holds step {resumed_from}")
 
@@ -1372,8 +1619,10 @@ def train_profile_phase(device, report):
     report["evaluator_layouts"] = layouts = evaluator_layouts(device)
     for t in layouts["turns"]:
         log(f"  evaluator alone, {t['layout']}: forward at M = {K4_LANES} x 192 "
-            f"{t['forward_ms']:.4f} ms, forward + backward (checkpointed) at M = "
-            f"{RUN9_TRAINING['batch_size']} x 192 {t['train_ms']:.4f} ms")
+            f"{t['forward_ms']:.4f} ms"
+            + (f", forward + backward (checkpointed) at M = {RUN9_TRAINING['batch_size']}"
+               f" x 192 {t['train_ms']:.4f} ms" if "train_ms" in t else ""))
+    log(f"  torch.compile yardstick: {layouts['compiled_status']}")
 
 
 def update_reference_phase(device, report):
@@ -1786,8 +2035,11 @@ def main() -> int:
     kernels = []
     by_path = {p: report.get(p, {}).get("launches", {}) for p in PATH_KERNELS}
     for r in report.get("kernels", []):
-        if r["name"] == "afterstate_buffer" and "evaluator_layouts" in report:
+        if r["name"] == "evaluator_scores" and "evaluator_layouts" in report:
+            # K8's library time: cuDNN's channels-last evaluator forward at
+            # M = 512 x 192 (phase 10), measured in turns with K8.
             r["evaluator_layouts"] = report["evaluator_layouts"]
+            r["library_ms"] = report["evaluator_layouts"]["channels_last"]["forward_ms"]
         split = {p: sum(c.get(name, 0) for name in ROW_COUNTERS[r["name"]])
                  for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (
@@ -1795,14 +2047,14 @@ def main() -> int:
             "launches": sum(split.values()), "launches_by_path": split} | {
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "shape")} | {
-                k: r[k] for k in ("device_ms", "host_us", "entry_points", "step",
-                                  "at_update_shape", "at_engine_shape",
-                                  "at_other_shapes", "evaluator_layouts")
+                k: r[k] for k in ("device_ms", "host_us", "bound_flops_ms", "bound_bytes_ms",
+                                  "entry_points", "step", "at_update_shape",
+                                  "at_engine_shape", "at_other_shapes", "evaluator_layouts")
                 if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)
-    if failed or len(kernels) != 7:
+    if failed or len(kernels) != 8:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     print(report["nvidia_smi"])

@@ -8,7 +8,10 @@
 // 32 threads, which must all take part (a full mask).  The emulated card
 // has BBX_EMULATED_SMS multiprocessors that hold one block each, so a
 // kernel that sizes its grid by occupancy walks several items a block.
-// Only what the kernels use is here.
+// A block's dynamic shared memory is filled with 0xFF bytes (a NaN in
+// float32 and in bf16) before it runs, so that a read of shared memory the
+// kernel never wrote shows in its output.  Only what the kernels use is
+// here.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -37,7 +40,10 @@ inline bbx_dim3 blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+template <class F>
+inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 #define BBX_EMULATED_SMS 3
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = BBX_EMULATED_SMS; return 0; }
@@ -63,6 +69,13 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     if ((u & 0x7FFFFFFFu) > 0x7F800000u) return {(unsigned short)((u >> 16) | 0x40u)};
     u += 0x7FFFu + ((u >> 16) & 1u);
     return {(unsigned short)(u >> 16)};
+}
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
+inline float __uint_as_float(unsigned u) {
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
 }
 
 // Float intrinsics with one rounding per operation (the host compiler runs
@@ -112,12 +125,17 @@ inline int __syncthreads_or(int pred) {
     return any;
 }
 
+// The running block's dynamic shared memory (`BBX_DYNAMIC_SHARED`).
+inline std::vector<unsigned char> bbx_dynamic_smem;
+inline unsigned char* bbx_dynamic_shared() { return bbx_dynamic_smem.data(); }
+
 template <class Body>
-void bbx_emulate_launch(int grid, int block, Body body) {
+void bbx_emulate_launch(int grid, int block, Body body, size_t smem = 0) {
     blockDim.x = block;
     gridDim.x = grid;
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
+        bbx_dynamic_smem.assign(smem, 0xFF);
         std::barrier<> bar(block);
         bbx_block_barrier = &bar;
         std::vector<std::unique_ptr<bbx_warp>> warps;

@@ -201,6 +201,32 @@ def test_forward_bfloat16_matches(reachable_obs):
                                atol=2e-2 * np.abs(jv).max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_dispatch_on_cpu(reachable_obs, dtype):
+    """On the CPU the no-grad forward scores with `evaluator_scores`'s
+    plain version (K8 is not launched) and the grad-enabled forward with
+    the checkpointed plain evaluator: the same logits and value, bit for
+    bit; the grad-enabled one backpropagates into the evaluator."""
+    net = _torch_net(_flax_params(4), dtype)
+    b, p, m = (torch.from_numpy(reachable_obs[k]) for k in ("board", "pieces", "action_mask"))
+    launches = TA.evaluator_scores.launches
+    with torch.no_grad():
+        nl, nv = net(b, p, m)
+    with torch.inference_mode():
+        il, iv = net(b, p, m)
+    gl, gv = net(b, p, m)
+    assert TA.evaluator_scores.launches == launches
+    for x, y in ((nl, gl), (nv, gv), (il, gl), (iv, gv)):
+        assert torch.equal(x, y.detach())
+    gl[m].sum().backward()
+    assert net.evaluator.dense0.weight.grad.abs().sum() > 0
+    planes, feats, ctx = net.afterstates(b.float().contiguous(), p.contiguous())
+    assert ctx.shape == (b.shape[0], 3, 6) and ctx.dtype == dtype
+    with torch.no_grad():
+        scores = TA.evaluator_scores(net.evaluator, planes, feats, ctx, dtype)
+    assert torch.equal(scores.reshape(-1, 192).float()[m], nl[m])
+
+
 def test_greedy_games_float32_same_actions():
     """Greedy float32 games (seeds 1 and 2) through both packages'
     ParityEngine pick the same action move for move.  Where JAX's top two

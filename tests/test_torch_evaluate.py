@@ -12,7 +12,12 @@ from bbx_torch.cli import evaluate as TE
 from bbx_torch.device import resolve_device
 from bbx_torch.models import network_from_config
 from bbx_torch.ops import build
-from bbx_torch.utils.checkpoints import load_checkpoint, save_checkpoint
+from bbx_torch.utils.checkpoints import (
+    FORMAT_KEY,
+    FORMAT_VERSION,
+    load_checkpoint,
+    save_checkpoint,
+)
 from bbx_torch.utils.config import DEFAULT_CONFIG, load_config
 
 torch.set_num_threads(1)
@@ -99,6 +104,29 @@ def test_checkpoint_roundtrip(tmp_path):
     back = load_checkpoint(path)
     assert back["step"] == 3 and torch.equal(back["params"]["w"], payload["params"]["w"])
     assert not os.path.exists(path + ".config.json")
+    assert back[FORMAT_KEY] == FORMAT_VERSION and FORMAT_KEY not in payload
+
+
+def _remarked(path, marker):
+    """Rewrite the checkpoint at `path` with its format marker removed
+    (a payload saved before the marker existed) or set to `marker`."""
+    payload = torch.load(path, weights_only=True)
+    del payload[FORMAT_KEY]
+    if marker is not None:
+        payload[FORMAT_KEY] = marker
+    torch.save(payload, path)
+
+
+@pytest.mark.parametrize("marker", [None, FORMAT_VERSION + 1])
+def test_eval_cli_refuses_checkpoint_without_its_format(tiny_checkpoint, marker):
+    """The eval CLI refuses a payload with no format marker, or another
+    version, and the message names the cause."""
+    _remarked(tiny_checkpoint, marker)
+    cause = "no 'bbx_torch_format' marker" if marker is None else f"format {marker}"
+    with pytest.raises(ValueError, match=cause):
+        TE.main(["--checkpoint", tiny_checkpoint, "--episodes", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match=cause):
+        load_checkpoint(tiny_checkpoint)
 
 
 # ---------------------------------------------------------------------------

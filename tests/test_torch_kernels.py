@@ -17,6 +17,7 @@ import torch
 from bbx_torch.agent import ppo as P
 from bbx_torch.agent.trainer import PPOTrainer
 from bbx_torch.cli import evaluate as TE
+from bbx_torch.device import float32_exact
 from bbx_torch.engine import solvability as S
 from bbx_torch.engine import step as TStep
 from bbx_torch.engine import state as TState
@@ -129,6 +130,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         A.afterstate_buffer(board, torch.zeros((2, 3, 8, 8), device=cuda), torch.float16)
+    # K8: the inputs' dtype and shape, and widths beyond its limits.
+    net = network_from_config(TINY_NET).to(cuda)
+    planes, feats, ctx = net.afterstates(board, torch.zeros((2, 3, 8, 8), device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.evaluator_scores(net.evaluator, planes.float(), feats, ctx, torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        A.evaluator_scores(net.evaluator, planes, feats, ctx[:, :2].contiguous(),
+                           torch.bfloat16)
+    wide = network_from_config(dict(TINY_NET, eval_channels=[4, 40])).to(cuda)
+    with pytest.raises(ValueError, match="K8 takes"):
+        A.evaluator_scores(wide.evaluator, planes, feats, ctx, torch.bfloat16)
     # K6's two entry points, the step and K7.
     state = TState.reset(4, TState.make_generator(0, cuda), cuda)
     acts = torch.zeros(4, dtype=torch.int32, device=cuda)
@@ -182,10 +194,10 @@ def test_forward_bfloat16_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_evaluate_main_on_card_launches_every_kernel(cuda, tmp_path):
-    """The eval path launches K1, K4, K6 and K7; the verdict tiers K2 and
-    K3 run inside K7, so their standalone kernels are not launched."""
+    """The eval path launches K1, K4, K6, K7 and K8; the verdict tiers K2
+    and K3 run inside K7, so their standalone kernels are not launched."""
     counters = (S.valid3_bits, A.afterstate_buffer, TStep._move_core,
-                TState.regen_pieces)
+                TState.regen_pieces, A.evaluator_scores)
     net = network_from_config(TINY_NET, generator=torch.Generator().manual_seed(1))
     ckpt = save_checkpoint(str(tmp_path), "tiny.pt", {"params": net.state_dict()},
                            config={"network": TINY_NET})
@@ -243,13 +255,14 @@ def test_gae_kernel_matches_plain_bit_for_bit(cuda):
 @pytest.mark.gpu
 def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
     """Two tiny PPO iterations on the card launch the train path's kernels
-    (K1, K4-K7; K2 and K3 run inside K7); a saved run loads and runs one
-    more finite iteration."""
+    (K1, K4-K8; K2 and K3 run inside K7): K8 on each rollout step and the
+    last value (8 + 1 a rollout), never in the update, whose forward needs
+    gradients; a saved run loads and runs one more finite iteration."""
     cfg = {"training": {"num_envs": 16, "rollout_steps": 8, "batch_size": 64},
            "ppo": {"num_epochs": 2, "final_learning_rate": 1e-4},
            "network": dict(TINY_NET)}
     counters = (S.valid3_bits, A.afterstate_buffer, P.compute_gae,
-                TStep._move_core, TState.regen_pieces)
+                TStep._move_core, TState.regen_pieces, A.evaluator_scores)
     for fn in counters:
         fn.launches = 0
     tr = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
@@ -257,6 +270,7 @@ def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
         m = {k: float(v) for k, v in tr.iterate().items()}
         assert all(np.isfinite(v) for v in m.values()), m
     assert P.compute_gae.launches == 2
+    assert A.evaluator_scores.launches == 2 * (8 + 1)
     assert all(fn.launches > 0 for fn in counters), [fn.launches for fn in counters]
     path = tr.save(str(tmp_path), "mid")
     tr2 = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
@@ -430,3 +444,71 @@ def test_regen_kernel_at_chunk_edges(cuda, n):
     got = TState.regen_pieces(bits, ids, seed, need)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _k8_case(device, widths, b, dtype, seed=5):
+    """A seeded network at `widths` (eval_channels, eval_hidden, ctx_dim)
+    with non-zero biases, and K8's inputs for `b` mid-game lanes."""
+    (c1, c2), hidden, ctx = widths
+    net = network_from_config(
+        {"type": "afterstate", "eval_channels": [c1, c2], "eval_hidden": hidden,
+         "ctx_dim": ctx, "compute_dtype": str(dtype)[6:]},
+        generator=torch.Generator().manual_seed(seed)).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_((torch.rand(p.shape, generator=g, device=device) - 0.5) * 0.2)
+    _, obs, _ = _midgame(device, n=b, moves=12, seed=seed)
+    return net, net.afterstates(obs["board"].float().contiguous(), obs["pieces"].contiguous())
+
+
+def _assert_k8_close(net, inputs, dtype):
+    """K8 against its plain version (cuDNN and cuBLAS; float32 with TF32
+    off): bf16 within rtol 2e-2 plus atol 2e-2 x the largest score (K8
+    rounds each layer once, after its bias, where the plain version also
+    rounds the convolutions before their bias, and sums in another order);
+    float32 within 1e-4 (sums in another order)."""
+    before = A.evaluator_scores.launches
+    with torch.no_grad(), float32_exact():
+        got = A.evaluator_scores(net.evaluator, *inputs, dtype)
+        want = A.evaluator_scores_plain(net.evaluator, *inputs, dtype)
+    assert A.evaluator_scores.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    assert scale > 0.1
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths,b", [(((24, 24), 96, 32), 512), (((24, 24), 96, 32), 2048),
+                                      (((4, 4), 8, 6), 64), (((5, 12), 20, 7), 3)])
+def test_evaluator_kernel_matches_plain(cuda, widths, b, dtype):
+    """K8 at run9 widths at the rollout's and eval's B = 512 and the
+    update minibatch's 2048, at the tests' tiny widths and at widths that
+    fill no padded tile, in both dtypes."""
+    net, inputs = _k8_case(cuda, widths, b, dtype)
+    _assert_k8_close(net, inputs, dtype)
+
+
+@pytest.mark.gpu
+def test_evaluator_kernel_follows_an_optimizer_step(cuda):
+    """K8 lays its weights out from the parameters at every call: after an
+    in-place Adam step on the evaluator, it agrees with the plain version
+    on the new weights (a stale layout would not)."""
+    net, inputs = _k8_case(cuda, ((24, 24), 96, 32), 256, torch.bfloat16)
+    with torch.no_grad():
+        first = A.evaluator_scores(net.evaluator, *inputs, torch.bfloat16)
+    opt = torch.optim.Adam(net.evaluator.parameters(), lr=0.05)
+    scores = A.evaluator_scores_plain(net.evaluator, *inputs, torch.bfloat16)
+    scores.float().square().mean().backward()
+    opt.step()
+    _assert_k8_close(net, inputs, torch.bfloat16)
+    with torch.no_grad():
+        again = A.evaluator_scores(net.evaluator, *inputs, torch.bfloat16)
+    assert (again.float() - first.float()).abs().max() > 0.1

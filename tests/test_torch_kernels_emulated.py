@@ -6,19 +6,26 @@ the kernels use (one std::thread per CUDA thread, a std::barrier for
 __syncthreads and one per warp for the warp votes; the blocks of a grid
 run one after another).  The port's launch helpers (`_*_cuda`) then call those
 libraries with CPU tensors, and the outputs must equal the plain PyTorch
-versions exactly.  This checks the kernels' logic here, before the card
-compiles them; `tests/test_torch_kernels.py` checks the real build on the
-card.  Without a C++ compiler these tests skip.
+versions exactly -- except K8's float scores, which sum in another order
+(each test states its tolerance).  K8's tensor-core product is emulated
+from the same bf16 operands in float32 (`cuda_emulation/mma_emulation.h`),
+which checks its operand addressing but not mma's register fragments.
+This checks the kernels' logic here, before the card compiles them;
+`tests/test_torch_kernels.py` checks the real build on the card.  Without
+a C++ compiler these tests skip.
 """
 import ctypes
 import os
 import shutil
 import subprocess
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bbx.models.afterstate import AfterstateNetwork as JNet
 from bbx_torch.agent import ppo as P
 from bbx_torch.engine import solvability as S
 from bbx_torch.engine import state as TState
@@ -26,6 +33,7 @@ from bbx_torch.engine import step as TStep
 from bbx_torch.engine.step import observe, step
 from bbx_torch.engine.tables import tables as TTables
 from bbx_torch.models import afterstate as A
+from bbx_torch.models.convert import afterstate_state_dict_from_flax
 from bbx_torch.ops import build
 
 torch.set_num_threads(1)
@@ -160,6 +168,10 @@ def test_emulated_kernels_take_empty_batches(kernels):
         assert planes.shape == (0, 192, 8, 8, 2) and planes.dtype == dtype
         assert feats.shape == (0, 192, 3) and feats.dtype == dtype
         assert overlap.shape == (0, 192) and overlap.dtype == torch.bool
+    net = _evaluator_net(EVAL_WIDTHS["tiny"], torch.bfloat16, seed=0)
+    planes, feats, ctx = net.afterstates(torch.zeros((0, 8, 8)), torch.zeros((0, 3, 8, 8)))
+    scores = A._evaluator_scores_cuda(net.evaluator, planes, feats, ctx, torch.bfloat16)
+    assert scores.shape == (0,) and scores.dtype == torch.bfloat16
     empty = TState.reset(0, TState.make_generator(0, "cpu"), "cpu")
     blocks = TStep._launch_move(empty, torch.zeros(0, dtype=torch.int32), 0, TTables("cpu"))
     out = blocks.moved()
@@ -453,3 +465,134 @@ def test_emulated_step_matches_plain_step(kernels):
         plain, emul, obs = want.state, got.state, want.obs
     assert [c.launches - b for c, b in zip(counters, before)] == [steps] * 3
     assert ended > 0 and regen > 0 and plain.done.any()
+
+
+# ---------------------------------------------------------------------------
+# K8: the evaluator's forward.
+# ---------------------------------------------------------------------------
+
+# (eval_channels, eval_hidden, ctx_dim): the tests' tiny widths, run9's, and
+# widths that fill no padded tile (channels, hidden and ctx not multiples
+# of 8).
+EVAL_WIDTHS = {"tiny": ((4, 4), 8, 6), "run9": ((24, 24), 96, 32),
+               "ragged": ((5, 12), 20, 7)}
+
+
+def _evaluator_net(widths, dtype, seed):
+    """An AfterstateNetwork at `widths` with Kaiming weights and non-zero
+    biases (so the biases' layout is exercised), from a numpy seed."""
+    (c1, c2), hidden, ctx = widths
+    net = A.AfterstateNetwork(eval_channels=(c1, c2), eval_hidden=hidden, ctx_dim=ctx,
+                              value_channels=(4, 4), value_hidden=8, compute_dtype=dtype,
+                              generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, p.shape).astype(np.float32)))
+    return net
+
+
+def _evaluator_inputs(net, lanes, seed):
+    """K8's inputs for `lanes` reachable states (a slot used in some), as
+    the network builds them: K4's planes and features and the context."""
+    state, obs, _ = _reachable(n=max(lanes, 2), moves=5, seed=seed)
+    board, pieces = obs["board"][:lanes], obs["pieces"][:lanes].clone()
+    if lanes > 1:
+        pieces[1, 0] = 0.0  # a used slot: its context and planes change
+    return net.afterstates(board.float().contiguous(), pieces.contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths,lanes", [("tiny", 1), ("tiny", 3), ("run9", 1),
+                                          ("run9", 3), ("ragged", 3)])
+def test_emulated_evaluator_kernel_matches_plain(kernels, widths, lanes, dtype):
+    """K8 (emulated) against `evaluator_scores_plain` on the same inputs:
+    one lane (6 tiles of 32 afterstates in 3 slots) and three (18 tiles,
+    each lane's three context rows), at the tiny, run9 and ragged widths
+    (the tiles of 32 divide a lane's 192 afterstates, so no row tile is
+    partial; the ragged widths leave the k and n tiles partial).
+    float32: within 1e-5 (sums in another order).  bf16: within rtol 2e-2
+    plus atol 2e-2 x the largest score (the bf16 tolerance of the forward
+    tests: K8 rounds each layer once after its bias where the CPU's
+    convolution rounds before the bias is added, and sums in another
+    order, a bf16 ulp or two a layer)."""
+    net = _evaluator_net(EVAL_WIDTHS[widths], dtype, seed=lanes)
+    planes, feats, ctx = _evaluator_inputs(net, lanes, seed=8 + lanes)
+    before = A.evaluator_scores.launches
+    with torch.no_grad():
+        got = A._evaluator_scores_cuda(net.evaluator, planes, feats, ctx, dtype)
+        want = A.evaluator_scores_plain(net.evaluator, planes, feats, ctx, dtype)
+    assert A.evaluator_scores.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (lanes * 192,)
+    assert torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    assert scale > 0.1  # the comparison is not of zeros
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_network_with_evaluator_kernel_matches_bbx(kernels, monkeypatch, dtype):
+    """The port's whole no-grad forward with K8 (emulated) and K4
+    (emulated) in place of their plain versions, against bbx's
+    AfterstateNetwork on the same Flax parameters (bbx's init, biases made
+    non-zero) and the same three reachable states: the tolerances of
+    `tests/test_torch_afterstate.py`'s forward tests (float32: atol 1e-4;
+    bf16: rtol 2e-2 plus atol 2e-2 x the largest magnitude); masked logits
+    equal."""
+    tiny = dict(eval_channels=(4, 4), eval_hidden=8, ctx_dim=6, value_channels=(4, 4),
+                value_hidden=16)
+    _, obs, _ = _reachable(n=3, moves=6, seed=31)
+    b, p, m = (obs[k].numpy() for k in ("board", "pieces", "action_mask"))
+    b = b.astype(np.float32)
+    jnet = JNet(**tiny, dtype=getattr(jnp, dtype))
+    params = jax.device_get(jnet.init(jax.random.PRNGKey(3), b, p, m)["params"])
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x + rng.uniform(-0.1, 0.1, x.shape).astype(np.float32)
+        if path[-1].key == "bias" else np.asarray(x), params)
+    jl, jv = (np.asarray(x) for x in jnet.apply({"params": params}, b, p, m))
+    net = A.AfterstateNetwork(**tiny, compute_dtype=getattr(torch, dtype))
+    net.load_state_dict(afterstate_state_dict_from_flax(params))
+    routed = {}
+    for name, cuda in (("afterstate_buffer", A._afterstate_buffer_cuda),
+                       ("evaluator_scores", A._evaluator_scores_cuda)):
+        def via_kernel(*args, _cuda=cuda):
+            return _cuda(*args)
+        via_kernel.launches = 0
+        routed[name] = via_kernel
+        monkeypatch.setattr(A, name, via_kernel)
+    with torch.no_grad():
+        tl, tv = net(*(torch.from_numpy(x) for x in (b, p, m)))
+    assert routed["afterstate_buffer"].launches == routed["evaluator_scores"].launches == 1
+    tl, tv = tl.numpy(), tv.numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(tl[m], jl[m], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_allclose(tl[m], jl[m], rtol=2e-2, atol=2e-2 * np.abs(jl[m]).max())
+        np.testing.assert_allclose(tv, jv, rtol=2e-2, atol=2e-2 * np.abs(jv).max())
+    np.testing.assert_array_equal(tl[~m], jl[~m])
+    assert np.abs(jl[m]).max() > 0.1
+
+
+def test_emulated_evaluator_kernel_states_its_limits(kernels):
+    """K8 takes two convolutions of at most 32 channels, a hidden width of
+    at most 128 and a context of at most 256; the wrapper raises a
+    ValueError beyond them (on the card it never falls back)."""
+    size = build.function("evaluator_layout_size")
+    assert size(32, 32, 128, 256) > 0 and size(1, 1, 1, 1) > 0
+    for widths in ((33, 8, 8, 8), (8, 33, 8, 8), (8, 8, 129, 8), (8, 8, 8, 257),
+                   (0, 8, 8, 8)):
+        assert size(*widths) == 0, widths
+    for widths in (((33, 4), 8, 6), ((4, 4), 129, 6), ((4, 4, 4), 8, 6)):
+        (chans, hidden, ctx) = widths
+        net = A.AfterstateNetwork(eval_channels=chans, eval_hidden=hidden, ctx_dim=ctx,
+                                  value_channels=(4, 4), value_hidden=8,
+                                  compute_dtype=torch.bfloat16)
+        planes, feats, ctx_t = _evaluator_inputs(net, 1, seed=2)
+        with pytest.raises(ValueError, match="K8 takes"):
+            A._evaluator_scores_cuda(net.evaluator, planes, feats, ctx_t, torch.bfloat16)

@@ -27,6 +27,8 @@ from bbx_torch.agent.trainer import PPOTrainer, ppo_config_from, reward_config_f
 from bbx_torch.cli import train as cli_train
 from bbx_torch.engine.state import EnvState
 from bbx_torch.utils.checkpoints import (
+    FORMAT_KEY,
+    FORMAT_VERSION,
     checkpoint_exists,
     latest_step_checkpoint,
     load_checkpoint,
@@ -321,3 +323,30 @@ def test_default_config_builds_the_flat_cnn():
     assert tr.num_params == 5_290_113
     assert all(n.kind == "batch" for n in tr.network.norms)
     assert tr.ppo.minibatch_size == 2048 and tr.ppo.num_envs == 64
+
+
+@pytest.mark.parametrize("marker", [None, FORMAT_VERSION + 1])
+def test_trainer_refuses_checkpoint_without_its_format(tmp_path, marker):
+    """`load` (resume) and `load_params_only` refuse a payload with no
+    format marker (saved before it existed, when `evaluator.dense0` held
+    NCHW rows) or with another version, naming the cause, and leave the
+    trainer's parameters as they were; the marked payload loads."""
+    a = PPOTrainer(CFG, seed=4, device="cpu")
+    path = a.save(str(tmp_path), "mid")
+    assert load_checkpoint(path)[FORMAT_KEY] == FORMAT_VERSION
+    payload = torch.load(path, weights_only=True)
+    del payload[FORMAT_KEY]
+    if marker is not None:
+        payload[FORMAT_KEY] = marker
+    bad = str(tmp_path / "bad")
+    torch.save(payload, bad)
+    b = PPOTrainer(CFG, seed=5, device="cpu")
+    before = {k: v.clone() for k, v in b.network.state_dict().items()}
+    cause = "no 'bbx_torch_format' marker" if marker is None else f"format {marker}"
+    for load in (b.load, b.load_params_only):
+        with pytest.raises(ValueError, match=cause):
+            load(bad)
+    for k, v in b.network.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    b.load(path)
+    assert b.global_step == a.global_step
