@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "bitboard.cuh"
+#include "hash.cuh"
 #include "launch.cuh"
 #include "verdict.cuh"
 
@@ -59,22 +60,11 @@
 // step's inputs; PERF.md).
 #define REGEN_THREADS 384
 
-// A 32-bit mixing hash (xorshift-multiply, multipliers below 2^31 so that
-// the plain version's int64 products stay below 2^63).  A bijection.
-__host__ __device__ __forceinline__ uint32_t regen_mix32(uint32_t x) {
-    x ^= x >> 15;
-    x *= 0x2C1B3C6DU;
-    x ^= x >> 12;
-    x *= 0x297A2D39U;
-    x ^= x >> 15;
-    return x;
-}
-
 // Piece id of slot s of the draw with attempt key k: the slot's word
 // mapped to [0, 37) by (w * 37) >> 32.
 __host__ __device__ __forceinline__ int regen_shape(uint32_t k, int s) {
     const uint32_t salt = s == 0 ? 0x9E3779B9U : (s == 1 ? 0x3C6EF372U : 0xDAA66D2BU);
-    const uint32_t w = regen_mix32(k ^ salt);
+    const uint32_t w = bbx_mix32(k ^ salt);
     return (int)(((uint64_t)w * BB_NUM_PIECES) >> 32);
 }
 
@@ -180,7 +170,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
     for (int i = t; i < BB_NUM_PIECES * BB_ANCHORS; i += W) s_place[i] = (u64)place[i];
     for (int i = t; i < BB_NUM_PIECES * BB_SHIFTS; i += W) s_shift[i] = shifts[i];
     for (int i = t; i < BB_NUM_PIECES; i += W) s_aok[i] = (u64)anchor_ok[i];
-    const uint32_t seed_key = regen_mix32((uint32_t)seed[0]);
+    const uint32_t seed_key = bbx_mix32((uint32_t)seed[0]);
     const u64* nc = (const u64*)no_conflict;
 
     const int base = blockIdx.x * REGEN_CHUNK;
@@ -224,7 +214,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
                         for (int s = 0; s < 3; ++s) id[s] = s_id[q_best][s];
                     } else {
                         const uint32_t key =
-                            regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
+                            bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)lane) ^
                                         (uint32_t)(REGEN_MAX_ATTEMPTS - 1));
                         for (int s = 0; s < 3; ++s) id[s] = regen_shape(key, s);
                     }
@@ -262,7 +252,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
         const int k = s_lane[w];
         if (k >= 0) {
             const int lane = base + k;
-            const uint32_t key = regen_mix32(regen_mix32(seed_key ^ (uint32_t)lane) ^
+            const uint32_t key = bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)lane) ^
                                              (uint32_t)s_attempt[w]);
             int id[3];
             u64 v[3];

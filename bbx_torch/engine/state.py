@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..ops import build
+from .hashing import lane_keys, mix32
 from .kernel import empty_boards
 from .solvability import (
     solvable_disjoint_bits_plain,
@@ -95,34 +96,14 @@ def fresh_pieces(n: int, rng: torch.Generator, device) -> torch.Tensor:
 # Regen draws: a counter-based hash of (seed, lane, attempt).
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-# Odd multipliers below 2**31: a 32-bit word times one stays below 2**63,
-# so the int64 arithmetic of the plain version never overflows.
-_MIX1, _MIX2 = 0x2C1B3C6D, 0x297A2D39
 _SLOT_SALTS = (0x9E3779B9, 0x3C6EF372, 0xDAA66D2B)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit xorshift-multiply mixing hash (a bijection) on int64
-    tensors holding values in [0, 2**32); the same function as
-    `regen_mix32` in `csrc/regen.cu`, bit for bit."""
-    x = x ^ (x >> 15)
-    x = (x * _MIX1) & _M32
-    x = x ^ (x >> 12)
-    x = (x * _MIX2) & _M32
-    return x ^ (x >> 15)
-
-
-def _lane_keys(seed: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
-    """The 32-bit key of each lane's regen event under `seed`."""
-    return _mix32(_mix32(seed.to(torch.int64) & _M32) ^ lanes.to(torch.int64))
-
-
-def _attempt_draws(lane_keys: torch.Tensor, attempt) -> torch.Tensor:
+def _attempt_draws(keys: torch.Tensor, attempt) -> torch.Tensor:
     """Draw `attempt` of each lane key: [..., 3] int32 piece ids, each slot
     word mapped to [0, 37) by ``(w * 37) >> 32`` (bias below 1e-8)."""
-    k = _mix32(lane_keys ^ attempt)
-    slots = [((_mix32(k ^ salt) * NUM_PIECE_TYPES) >> 32)
+    k = mix32(keys ^ attempt)
+    slots = [((mix32(k ^ salt) * NUM_PIECE_TYPES) >> 32)
              for salt in _SLOT_SALTS]
     return torch.stack(slots, dim=-1).to(torch.int32)
 
@@ -139,7 +120,7 @@ def regen_draw(seed: torch.Tensor, lane, attempt) -> torch.Tensor:
     dev = seed.device
     lane = torch.as_tensor(lane, dtype=torch.int64, device=dev)
     attempt = torch.as_tensor(attempt, dtype=torch.int64, device=dev)
-    return _attempt_draws(_lane_keys(seed, lane), attempt)
+    return _attempt_draws(lane_keys(seed, lane), attempt)
 
 
 def regen_seed(rng: torch.Generator, device) -> torch.Tensor:
@@ -174,7 +155,7 @@ def regen_pieces_plain(bits: torch.Tensor, piece_ids: torch.Tensor,
     ids = piece_ids.clone()
     attempts = torch.zeros(n, dtype=torch.int32, device=bits.device)
     todo = need.nonzero().squeeze(1)
-    keys = _lane_keys(seed, todo)
+    keys = lane_keys(seed, todo)
     for j in range(MAX_REGEN_ATTEMPTS):
         if todo.numel() == 0:
             break

@@ -13,9 +13,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.hashing import lane_keys
 from ..engine.state import EnvState, make_generator, reset
 from ..engine.step import RewardConfig, StepOutput, observe, step
-from ..models import distributions as D
+from ..models.afterstate import NUM_ACTIONS
+from ..ops import build
 
 
 def _numpy(tree):
@@ -82,13 +84,51 @@ class VectorEnv:
 
 def sample_valid_actions_device(generator: torch.Generator,
                                 mask: torch.Tensor) -> torch.Tensor:
-    """Uniform-over-valid action sampling on the device ([N, 192] -> [N]
-    int32): Gumbel-max over ``where(mask, 0, -1e9)``, as bbx samples its
-    categorical.  On a row with no valid action every logit is -1e9, which
-    float32 noise cannot move (its spacing there is 64), so the row takes
-    action 0, as bbx's does."""
-    logits = torch.where(mask > 0, 0.0, D.MASKED_LOGIT)
-    return D.sample(generator, logits)
+    """A uniform draw over each lane's valid actions, on the device:
+    [N, 192] mask -> [N] int32, action 0 on a row with no valid action (as
+    bbx's categorical over ``where(mask, 0, -1e9)`` gives there).
+
+    One int64 seed is drawn from `generator` on the mask's device (no host
+    round trip; a resumed generator resumes the draws), then the kernel K9
+    on the card, or `sample_valid_actions_plain` on the CPU, picks each
+    lane's action from it: two launches a step.  The draws are not bbx's
+    threefry ones; they follow the same uniform distribution.
+    """
+    seed = torch.randint(0, 2**32, (), generator=generator, device=mask.device,
+                         dtype=torch.int64)
+    if not mask.is_cuda:
+        return sample_valid_actions_plain(mask, seed)
+    return _sample_valid_actions_cuda(mask, seed)
+
+
+def sample_valid_actions_plain(mask: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: lane i takes its k-th valid action (from 0, in
+    action order), k = (u * c) >> 32 with c its count of valid actions and
+    u = ``lane_keys(seed, i)`` (`engine/hashing.py`); action 0 where c is
+    0.  (u * c) >> 32 is uniform over [0, c) within a bias below 1e-7."""
+    valid = mask > 0
+    n = valid.shape[0]
+    u = lane_keys(seed, torch.arange(n, dtype=torch.int64, device=mask.device))
+    count = valid.sum(dim=1, dtype=torch.int64)
+    k = (u * count) >> 32
+    hit = valid & (valid.cumsum(dim=1) == (k + 1)[:, None])
+    return hit.to(torch.uint8).argmax(dim=1).to(torch.int32)
+
+
+def _sample_valid_actions_cuda(mask: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    n = mask.shape[0]
+    build.require_many((("sample: mask", mask, torch.bool, (n, NUM_ACTIONS)),
+                        ("sample: seed", seed, torch.int64, ())))
+    out = torch.empty(n, dtype=torch.int32, device=mask.device)
+    err = build.function("sample")(mask.data_ptr(), seed.data_ptr(), out.data_ptr(), n,
+                                   build.stream_of(mask))
+    build.check("sample", err)
+    if n:
+        sample_valid_actions_device.launches += 1
+    return out
+
+
+sample_valid_actions_device.launches = 0
 
 
 class RunningMeanStd:

@@ -6,9 +6,11 @@ Counterpart of `bbx/models/afterstate.py`.  The forward pass
      parameter-free map (shift -> union -> simultaneous row/col clears):
      `afterstate_planes`, the CUDA kernel K4 on the card;
   2. scores every afterboard with one shared evaluator (small CNN + per-move
-     scalar features + a remaining-pieces context): with gradients on, the
-     plain evaluator under activation checkpointing (bbx's ``nn.remat``);
-     with none, `evaluator_scores`, the fused CUDA kernel K8 on the card;
+     scalar features + a remaining-pieces context),
+     `evaluator_scores_autograd`: on the card the fused CUDA kernel K8, and
+     with gradients on its backward kernels, which recompute the
+     activations (bbx's ``nn.remat``); on the CPU the plain evaluator,
+     under activation checkpointing when gradients are on;
   3. returns those scores as the 192 policy logits (masked), plus a value
      head on the current state.
 
@@ -33,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import build
@@ -255,17 +258,18 @@ def evaluator_scores(evaluator: "_Evaluator", planes: torch.Tensor,
     return _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype)
 
 
-def _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype):
-    b, d = planes.shape[0], ctx.shape[-1]
-    if dtype not in _DTYPES:
-        raise ValueError(f"evaluator: dtype must be one of {_DTYPES}, got {dtype}")
-    build.require_many((
-        ("evaluator: planes", planes, dtype, (b, NUM_ACTIONS, BOARD, BOARD, 2)),
-        ("evaluator: feats", feats, dtype, (b, NUM_ACTIONS, NUM_FEATS)),
-        ("evaluator: ctx", ctx, dtype, (b, NUM_SLOTS, d))))
-    if planes.data_ptr() % 16:
-        raise ValueError("evaluator: planes must be 16-byte aligned")
+def _evaluator_params(evaluator):
+    """The evaluator's eight parameters in the kernels' order: conv1's
+    weight and bias, conv2's, dense0's, dense1's."""
     convs, d0, d1 = evaluator.convs, evaluator.dense0, evaluator.dense1
+    return (convs[0].weight, convs[0].bias, convs[-1].weight, convs[-1].bias,
+            d0.weight, d0.bias, d1.weight, d1.bias)
+
+
+def _evaluator_widths(evaluator, d):
+    """The eight float32 parameters of `evaluator`, its widths (c1, c2, h,
+    d) and its weight layout's size, or a ValueError beyond K8's limits."""
+    convs, d0 = evaluator.convs, evaluator.dense0
     c1 = convs[0].out_channels
     c2 = convs[-1].out_channels
     h = d0.out_features
@@ -275,10 +279,28 @@ def _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype):
         raise ValueError(f"evaluator: K8 takes {EVALUATOR_LIMITS} and a context of "
                          f"dense0's width; got channels {[c.out_channels for c in convs]}, "
                          f"hidden {h}, dense0 inputs {d0.in_features}, ctx_dim {d}")
-    params = (convs[0].weight, convs[0].bias, convs[1].weight, convs[1].bias,
-              d0.weight, d0.bias, d1.weight, d1.bias)
+    params = _evaluator_params(evaluator)
     build.require_many((f"evaluator: parameter {i}", p, torch.float32, p.shape)
                        for i, p in enumerate(params))
+    return params, (c1, c2, h, d), size
+
+
+def _require_inputs(name, planes, feats, ctx, dtype):
+    b, d = planes.shape[0], ctx.shape[-1]
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype must be one of {_DTYPES}, got {dtype}")
+    build.require_many((
+        (f"{name}: planes", planes, dtype, (b, NUM_ACTIONS, BOARD, BOARD, 2)),
+        (f"{name}: feats", feats, dtype, (b, NUM_ACTIONS, NUM_FEATS)),
+        (f"{name}: ctx", ctx, dtype, (b, NUM_SLOTS, d))))
+    if planes.data_ptr() % 16:
+        raise ValueError(f"{name}: planes must be 16-byte aligned")
+    return b, d
+
+
+def _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype):
+    b, d = _require_inputs("evaluator", planes, feats, ctx, dtype)
+    params, (c1, c2, h, d), size = _evaluator_widths(evaluator, d)
     layout = torch.empty(size, dtype=dtype, device=planes.device)
     scores = torch.empty(b * NUM_ACTIONS, dtype=dtype, device=planes.device)
     err = build.function("evaluator")(
@@ -291,6 +313,224 @@ def _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype):
 
 
 evaluator_scores.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8's backward: the evaluator's gradients under recompute.
+# ---------------------------------------------------------------------------
+
+def evaluator_grads_plain(evaluator: "_Evaluator", planes: torch.Tensor,
+                          feats: torch.Tensor, ctx: torch.Tensor,
+                          dscores: torch.Tensor, dtype: torch.dtype,
+                          masks: Optional[dict] = None):
+    """Plain version of K8's backward (`_evaluator_grads_cuda`): the same
+    function with K8's rounding points, in tensor ops.  The forward is
+    recomputed as K8 computes it -- each layer's sum (float32 in bf16,
+    float64 in float32) plus its bias, ReLU, rounded once to `dtype` --
+    then dz0, da2 and da1 are rounded to `dtype` before the next product,
+    each parameter's gradient is a float32 sum rounded once to `dtype`,
+    and the context's gradient is each (lane, slot)'s dz0 sum times
+    dense0's context columns.  Returns (dctx [B, 3, D] `dtype`, the eight
+    parameters' gradients, float32, the pre-activations {"conv2": [B *
+    192, 64 C2] in the flatten order, "dense0": [B * 192, H]} float32).
+    Where K8 and the plain evaluator round the forward apart (cuDNN rounds
+    a convolution before its bias), a ReLU may flip; this version shares
+    K8's ReLU decisions but where a float32 sum lands on the other side of
+    a rounding boundary, which flips the next ReLU where its pre-activation
+    lies near 0.  `masks`, if given, takes the place of conv2's and
+    dense0's ReLU decisions in the backward ({"conv2", "dense0"}, bool, the
+    shapes above; the tests pass K8's own, `_GradWork.relu_masks`)."""
+    f32 = torch.float32
+    acc = torch.float64 if dtype == f32 else f32
+
+    def rnd(x):
+        return x.to(dtype).to(f32)
+
+    w1, b1, w2, b2, w0, b0, wd1, bd1 = (rnd(p.detach()) for p in _evaluator_params(evaluator))
+    b, d = planes.shape[0], ctx.shape[-1]
+    m, c2 = b * NUM_ACTIONS, w2.shape[0]
+    x = planes.reshape(m, BOARD, BOARD, 2).permute(0, 3, 1, 2).to(f32)
+    a1 = rnd(F.relu(F.conv2d(x.to(acc), w1.to(acc), b1.to(acc), padding=1)))
+    z2 = F.conv2d(a1.to(acc), w2.to(acc), b2.to(acc), padding=1)
+    a2 = rnd(F.relu(z2))
+    flat = a2.permute(0, 2, 3, 1).reshape(m, -1)
+    n_flat = flat.shape[1]
+    x0 = torch.cat([flat, feats.reshape(m, NUM_FEATS).to(f32),
+                    ctx.repeat_interleave(NUM_ANCHORS, dim=1).reshape(m, d).to(f32)], dim=-1)
+    z0 = F.linear(x0.to(acc), w0.to(acc), b0.to(acc))
+    h = rnd(F.relu(z0))
+    masks = masks or {"conv2": flat > 0, "dense0": h > 0}
+    ds = dscores.to(f32)
+    dz0 = rnd(ds[:, None] * wd1) * masks["dense0"]
+    da2 = rnd(dz0 @ w0[:, :n_flat]) * masks["conv2"]
+    da2 = da2.reshape(m, BOARD, BOARD, c2).permute(0, 3, 1, 2)
+    da1 = rnd(torch.nn.grad.conv2d_input(a1.shape, w2, da2, padding=1)) * (a1 > 0)
+    grads = (torch.nn.grad.conv2d_weight(x, w1.shape, da1, padding=1), da1.sum((0, 2, 3)),
+             torch.nn.grad.conv2d_weight(a1, w2.shape, da2, padding=1), da2.sum((0, 2, 3)),
+             dz0.t() @ x0, dz0.sum(0), (ds[:, None] * h).sum(0)[None], ds.sum()[None])
+    slots = dz0.reshape(b, NUM_SLOTS, NUM_ANCHORS, -1).sum(2)
+    dctx = (slots @ w0[:, n_flat + NUM_FEATS:]).to(dtype)
+    pre = {"conv2": z2.permute(0, 2, 3, 1).reshape(m, -1).to(f32), "dense0": z0.to(f32)}
+    return dctx, [rnd(g) for g in grads], pre
+
+
+class _GradWork:
+    """K8's backward at one call: its inputs' pointers, the widths and the
+    scratch buffers that `bbx_evaluator_grad_sizes` sizes (the weight
+    layout, x0 and dz0 in the compute dtype, the tiles' dz0 sums, K8b's
+    block records and K8w's chunk partials in float32), and the outputs."""
+
+    def __init__(self, evaluator, planes, feats, ctx, dscores, dtype):
+        b, d = _require_inputs("evaluator backward", planes, feats, ctx, dtype)
+        build.require("evaluator backward: dscores", dscores, dtype, (b * NUM_ACTIONS,))
+        self.params, (c1, c2, h, d), _ = _evaluator_widths(evaluator, d)
+        dev = planes.device
+        self.inputs = (planes, feats, ctx, dscores)
+        self.widths = (b, c1, c2, h, d, dtype.itemsize)
+        self.dctx = torch.zeros((b, NUM_SLOTS, d), dtype=dtype, device=dev)
+        sizes = torch.zeros(7, dtype=torch.int64)
+        if b:
+            build.check("evaluator_grad_sizes", build.function("evaluator_grad_sizes")(
+                *self.widths, sizes.data_ptr()))
+        n_layout, n_x0, n_dz0, n_tiles, n_part, n_partw, n_grads = sizes.tolist()
+        self.layout = torch.empty(n_layout, dtype=dtype, device=dev)
+        self.x0 = torch.empty(n_x0, dtype=dtype, device=dev)
+        self.dz0 = torch.empty(n_dz0, dtype=dtype, device=dev)
+        self.stile = torch.empty(n_tiles, dtype=torch.float32, device=dev)
+        self.part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        self.partw = torch.empty(n_partw, dtype=torch.float32, device=dev)
+        self.flat = torch.zeros(n_grads if b else sum(p.numel() for p in self.params),
+                                dtype=torch.float32, device=dev)
+        self.stream = build.stream_of(planes)
+
+    def relu_masks(self):
+        """K8b's ReLU decisions after its run, for `evaluator_grads_plain`:
+        {"conv2": [B * 192, 64 C2] bool in the flatten order, where x0's
+        a2 is above 0; "dense0": [B * 192, H] bool, where dz0 is not 0
+        (dense0's pre-activation above 0, and ds w1 not rounded to 0)}."""
+        m, c2, h = self.widths[0] * NUM_ACTIONS, self.widths[2], self.widths[3]
+        t = 32 if self.dz0.dtype == torch.bfloat16 else 16
+        hk, kx = self.dz0.numel() // max(m, 1), self.x0.numel() // max(m, 1)
+        c2p = (c2 + 7) // 8 * 8
+        x0 = self.x0.view(m // t, kx, t).permute(0, 2, 1).reshape(m, kx)
+        dz0 = self.dz0.view(m // t, hk, t).permute(0, 2, 1).reshape(m, hk)
+        return {"conv2": x0[:, :64 * c2p].reshape(m, 64, c2p)[:, :, :c2].reshape(m, -1) > 0,
+                "dense0": dz0[:, :h] != 0}
+
+    def grads(self):
+        """The eight parameters' gradients, float32, as views of one buffer."""
+        return [g.view(p.shape) for g, p in
+                zip(self.flat.split([p.numel() for p in self.params]), self.params)]
+
+
+def _evaluator_grad_tiles(w: _GradWork) -> None:
+    """K8b (`bbx_evaluator_grad_tiles`): the weight layout, then each
+    tile's recompute and backward; x0, dz0, the tiles' dz0 sums and the
+    block records."""
+    if w.widths[0] == 0:
+        return
+    planes, feats, ctx, dscores = w.inputs
+    err = build.function("evaluator_grad_tiles")(
+        planes.data_ptr(), feats.data_ptr(), ctx.data_ptr(), dscores.data_ptr(),
+        *(p.data_ptr() for p in w.params), w.layout.data_ptr(), w.x0.data_ptr(),
+        w.dz0.data_ptr(), w.stile.data_ptr(), w.part.data_ptr(), *w.widths, w.stream)
+    build.check("evaluator_grad_tiles", err)
+    _evaluator_grad_tiles.launches += 1
+
+
+def _evaluator_grad_dense0(w: _GradWork) -> None:
+    """K8w (`bbx_evaluator_grad_dense0`): dense0's weight gradient dz0^T
+    x0, one float32 partial a chunk of tiles."""
+    if w.widths[0] == 0:
+        return
+    err = build.function("evaluator_grad_dense0")(
+        w.x0.data_ptr(), w.dz0.data_ptr(), w.partw.data_ptr(), *w.widths, w.stream)
+    build.check("evaluator_grad_dense0", err)
+    _evaluator_grad_dense0.launches += 1
+
+
+def _evaluator_grad_reduce(w: _GradWork) -> None:
+    """The reduction (`bbx_evaluator_grad_reduce`): the records and
+    partials into the gradients, in a fixed order, and the context's
+    gradient."""
+    if w.widths[0] == 0:
+        return
+    err = build.function("evaluator_grad_reduce")(
+        w.part.data_ptr(), w.partw.data_ptr(), w.stile.data_ptr(), w.layout.data_ptr(),
+        w.flat.data_ptr(), w.dctx.data_ptr(), *w.widths, w.stream)
+    build.check("evaluator_grad_reduce", err)
+    _evaluator_grad_reduce.launches += 1
+
+
+_evaluator_grad_tiles.launches = 0
+_evaluator_grad_dense0.launches = 0
+_evaluator_grad_reduce.launches = 0
+
+
+def _evaluator_grads_cuda(evaluator, planes, feats, ctx, dscores, dtype):
+    """The evaluator's gradients from the scores' gradient `dscores` [B *
+    192] (`dtype`): (dctx [B, 3, D] `dtype`, the eight parameters'
+    gradients, float32, each a float32 sum rounded once to `dtype`).  Three
+    launches, each counted by its helper: K8b (`_evaluator_grad_tiles`),
+    K8w (`_evaluator_grad_dense0`) and the reduction
+    (`_evaluator_grad_reduce`); `csrc/evaluator_backward.cu`."""
+    w = _GradWork(evaluator, planes, feats, ctx, dscores, dtype)
+    _evaluator_grad_tiles(w)
+    _evaluator_grad_dense0(w)
+    _evaluator_grad_reduce(w)
+    return w.dctx, w.grads()
+
+
+class EvaluatorFunction(torch.autograd.Function):
+    """The evaluator with bbx's ``nn.remat`` semantics on the card: the
+    forward is K8 and saves only the inputs (planes, feats, ctx and the
+    eight float32 parameters); the backward recomputes the activations and
+    differentiates them in K8's backward kernels.  Gradients flow to the
+    context and the parameters; the planes and features, which K4 writes,
+    carry none (a planes or feats that requires a gradient raises).
+
+    ``apply(evaluator, planes, feats, ctx, dtype, *evaluator_params)``, on
+    CUDA tensors only: `evaluator_scores_autograd` dispatches.
+    """
+
+    @staticmethod
+    def forward(fctx, evaluator, planes, feats, ctx, dtype, *params):
+        if fctx.needs_input_grad[1] or fctx.needs_input_grad[2]:
+            raise ValueError("evaluator: the planes and features carry no gradient")
+        fctx.evaluator, fctx.dtype = evaluator, dtype
+        fctx.save_for_backward(planes, feats, ctx, *params)
+        return _evaluator_scores_cuda(evaluator, planes, feats, ctx, dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(fctx, dscores):
+        planes, feats, ctx = fctx.saved_tensors[:3]
+        dctx, grads = _evaluator_grads_cuda(fctx.evaluator, planes, feats, ctx,
+                                            dscores.contiguous(), fctx.dtype)
+        return (None, None, None, dctx, None, *grads)
+
+
+def evaluator_scores_autograd(evaluator: "_Evaluator", planes: torch.Tensor,
+                              feats: torch.Tensor, ctx: torch.Tensor,
+                              dtype: torch.dtype) -> torch.Tensor:
+    """Every afterstate's score [B * 192] (`dtype`), differentiable in
+    `ctx` and the evaluator's parameters when gradients are on.
+
+    On the card `EvaluatorFunction`: K8, and K8's backward under recompute.
+    On the CPU the plain evaluator, under `torch.utils.checkpoint` when
+    gradients are on (bbx's ``nn.remat``: the activations are recomputed
+    in the backward; the math is unchanged).  Planes or features that
+    require a gradient raise on both.
+    """
+    if planes.requires_grad or feats.requires_grad:
+        raise ValueError("evaluator: the planes and features carry no gradient")
+    if planes.is_cuda:
+        return EvaluatorFunction.apply(evaluator, planes, feats, ctx, dtype,
+                                       *_evaluator_params(evaluator))
+    if torch.is_grad_enabled():
+        return checkpoint(evaluator, *_plain_inputs(planes, feats, ctx), dtype,
+                          use_reentrant=False)
+    return evaluator_scores(evaluator, planes, feats, ctx, dtype)
 
 
 class AfterstateNetwork(nn.Module):
@@ -354,14 +594,7 @@ class AfterstateNetwork(nn.Module):
         board = board.to(torch.float32).contiguous()
         pieces = pieces.to(torch.float32).contiguous()
         planes, feats, ctx = self.afterstates(board, pieces)
-        if torch.is_grad_enabled():
-            # bbx's nn.remat: keep only the evaluator's inputs for the
-            # backward and recompute its activations (each conv activation
-            # is [B*192, C, 8, 8]); the math is unchanged.
-            scores = checkpoint(self.evaluator, *_plain_inputs(planes, feats, ctx),
-                                dt, use_reentrant=False)
-        else:
-            scores = evaluator_scores(self.evaluator, planes, feats, ctx, dt)
+        scores = evaluator_scores_autograd(self.evaluator, planes, feats, ctx, dt)
         logits = scores.reshape(b, NUM_ACTIONS).to(torch.float32)
 
         # Value head on the current state.

@@ -33,6 +33,8 @@ SOURCES = {
     "move": "move.cu",
     "regen": "regen.cu",
     "evaluator": "evaluator.cu",
+    "evaluator_backward": "evaluator_backward.cu",
+    "sample": "sample.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,6 +74,22 @@ SIGNATURES = {
     "evaluator": ("evaluator", "bbx_evaluator", [_P] * 13 + [_I] * 6 + [_P]),
     # c1, c2, h, d -> elements of the weight layout (0 beyond the limits)
     "evaluator_layout_size": ("evaluator", "bbx_evaluator_layout_size", [_I] * 4),
+    # b, c1, c2, h, d, element size, out (7 int64 sizes)
+    "evaluator_grad_sizes": ("evaluator_backward", "bbx_evaluator_grad_sizes",
+                             [_I] * 6 + [_P]),
+    # planes, feats, ctx, dscores, the 8 evaluator parameters, layout, x0,
+    # dz0, tile sums, records, b, c1, c2, h, d, element size, stream
+    "evaluator_grad_tiles": ("evaluator_backward", "bbx_evaluator_grad_tiles",
+                             [_P] * 17 + [_I] * 6 + [_P]),
+    # x0, dz0, partials, b, c1, c2, h, d, element size, stream
+    "evaluator_grad_dense0": ("evaluator_backward", "bbx_evaluator_grad_dense0",
+                              [_P] * 3 + [_I] * 6 + [_P]),
+    # records, partials, tile sums, layout, grads, dctx, b, c1, c2, h, d,
+    # element size, stream
+    "evaluator_grad_reduce": ("evaluator_backward", "bbx_evaluator_grad_reduce",
+                              [_P] * 6 + [_I] * 6 + [_P]),
+    # mask, seed, actions, n, stream
+    "sample": ("sample", "bbx_sample", [_P] * 3 + [_I, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -6,16 +6,25 @@
 Phases, each of which must pass (exit code 1 otherwise):
 
 1. identify the card (``nvidia-smi`` name and power limit);
-2. build the CUDA kernels K1-K8 from `bbx_torch/csrc/` with nvcc;
+2. build the CUDA kernels K1-K9 and K8's backward from `bbx_torch/csrc/`
+   with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (outputs must be exactly equal; floats too, to the
    last bit: K5's, and the reward and episode return of K6's
-   `bbx_step_finish`; K8's scores within the tolerance PERF.md states), on
+   `bbx_step_finish`; K8's scores and its backward's gradients within the
+   tolerances PERF.md states), on
    reachable mid-game boards made by the port's own engine from a seed: K4
    at the rollout's 512 lanes and at the update's 2048, in bf16 and
    float32 (planes, features and overlap); K8 (the evaluator's no-grad
    forward) at run9 widths at 512 and 2048 lanes in bf16 and float32, at
-   the tests' tiny widths, and at widths that fill no padded tile; K6's two
+   the tests' tiny widths, and at widths that fill no padded tile; K8's
+   backward (K8b, K8w and the reduction) against the plain evaluator's
+   autograd, each gradient within the tolerance PERF.md states, two runs
+   bit for bit, at 2048 lanes in bf16 (the update minibatch), at 512 in
+   bf16 and float32, at the tiny and ragged widths, with the whole
+   backward timed in turns with the plain autograd and the checkpointed
+   cuDNN/cuBLAS forward + backward; K9 (the sampler) bit for bit on the
+   engine step's masks at 16,384 lanes and at 512; K6's two
    entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
    train paths' 512; K7 on that step's inputs (its attempts equal to the
@@ -32,8 +41,8 @@ Phases, each of which must pass (exit code 1 otherwise):
    16,384 / 32,768 lanes, regen's draws per step from the step's
    `regen_attempts`, a profiled chunk (kernel launches and device time a
    step, at most ENGINE_MAX_LAUNCHES_PER_STEP launches; busy share; K6's
-   and K7's device time a step) and one step under sync-debug mode
-   "error";
+   and K7's device time a step), with K9 among the path's kernels, and
+   one step under sync-debug mode "error";
 5. the eval path: a 512-episode greedy eval of a seeded, freshly
    initialised AfterstateNetwork at the widths of `config/run9.yaml`
    (bf16) through `bbx_torch.cli.evaluate.main`, with every kernel's
@@ -52,15 +61,19 @@ Phases, each of which must pass (exit code 1 otherwise):
    128 steps, minibatch 2048, 2 epochs) for 3 iterations through
    `bbx_torch.cli.train.main` from a JSON config, with the launch
    counters set to 0 before and read after, each iteration's rollout and
-   update timed and its losses checked finite, K8 launched on each rollout
-   step and the last value and never in the update, and the first
-   minibatch's largest |rollout logp - update logp| and clip fraction
-   before any optimizer step reported; then `latest` is loaded and one
-   more iteration must be finite;
+   update timed (its peak device memory read) and its losses checked
+   finite, K8 launched on each rollout step and the last value and in
+   every update minibatch, K8's backward (K8b, K8w, the reduction) once in
+   every update minibatch, and the first minibatch's largest |rollout logp
+   - update logp| and clip fraction before any optimizer step reported;
+   then `latest` is loaded and one more iteration must be finite;
 9. one float32 PPO update at run9 widths on a fixed batch, card against
-   CPU (losses and post-Adam parameters);
+   CPU (losses and post-Adam parameters), the card's through K8 and K8's
+   backward;
 10. profile a 16-step rollout and a 4-minibatch update at run9 widths
-   (device time by kernel, the device's busy share in each), then time
+   (device time by kernel, the device's busy share in each; an update
+   minibatch must run K8 and K8's backward once each and no convolution of
+   the evaluator's size, only the value head's), then time
    the evaluator alone in turns: cuDNN in NCHW and channels-last, K8, and
    `torch.compile` of the plain evaluator where `import triton` works
    (`evaluator_layouts`);
@@ -148,8 +161,10 @@ PATH_KERNELS = {
     "eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
              "regen_pieces", "evaluator_scores"),
     "train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
-              "_step_finish_cuda", "regen_pieces", "evaluator_scores"),
-    "engine": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces"),
+              "_step_finish_cuda", "regen_pieces", "evaluator_scores",
+              "_evaluator_grad_tiles", "_evaluator_grad_dense0", "_evaluator_grad_reduce"),
+    "engine": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces",
+               "sample_valid_actions_device"),
     "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
                "_move_core"),
 }
@@ -164,6 +179,10 @@ ROW_COUNTERS = {
     "_move_core/_step_finish_cuda": ("_move_core", "_step_finish_cuda"),
     "regen_pieces": ("regen_pieces",),
     "evaluator_scores": ("evaluator_scores",),
+    "_evaluator_grad_tiles": ("_evaluator_grad_tiles",),
+    "_evaluator_grad_dense0": ("_evaluator_grad_dense0",),
+    "_evaluator_grad_reduce": ("_evaluator_grad_reduce",),
+    "sample_valid_actions_device": ("sample_valid_actions_device",),
 }
 ENGINE_LANES = 16384             # bench.py's fleet
 ENGINE_SWEEP = (4096, 16384, 32768)
@@ -181,7 +200,8 @@ ENGINE_CHUNK, ENGINE_CHUNKS = 64, 10
 ENGINE_ATTEMPTS = 20
 SWEEP_ATTEMPTS = 4
 # Kernel launches a step of the engine path may take, by the profiler:
-# K6 twice, K7, the generator's two draws, the sampler and the reward sum.
+# K6 twice, K7, the generator's two draws, the sampler (K9 and its seed's
+# draw) and the reward sum.
 ENGINE_MAX_LAUNCHES_PER_STEP = 25
 # Words in the names of cuDNN's and CUTLASS's convolution kernels (PR 5's
 # kernel lists: implicit_convolve_sgemm, convolve_common_engine,
@@ -202,6 +222,21 @@ PEAK_BF16_FLOPS_PER_S = 989e12
 # and sums in another order); float32 (TF32 off) within 1e-4.
 K8_BF16_TOL = 2e-2
 K8_F32_ATOL = 1e-4
+# K8's backward against its plain version, `evaluator_grads_plain` (K8's
+# rounding points in tensor ops; PERF.md), given K8's own ReLU decisions at
+# conv2 and dense0: each gradient tensor g within tol |g_plain| + tol max
+# |g_plain|, tol = K8_BF16_TOL in bf16 and K8B_F32_REL in float32 (TF32
+# off; sums of up to 393,216 terms in another order).  The decisions may
+# differ from the plain version's own where a float32 sum lands on the
+# other side of a bf16 rounding boundary: at most K8B_FLIP_SHARE of them,
+# each at a pre-activation within K8_BF16_TOL of the largest of 0.  K8w's partials,
+# summed, against dz0^T x0 in float64: within K8W_REL of the largest
+# element.  Against the plain evaluator's autograd, whose cuDNN
+# convolutions round before their bias, bf16 ReLUs flip by the thousand:
+# reported, with both against a float64 autograd.
+K8B_F32_REL = 1e-4
+K8B_FLIP_SHARE = 1e-2
+K8W_REL = 1e-5
 RUN9_EVAL_WIDTHS = (tuple(RUN9_NETWORK["eval_channels"]), RUN9_NETWORK["eval_hidden"],
                     RUN9_NETWORK["ctx_dim"])
 
@@ -281,19 +316,34 @@ def host_us(fn, reps: int = 100) -> float:
     return statistics.median(samples)
 
 
-def calls_device(fn, reps: int = 20) -> dict:
-    """Every kernel one call of `fn` launches, by `torch.profiler` over
-    `reps` calls after a warm-up: ``{"device_ms", "launches", "kernels":
-    {name: [device ms, launches] a call}}``."""
+def profiled_calls(fn, reps: int = 1, record_shapes: bool = False):
+    """`fn`'s last result, the wall time of `reps` calls and the profiler
+    that recorded them: a session of one warm-up call and then the `reps`
+    calls (a profiler's schedule: a session's first calls lose some of
+    their kernels' records, about the first 4 of 20 on the card)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched,
+                                record_shapes=record_shapes) as prof:
+        fn()
         torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    return result, wall, prof
+
+
+def calls_device(fn, reps: int = 20) -> dict:
+    """Every kernel one call of `fn` launches, by `torch.profiler` over
+    `reps` calls after a warm-up (`profiled_calls`): ``{"device_ms",
+    "launches", "kernels": {name: [device ms, launches] a call}}``."""
+    _, _, prof = profiled_calls(fn, reps)
     by_name = device_ms_by_kernel(prof)
     if not by_name:
         return {"device_ms": "not measured", "launches": "not measured", "kernels": {}}
@@ -620,6 +670,66 @@ def kernel_phase(device, report):
                           f"{c['bound_ms']:.6f} ms ({c['bound_by']})"
                           for k, c in others.items()))
     rows.append(row)
+
+    # K8's backward (K8b, K8w, the reduction) at the update minibatch's B =
+    # 2048 at run9 widths in bf16, which the rows report; at B = 512 in bf16
+    # and float32, and at the tiny and ragged widths (correctness and
+    # times under at_other_shapes).
+    k8b = k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], bf16)
+    others = {"512_bfloat16": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], bf16),
+              "512_float32": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], f32, fast=False),
+              "tiny_512_bfloat16": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
+              "tiny_512_float32": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], f32),
+              "ragged_3_bfloat16": k8b_case(device, ((5, 12), 20, 7), *k8_in[3], bf16),
+              "ragged_3_float32": k8b_case(device, ((5, 12), 20, 7), *k8_in[3], f32)}
+    equal = k8b["equal"] and all(c["equal"] for c in others.values())
+    summary = "; ".join(
+        f"{k}: within tolerance={c['equal']} (same bits twice: {c['same_bits']}; worst "
+        f"tensor err {c['max_abs_err']:.4g}), K8b {c['kernels']['K8b']['ms']:.4f} ms, K8w "
+        f"{c['kernels']['K8w']['ms']:.4f} ms, reduction {c['kernels']['reduction']['ms']:.4f} "
+        f"ms; whole backward + forward {c['whole']['kernels']:.4f} ms vs plain autograd "
+        f"{c['whole']['plain']:.4f} ms, checkpointed {c['whole']['library']:.4f} ms"
+        for k, c in others.items())
+    for name, source, replaces, what in (
+            ("_evaluator_grad_tiles", "bbx_torch/csrc/evaluator_backward.cu (+ evaluator.cuh, "
+             "mma.cuh)", "bbx/models/afterstate.py:106 (_Evaluator.__call__, :114-127, under "
+             "nn.remat at :185): the backward's recompute and per-tile gradients",
+             "K8b"),
+            ("_evaluator_grad_dense0", "bbx_torch/csrc/evaluator_backward.cu (+ mma.cuh)",
+             "bbx/models/afterstate.py:123 (the hidden Dense of _Evaluator.__call__, under "
+             "nn.remat at :185): its weight gradient", "K8w"),
+            ("_evaluator_grad_reduce", "bbx_torch/csrc/evaluator_backward.cu",
+             "bbx/models/afterstate.py:106 (_Evaluator under nn.remat at :185): the "
+             "gradients' reduction and the context's gradient", "reduction")):
+        k = k8b["kernels"][what]
+        rows.append(dict(
+            name=name, source=source, replaces=replaces, equal=equal,
+            max_abs_err=max([k8b["max_abs_err"]] + [c["max_abs_err"] for c in others.values()]),
+            **{key: k[key] for key in ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                                       "bound_by")},
+            library=k["library_ms"], device_ms_by_kernel=k["device_ms_by_kernel"],
+            whole=k8b["whole"], errors=k8b["errors"], k8w_vs_float64=k8b["k8w_vs_float64"],
+            relu_flips=k8b["relu_flips"],
+            at_other_shapes={key: {"equal": c["equal"], "max_abs_err": c["max_abs_err"],
+                                   "same_bits": c["same_bits"], "whole": c["whole"],
+                                   "errors": c["errors"], "relu_flips": c["relu_flips"],
+                                   **c["kernels"][what]}
+                             for key, c in others.items()},
+            shape=f"{what} of K8's backward at B = {b2}, run9 widths, bf16: planes "
+                  f"[{b2},192,8,8,2], feats [{b2},192,3], ctx [{b2},3,32], ds [{b2 * 192}] "
+                  f"-> dctx and the eight parameters' gradients, each tensor within "
+                  f"{k8b['tolerance']} of the plain version (same bits twice: "
+                  f"{k8b['same_bits']}; K8w's partials vs float64: "
+                  f"{k8b['k8w_vs_float64']}); plain_ms: "
+                  + {"K8b": "the plain evaluator's forward + autograd backward (library: "
+                            "the same under torch.utils.checkpoint, the update's path "
+                            "before this kernel)",
+                     "K8w": "dz0^T x0 by torch.matmul in float32 (library: in bf16)",
+                     "reduction": "the records and partials summed by torch.sum"}[what]
+                  + f"; whole backward + forward {k8b['whole']['kernels']:.4f} ms vs plain "
+                    f"autograd {k8b['whole']['plain']:.4f} ms, checkpointed "
+                    f"{k8b['whole']['library']:.4f} ms (in turns); also " + summary))
+
     # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
     g = torch.Generator(device=device).manual_seed(SEED)
     t, n = GAE_T, GAE_N
@@ -756,10 +866,29 @@ def kernel_phase(device, report):
                          f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
                          f"{e['bound_ms']:.6f} ms")
 
+    # K9 on the masks of the same engine-path step (16,384 lanes), which the
+    # row reports, and on their first 512 lanes.
+    k9 = k9_case(eng["mask"], eng["seed"])
+    k9_512 = k9_case(eng["mask"][:512].contiguous(), eng["seed"])
+    rows.append(dict(
+        name="sample_valid_actions_device", source="bbx_torch/csrc/sample.cu (+ hash.cuh)",
+        replaces="bbx/env/vector.py:90 (sample_valid_actions_device)",
+        equal=k9["equal"] and k9_512["equal"],
+        max_abs_err=max(k9["max_abs_err"], k9_512["max_abs_err"]),
+        **{key: k9[key] for key in ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                                    "bound_by")},
+        library=k9["library_ms"], at_other_shapes={"512": k9_512},
+        shape=f"mask [{k9['lanes']},192] bool ({k9['empty_rows']} rows with no valid "
+              f"action), seed: one int64 -> actions [{k9['lanes']}] int32 (equal bit for "
+              f"bit); library: torch.multinomial over the rows, {k9['library_ms']:.4f} ms; "
+              f"at 512 lanes: equal={k9_512['equal']}, {k9_512['ms']:.4f} ms (device "
+              f"{k9_512['device_ms']}), plain {k9_512['plain_ms']:.4f} ms, library "
+              f"{k9_512['library_ms']:.4f} ms"))
+
     for r in rows:
         with_bound(r)
         r["route"] = "cuda"
-        r["library_ms"] = None
+        r["library_ms"] = r.pop("library", None)
         log(f"  {r['name']}: equal to plain (K8: within its tolerance)={r['equal']}, "
             f"kernel {r['ms']:.4f} ms "
             f"(device {r.get('device_ms')} ms, host {r.get('host_us')} us a call), "
@@ -862,6 +991,260 @@ def k8_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
     out["bound_flops_ms"] = flops / peak * 1e3
     out["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
     return out
+
+
+def k8_net(device, widths, dtype):
+    """A seeded AfterstateNetwork at `widths` ((C1, C2), H, D) whose biases
+    are seeded too."""
+    import torch
+
+    from bbx_torch.models import network_from_config
+
+    (c1, c2), h, d = widths
+    net = network_from_config(
+        dict(RUN9_NETWORK, eval_channels=[c1, c2], eval_hidden=h, ctx_dim=d,
+             compute_dtype=str(dtype)[6:]),
+        generator=torch.Generator().manual_seed(SEED)).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_((torch.rand(p.shape, generator=g, device=device) - 0.5) * 0.2)
+    return net
+
+
+def k8b_flops(b: int, widths) -> int:
+    """K8's backward on b lanes: the forward's recompute (`k8_flops`) and,
+    per afterstate, da2 (64 C2 x H multiply-adds), dW2 and da1 (64 x 9 C1
+    x C2 each), dW1 (64 x 18 C1) and dense1's gradient (H)."""
+    (c1, c2), h, d = widths
+    per_afterstate = 64 * c2 * h + 2 * 64 * 9 * c1 * c2 + 64 * 18 * c1 + h
+    return k8_flops(b, widths) + 2 * b * 192 * per_afterstate
+
+
+def k8w_flops(b: int, widths) -> int:
+    """K8w: dW0 = dz0^T x0, H x (64 C2 + 3 + D) multiply-adds an afterstate."""
+    (c1, c2), h, d = widths
+    return 2 * b * 192 * h * (64 * c2 + 3 + d)
+
+
+def rel_l2(x, y) -> float:
+    """||x - y|| / ||y|| in float64."""
+    x, y = x.double(), y.double()
+    return float((x - y).norm() / y.norm().clamp(min=1e-300))
+
+
+def k8b_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
+    """K8's backward -- K8b (`_evaluator_grad_tiles`), K8w
+    (`_evaluator_grad_dense0`) and the reduction (`_evaluator_grad_reduce`)
+    -- on the afterstates of `board`/`pieces` and a seeded upstream
+    gradient, for the seeded network of `k8_net`.  Checked against its
+    plain version `evaluator_grads_plain` (K8's rounding points in tensor
+    ops; TF32 off) given K8's own ReLU decisions at conv2 and dense0: each gradient
+    tensor within tol |plain| + tol max |plain| (bf16: K8_BF16_TOL;
+    float32: K8B_F32_REL), the decisions apart from the plain version's
+    own few and near 0 (K8B_FLIP_SHARE); two runs
+    bit for bit; K8w's partials summed against dz0^T x0 in float64
+    (`K8W_REL`).  Reported, not checked: each tensor's largest error and
+    relative L2 error against the plain evaluator's autograd (cuDNN and
+    cuBLAS, which round the forward apart from K8, so ReLUs flip), and
+    the relative L2 errors of K8's backward and of that autograd against
+    a float64 autograd of the same bf16 or float32 values (`accuracy`).
+    Times: each kernel's (`ms` between events, `device_ms` by the profiler,
+    `host_us`) with its plain version's and, where one PyTorch call does
+    the same, the library's; then the whole backward in turns with the
+    plain autograd and the checkpointed cuDNN/cuBLAS forward + backward
+    (`whole`)."""
+    import copy
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from bbx_torch.device import float32_exact
+    from bbx_torch.models import afterstate as A
+
+    net = k8_net(device, widths, dtype)
+    ev = net.evaluator
+    b = board.shape[0]
+    (c1, c2), h, d = widths
+    rel = K8_BF16_TOL if dtype == torch.bfloat16 else K8B_F32_REL
+    g = torch.Generator(device=device).manual_seed(SEED + b)
+    with torch.no_grad():
+        planes, feats, ctx = net.afterstates(board, pieces)
+    ds = torch.randn(b * 192, generator=g, device=device).to(dtype)
+    leaf = ctx.detach().requires_grad_(True)
+    params = [p for _, p in ev.named_parameters()]
+    out = {"lanes": b, "widths": [c1, c2, h, d], "dtype": str(dtype)}
+    with float32_exact():
+        def plain():
+            for p in (*params, leaf):
+                p.grad = None
+            A.evaluator_scores_plain(ev, planes, feats, leaf, dtype).backward(ds)
+
+        def library():
+            for p in (*params, leaf):
+                p.grad = None
+            checkpoint(ev, *A._plain_inputs(planes, feats, leaf), dtype,
+                       use_reentrant=False).backward(ds)
+
+        plain()
+        autograd = [leaf.grad.clone()] + [p.grad.clone() for p in params]
+        counters = (A._evaluator_grad_tiles, A._evaluator_grad_dense0, A._evaluator_grad_reduce)
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            w = A._GradWork(ev, planes, feats, ctx, ds, dtype)
+            for launch in (A._evaluator_grad_tiles, A._evaluator_grad_dense0,
+                           A._evaluator_grad_reduce):
+                launch(w)
+            got = [w.dctx.clone()] + [x.clone() for x in w.grads()]
+            again = A._evaluator_grads_cuda(ev, planes, feats, ctx, ds, dtype)
+            # The plain version with K8's own ReLU decisions at conv2 and
+            # dense0; where they differ from its own, a float32 sum landed on
+            # the other side of a bf16 rounding boundary: few, each near 0.
+            masks = w.relu_masks()
+            want_ctx, want, pre = A.evaluator_grads_plain(ev, planes, feats, ctx, ds, dtype,
+                                                          masks=masks)
+            want = [want_ctx] + want
+            out["relu_flips"], flips_ok = {}, True
+            for layer, z in pre.items():
+                flips = masks[layer] != (z > 0)
+                f = out["relu_flips"][layer] = {
+                    "count": int(flips.sum()), "share": float(flips.float().mean()),
+                    "largest_abs_preactivation":
+                        float(z[flips].abs().max()) if flips.any() else 0.0,
+                    "largest_abs_preactivation_of_all": float(z.abs().max())}
+                flips_ok = flips_ok and f["share"] <= K8B_FLIP_SHARE and (
+                    f["largest_abs_preactivation"]
+                    <= K8_BF16_TOL * f["largest_abs_preactivation_of_all"])
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        same_bits = all(torch.equal(x, y) for x, y in zip(got, [again[0], *again[1]]))
+        names = ["ctx"] + [n for n, _ in ev.named_parameters()]
+        errs = {}
+        ok = launched == [2, 2, 2] and same_bits and flips_ok
+        # A float64 autograd of the same values: the accuracy of both.
+        ev64 = copy.deepcopy(ev).double()
+        leaf64 = ctx.detach().double().requires_grad_(True)
+        A.evaluator_scores_plain(ev64, planes.double(), feats.double(), leaf64,
+                                 torch.float64).backward(ds.double())
+        exact = [leaf64.grad] + [p.grad for p in ev64.parameters()]
+        del ev64, leaf64
+        for name, x, y, z, e64 in zip(names, got, want, autograd, exact):
+            x, y = x.double(), y.double()
+            scale = float(y.abs().max())
+            excess = float(((x - y).abs() - rel * y.abs() - rel * scale).max())
+            errs[name] = {"max_abs_err": float((x - y).abs().max()), "max_abs_plain": scale,
+                          "within": excess <= 0 and bool(torch.isfinite(x).all()),
+                          "vs_autograd": {"max_abs_err": float((x - z.double()).abs().max()),
+                                          "rel_l2": rel_l2(x, z)},
+                          "accuracy_rel_l2_vs_float64": {"kernels": rel_l2(x, e64),
+                                                         "autograd": rel_l2(z, e64)}}
+            ok = ok and errs[name]["within"]
+        # K8w alone: its chunks' partials summed against dz0^T x0 in float64.
+        t = 32 if dtype == torch.bfloat16 else 16
+        m, ntiles = b * 192, b * 192 // t
+        hk, hp = w.dz0.numel() // m, (h + 7) // 8 * 8
+        kx = w.x0.numel() // m
+        dz0 = w.dz0.view(ntiles, hk, t).permute(0, 2, 1).reshape(m, hk)[:, :hp]
+        x0 = w.x0.view(ntiles, kx, t).permute(0, 2, 1).reshape(m, kx)
+        partials = w.partw.view(-1, hp, kx)
+        exact = dz0.double().t() @ x0.double()
+        k8w_err = float((partials.sum(0).double() - exact).abs().max())
+        k8w_scale = float(exact.abs().max())
+        out["k8w_vs_float64"] = {"max_abs_err": k8w_err, "max_abs": k8w_scale,
+                                 "within": k8w_err <= K8W_REL * k8w_scale}
+        ok = ok and out["k8w_vs_float64"]["within"]
+        # The reduction's plain version: the block records (19 C1 + C2 (9 C1
+        # + 1) + 2 H + 1 floats each) and K8w's partials summed.
+        records = w.part.view(-1, 19 * c1 + c2 * (9 * c1 + 1) + 2 * h + 1)
+        dz0_c, x0_c = dz0.contiguous(), x0.contiguous()
+        dz0_f, x0_f = dz0_c.float(), x0_c.float()
+        reps, inner = (15, 10) if fast else (5, 2)
+        kernels = {}
+        for name, launch, names_k, plain_fn, lib_fn in (
+                ("K8b", A._evaluator_grad_tiles,
+                 ("evaluator_grad_tiles_kernel", "evaluator_layout_kernel"), plain, library),
+                ("K8w", A._evaluator_grad_dense0, ("evaluator_grad_dense0_kernel",),
+                 lambda: torch.matmul(dz0_f.t(), x0_f),
+                 lambda: torch.matmul(dz0_c.t(), x0_c)),
+                ("reduction", A._evaluator_grad_reduce,
+                 ("evaluator_grad_reduce_kernel", "evaluator_grad_ctx_kernel"),
+                 lambda: (records.sum(0), partials.sum(0)), None)):
+            def fn(launch=launch):
+                with torch.no_grad():
+                    launch(w)
+            dev = [kernel_device_ms(fn, k) for k in names_k]
+            kernels[name] = dict(
+                ms=time_ms(fn, reps, inner),
+                device_ms=(sum(dev) if all(isinstance(x, float) for x in dev)
+                           else "not measured"),
+                device_ms_by_kernel=dict(zip(names_k, dev)),
+                host_us=host_us(fn, reps=20 if fast else 5),
+                plain_ms=time_ms(plain_fn, reps, inner),
+                library_ms=time_ms(lib_fn, reps, inner) if lib_fn else None)
+        whole = {"kernels": [], "plain": [], "library": []}
+
+        def kernels_fn():
+            for p in (*params, leaf):
+                p.grad = None
+            A.EvaluatorFunction.apply(ev, planes, feats, leaf, dtype, *params).backward(ds)
+
+        for which in ("library", "plain", "kernels", "kernels", "plain", "library"):
+            fn = {"library": library, "plain": plain, "kernels": kernels_fn}[which]
+            whole[which].append(time_ms(fn, reps=7 if fast else 3, inner=3 if fast else 1))
+        out["whole"] = {k: statistics.mean(v) for k, v in whole.items()}
+    out.update(equal=ok, launches_a_call=launched, same_bits=same_bits, errors=errs,
+               max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+               tolerance=f"{rel} |plain| + {rel} max |plain| per tensor, K8's ReLU "
+                         f"decisions at conv2 and dense0 ("
+                         + ", ".join(f"{k} {v['count']}" for k, v in out["relu_flips"].items())
+                         + f" apart from the plain version's, within {K8_BF16_TOL} of "
+                           f"the largest pre-activation of 0)",
+               kernels=kernels)
+    es = dtype.itemsize
+    peak = PEAK_BF16_FLOPS_PER_S if dtype == torch.bfloat16 else PEAK_SCALAR_OPS_PER_S
+    n_params = sum(p.numel() for p in params)
+    bounds = {
+        # inputs and the upstream gradient read, x0 and dz0 written.
+        "K8b": (k8_bytes(b, widths, es) + b * 192 * es + (w.x0.numel() + w.dz0.numel()) * es
+                + (w.stile.numel() + w.part.numel()) * 4, k8b_flops(b, widths)),
+        "K8w": ((w.x0.numel() + w.dz0.numel()) * es + w.partw.numel() * 4,
+                k8w_flops(b, widths)),
+        "reduction": ((w.part.numel() + w.partw.numel() + w.stile.numel() + n_params) * 4
+                      + b * 3 * d * es, w.part.numel() + w.partw.numel() + 2 * b * 3 * d * h),
+    }
+    for name, (nbytes, ops) in bounds.items():
+        k = kernels[name]
+        k["bound_ms"], k["bound_by"] = bound_ms(nbytes, ops, peak if name != "reduction"
+                                                else PEAK_SCALAR_OPS_PER_S)
+    return out
+
+
+def k9_case(mask, seed) -> dict:
+    """K9 and its plain version on one mask and seed: bit for bit, times,
+    and the library's `torch.multinomial` over the mask's rows (a row with
+    no valid action weighted on action 0, which K9 returns there)."""
+    import torch
+
+    from bbx_torch.env import vector as V
+
+    n = mask.shape[0]
+    got = V._sample_valid_actions_cuda(mask, seed)
+    want = V.sample_valid_actions_plain(mask, seed)
+    weights = mask.float()
+    weights[:, 0] += (~mask.any(dim=1)).float()
+
+    def fn():
+        return V._sample_valid_actions_cuda(mask, seed)
+
+    nbytes, ops = n * 192 + 8 + n * 4, n * 192
+    t, by = bound_ms(nbytes, ops)
+    return dict(lanes=n, equal=bool(torch.equal(got, want)) and got.dtype == want.dtype,
+                max_abs_err=max_abs_err(got, want), empty_rows=int((~mask.any(dim=1)).sum()),
+                ms=time_ms(fn), device_ms=kernel_device_ms(fn, "sample_kernel"),
+                host_us=host_us(fn),
+                plain_ms=time_ms(lambda: V.sample_valid_actions_plain(mask, seed)),
+                library_ms=time_ms(lambda: torch.multinomial(weights, 1)),
+                bound_ms=t, bound_by=by)
 
 
 def k4_bytes(b: int, elem: int) -> int:
@@ -1053,7 +1436,7 @@ def engine_step_inputs(device) -> dict:
     state, actions = env.state, sample_valid_actions_device(act_rng, mask)
     rng_state = state.rng.get_state()
     moved = ST._move_core(state, actions)
-    out = dict(state=state, actions=actions, bits=moved.bits,
+    out = dict(state=state, mask=mask, actions=actions, bits=moved.bits,
                ids=state.piece_ids, seed=ES.regen_seed(state.rng, device),
                need=moved.need)
     state.rng.set_state(rng_state)
@@ -1209,9 +1592,14 @@ def kernel_counters():
     from bbx_torch.engine import solvability as S
     from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
+    from bbx_torch.env import vector as V
     from bbx_torch.models import afterstate as A
 
     return {"evaluator_scores": A.evaluator_scores,
+            "_evaluator_grad_tiles": A._evaluator_grad_tiles,
+            "_evaluator_grad_dense0": A._evaluator_grad_dense0,
+            "_evaluator_grad_reduce": A._evaluator_grad_reduce,
+            "sample_valid_actions_device": V.sample_valid_actions_device,
             "valid3_bits": S.valid3_bits,
             "solvable_disjoint_bits": S.solvable_disjoint_bits,
             "solvable_exact_bits": S.solvable_exact_bits,
@@ -1298,12 +1686,13 @@ def reference_phase(device, report):
 
 
 def device_ms_by_kernel(prof):
-    """{kernel name: (device ms, calls)} of a `torch.profiler` run."""
+    """{kernel name: (device ms, calls)} of a `torch.profiler` run (the
+    schedule's step markers, which span the device's timeline, left out)."""
     from torch.autograd import DeviceType
 
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
@@ -1429,6 +1818,7 @@ def train_phase(device, report):
 
     counters = kernel_counters()
     k4, k8 = counters["afterstate_buffer"], counters["evaluator_scores"]
+    k8b = counters["_evaluator_grad_tiles"]
     iters, stats = [], {}
     rollout0, update0, train0, loss0 = P.rollout, P.update, cli_train.train, P.ppo_loss
     first_minibatch = {}
@@ -1445,7 +1835,7 @@ def train_phase(device, report):
         return out
 
     def timed_update(*args, **kwargs):
-        before = k4.launches, k8.launches
+        before = k4.launches, k8.launches, k8b.launches
         first_minibatch.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1456,14 +1846,15 @@ def train_phase(device, report):
                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                          afterstate_launches_update=k4.launches - before[0],
                          evaluator_launches_update=k8.launches - before[1],
+                         evaluator_grad_launches_update=k8b.launches - before[2],
                          first_minibatch={k: float(v) for k, v in first_minibatch.items()},
                          metrics={k: float(v) for k, v in metrics.items()})
         return metrics
 
     def watched_loss(config, logits, value, batch, ent_coef):
         # The update's first minibatch, before any optimizer step: its
-        # forward (the plain evaluator, with gradients) against the logp
-        # the rollout stored (K8).
+        # forward (K8 under `EvaluatorFunction`, with gradients) against the
+        # logp the rollout stored (K8, no gradient).
         out = loss0(config, logits, value, batch, ent_coef)
         if not first_minibatch:
             with torch.no_grad():
@@ -1499,7 +1890,8 @@ def train_phase(device, report):
             f"K4 launches {r['afterstate_launches_rollout']} (rollout) + "
             f"{r['afterstate_launches_update']} (update), K8 launches "
             f"{r['evaluator_launches_rollout']} (rollout) + "
-            f"{r['evaluator_launches_update']} (update); first minibatch, before any "
+            f"{r['evaluator_launches_update']} (update), K8b launches "
+            f"{r['evaluator_grad_launches_update']} (update); first minibatch, before any "
             f"optimizer step: {r['first_minibatch']}; "
             + ", ".join(f"{k} {v:.6g}" for k, v in r["metrics"].items()))
     steps_per_s = stats.get("steps_per_sec", 0.0)
@@ -1532,11 +1924,20 @@ def train_phase(device, report):
             r["afterstate_launches_rollout"] > 0 and r["afterstate_launches_update"] > 0
             for r in iters):
         raise AssertionError("GAE or the afterstate kernel missed an iteration")
-    # K8 scores every rollout step and the last value; the update's forward
-    # needs gradients and runs the plain evaluator.
+    # K8 scores every rollout step and the last value, and every update
+    # minibatch's forward; K8's backward (K8b, K8w, the reduction) runs once
+    # in every update minibatch.
+    minibatches = RUN9_PPO["num_epochs"] * (RUN9_TRAINING["num_envs"]
+                                            * RUN9_TRAINING["rollout_steps"]
+                                            // RUN9_TRAINING["batch_size"])
     if not all(r["evaluator_launches_rollout"] == RUN9_TRAINING["rollout_steps"] + 1
-               and r["evaluator_launches_update"] == 0 for r in iters):
-        raise AssertionError("K8 missed a rollout forward or ran in the update")
+               and r["evaluator_launches_update"] == minibatches
+               and r["evaluator_grad_launches_update"] == minibatches for r in iters):
+        raise AssertionError(f"K8 missed a rollout forward, or K8 or K8b an update "
+                             f"minibatch ({minibatches} an update)")
+    if not (launches["_evaluator_grad_tiles"] == launches["_evaluator_grad_dense0"]
+            == launches["_evaluator_grad_reduce"]):
+        raise AssertionError(f"K8b, K8w and the reduction launched apart: {launches}")
     if not all(math.isfinite(v) for r in iters for v in r["first_minibatch"].values()):
         raise AssertionError("the first minibatch's logp gap is not finite")
     if resumed_from != TRAIN_TIMESTEPS:
@@ -1579,20 +1980,35 @@ def train_profile_phase(device, report):
         P.update(cfg, ts, traj, adv, ret, shuffle_rng)
 
     update(*rollout())  # warm-up: cuDNN plans (forward and backward), allocator
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     def profiled(fn):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        return result, wall, device_ms_by_kernel(prof)
+        result, wall, prof = profiled_calls(fn, record_shapes=True)
+        return result, wall, device_ms_by_kernel(prof), prof
 
-    (traj, last_value), wall_r, kernels_r = profiled(rollout)
-    _, wall_u, kernels_u = profiled(lambda: update(traj, last_value))
-    out = {}
+    (traj, last_value), wall_r, kernels_r, _ = profiled(rollout)
+    _, wall_u, kernels_u, prof_u = profiled(lambda: update(traj, last_value))
+    # An update minibatch runs no convolution of the evaluator's size (its
+    # input's batch M = 2048 x 192): K8 and K8's backward do that work; the
+    # value head's convolutions (batch 2048) remain.
+    m = cfg.minibatch_size * 192
+    conv_ops = {}
+    for evt in prof_u.key_averages(group_by_input_shape=True):
+        if "conv" in evt.key and evt.key.startswith("aten::"):
+            shapes = [sh for sh in evt.input_shapes if sh]
+            size = "evaluator" if any(sh[0] == m for sh in shapes) else "other"
+            conv_ops[size] = conv_ops.get(size, 0) + evt.count / cfg.num_minibatches
+    conv_kernels = sum(c for k, (_, c) in kernels_u.items()
+                       if any(w in k.lower() for w in CONV_KERNEL_WORDS)) / cfg.num_minibatches
+    ours = {k: sum(c for name, (_, c) in kernels_u.items() if k in name) / cfg.num_minibatches
+            for k in ("evaluator_kernel", "evaluator_grad_tiles_kernel",
+                      "evaluator_grad_dense0_kernel", "evaluator_grad_reduce_kernel")}
+    update_checks = {"convolution_ops_per_minibatch": conv_ops,
+                     "convolution_kernels_per_minibatch": conv_kernels,
+                     "k8_kernels_per_minibatch": ours,
+                     "ok": conv_ops.get("evaluator", 0) == 0 and bool(kernels_u)
+                     and all(v == 1 for v in ours.values())}
+    out = {"update_checks": update_checks}
     for name, units, unit, wall, by_name in (
             ("rollout", t_len, "step", wall_r, kernels_r),
             ("update", cfg.num_minibatches, "minibatch", wall_u, kernels_u)):
@@ -1614,6 +2030,10 @@ def train_profile_phase(device, report):
             log(f"    {row['ms_per_unit']:.4f} ms/{unit}  x{row['calls_per_unit']:.2f}  "
                 f"{row['name']}")
     report["train_profile"] = out
+    log(f"  update minibatch checks: {update_checks}")
+    if not update_checks["ok"]:
+        raise AssertionError(f"an update minibatch ran a convolution of the evaluator's "
+                             f"size or missed K8 or its backward: {update_checks}")
     # The evaluator in both layouts, after the train path so that neither
     # path's first forward finds cuDNN's plans for these shapes made.
     report["evaluator_layouts"] = layouts = evaluator_layouts(device)
@@ -1682,6 +2102,10 @@ def update_reference_phase(device, report):
     exact = copy.deepcopy(net).double()
     exact.compute_dtype = torch.float64
     res = {}
+    counters = kernel_counters()
+    k8_names = ("evaluator_scores", "_evaluator_grad_tiles", "_evaluator_grad_dense0",
+                "_evaluator_grad_reduce")
+    before = [counters[k].launches for k in k8_names]
     for name, dev, model in (("cpu_float64", "cpu", exact), ("cpu", "cpu", net),
                              ("card", device, net)):
         net_d = copy.deepcopy(model).to(dev)
@@ -1705,13 +2129,15 @@ def update_reference_phase(device, report):
         return rel, abs(ma["clip_fraction"] - mb["clip_fraction"]), {
             k: max_abs_err(pa[k], pb[k]) for k in pb}
 
+    # The card's update ran K8 (float32) and K8's backward once each.
+    k8_launches = [counters[k].launches - n for k, n in zip(k8_names, before)]
     rel, clip_diff, param_errs = versus("card", "cpu_float64")
     param_err = max(param_errs.values())
     moved = max(max_abs_err(res["cpu_float64"][1][k], v.double())
                 for k, v in net.named_parameters())
     atol = 1e-6 + 1e-3 * cfg.learning_rate
     ok = (max(rel.values()) <= 1e-4 and clip_diff <= 1 / (t_len * n)
-          and param_err <= atol)
+          and param_err <= atol and k8_launches == [1, 1, 1, 1])
     others = {pair: versus(*pair.split("_vs_"))[2]
               for pair in ("cpu_vs_cpu_float64", "card_vs_cpu")}
     report["update_reference"] = {"metrics": {k: m for k, (m, _) in res.items()},
@@ -1719,7 +2145,8 @@ def update_reference_phase(device, report):
                                   "param_max_abs_err": param_err,
                                   "param_atol": atol, "param_max_move": moved,
                                   "param_abs_err": param_errs,
-                                  "param_abs_err_of": others, "ok": ok}
+                                  "param_abs_err_of": others,
+                                  "k8_launches": dict(zip(k8_names, k8_launches)), "ok": ok}
 
     def largest(errs):
         return ", ".join(f"{k} {e:.3e}" for k, e in
@@ -1729,7 +2156,8 @@ def update_reference_phase(device, report):
         f"(limit 1e-4), clip_fraction {res['cpu_float64'][0]['clip_fraction']:.4f} vs "
         f"{res['card'][0]['clip_fraction']:.4f}, params max abs err {param_err:.3e} "
         f"(limit {atol:.3e}; the update moved them by up to {moved:.3e}); "
-        f"largest: {largest(param_errs)}; ok={ok}")
+        f"largest: {largest(param_errs)}; K8 and its backward launched "
+        f"{dict(zip(k8_names, k8_launches))}; ok={ok}")
     for pair, errs in others.items():
         log(f"  params, {pair.replace('_vs_', ' vs ')} (reported): {largest(errs)}")
     if not ok:
@@ -2049,12 +2477,13 @@ def main() -> int:
                                   "bound_by", "library_ms", "shape")} | {
                 k: r[k] for k in ("device_ms", "host_us", "bound_flops_ms", "bound_bytes_ms",
                                   "entry_points", "step", "at_update_shape",
-                                  "at_engine_shape", "at_other_shapes", "evaluator_layouts")
+                                  "at_engine_shape", "at_other_shapes", "evaluator_layouts",
+                                  "device_ms_by_kernel", "whole")
                 if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(report | {"failed": failed}, f, indent=2)
-    if failed or len(kernels) != 8:
+    if failed or len(kernels) != len(ROW_COUNTERS):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     print(report["nvidia_smi"])

@@ -4,8 +4,9 @@ the card.
     python3 scripts_dev/torch_k8_parts.py [--variants parts|knobs|tile]
                                           [--out chiprun_out/k8_parts.json]
 
-Compiles `bbx_torch/csrc/evaluator.cu` as it is and edited into variants
-into `build/k8_parts/`, then times each at run9 widths in bf16 at B = 512
+Compiles `bbx_torch/csrc/evaluator.cu` (with `evaluator.cuh`, which holds
+the tile's forward, inlined) as it is and edited into variants into
+`build/k8_parts/`, then times each at run9 widths in bf16 at B = 512
 and 2048 lanes between CUDA events, in turns (the list, then the list
 reversed).  The variant sets:
   parts  the products of conv1, conv2, dense0, or all three removed (and,
@@ -36,14 +37,14 @@ from bbx_torch.engine.step import observe  # noqa: E402
 from bbx_torch.models import afterstate as A  # noqa: E402
 from bbx_torch.ops import build  # noqa: E402
 
-# Each stage's call of the product, as it stands in evaluator.cu.
+# Each stage's call of the product, as it stands in evaluator.cuh.
 PRODUCTS = {
     "conv1": "tile_k16<2, 4, false, S>(c, a, b, e.c1m / 16, 4);",
-    "conv2": "tile_k16<2, 4, true, S>(c, a, b, 2, e.nt2);",
+    "conv2": "tile_k16<2, 4, true, S>(c, a, b, 2, nt);",
     "dense0": "tile_k16<T / 16, NT0, false, S>(acc, a, b, T / 16, nt0w);",
 }
 EPILOGUES = [
-    ("out[((4 * warp + j) * 10 + x) * c1p + ch] = relu_to<S>(c[i][j][k] + bias);", ";"),
+    ("put(ch, x, 4 * warp + j, relu_to<S>(c[i][j][k] + bb));", ";"),
     ("store2(o, relu_to<S>(c[i][j][0] + b0), relu_to<S>(c[i][j][1] + b1));", ";"),
     ("store2(o + sstr, relu_to<S>(c[i][j][2] + b0), relu_to<S>(c[i][j][3] + b1));", ";"),
 ]
@@ -54,13 +55,17 @@ CONTEXT = [("        for (; dd + 4 <= e.d; dd += 4) {", "        for (; dd + 4 <
 def replaced(text, pairs):
     for old, new in pairs:
         if old not in text:
-            raise SystemExit(f"evaluator.cu no longer holds {old!r}: update this script")
+            raise SystemExit(f"evaluator.cu(h) no longer holds {old!r}: update this script")
         text = text.replace(old, new)
     return text
 
 
 def variants(which):
-    src = open(os.path.join(build.CSRC, "evaluator.cu")).read()
+    with open(os.path.join(build.CSRC, "evaluator.cu")) as f:
+        src = f.read()
+    with open(os.path.join(build.CSRC, "evaluator.cuh")) as f:
+        header = f.read().replace("#pragma once\n", "")
+    src = replaced(src, [('#include "evaluator.cuh"\n', header)])
     out = {"full": src}
     if which == "parts":
         for name, call in PRODUCTS.items():
@@ -72,11 +77,11 @@ def variants(which):
     elif which == "knobs":
         dense0_loop = "#pragma unroll 2\n        for (int s = kq; s < e.c2p / 2; s += 2) {"
         out["launch_bounds_2"] = replaced(src, [(
-            "__launch_bounds__(8 * T)\nevaluator_kernel",
-            "__launch_bounds__(8 * T, 2)\nevaluator_kernel")])
+            "__launch_bounds__(8 * T)\nevaluator_kernel(",
+            "__launch_bounds__(8 * T, 2)\nevaluator_kernel(")])
         out["conv2_groups_unrolled"] = replaced(src, [(
-            "            for (int cg = 0; cg < e.cg1; ++cg) {",
-            "#pragma unroll 4\n            for (int cg = 0; cg < e.cg1; ++cg) {")])
+            "        for (int q = 0; q < cg; ++q) {",
+            "#pragma unroll 4\n        for (int q = 0; q < cg; ++q) {")])
         out["dense0_unroll_4"] = replaced(src, [(dense0_loop, dense0_loop.replace("2", "4", 1))])
         out["dense0_unroll_1"] = replaced(src, [(dense0_loop, dense0_loop.replace("2", "1", 1))])
     else:

@@ -113,6 +113,9 @@ inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+
 inline void __syncthreads() { bbx_block_barrier->arrive_and_wait(); }
 
 inline int __syncthreads_or(int pred) {

@@ -24,6 +24,7 @@ from bbx_torch.engine import state as TState
 from bbx_torch.engine.parity import ParityEngine
 from bbx_torch.engine.step import observe, step
 from bbx_torch.engine.tables import tables as TTables
+from bbx_torch.env import vector as V
 from bbx_torch.models import afterstate as A
 from bbx_torch.models import network_from_config
 from bbx_torch.utils.checkpoints import save_checkpoint
@@ -141,6 +142,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wide = network_from_config(dict(TINY_NET, eval_channels=[4, 40])).to(cuda)
     with pytest.raises(ValueError, match="K8 takes"):
         A.evaluator_scores(wide.evaluator, planes, feats, ctx, torch.bfloat16)
+    # K8's backward: the gradient's dtype and shape, the widths, and planes
+    # that require a gradient.
+    ds = torch.zeros(2 * 192, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds.float(), torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds[:191], torch.bfloat16)
+    with pytest.raises(ValueError, match="K8 takes"):
+        A._evaluator_grads_cuda(wide.evaluator, planes, feats, ctx, ds, torch.bfloat16)
+    with pytest.raises(ValueError, match="carry no gradient"):
+        A.evaluator_scores_autograd(net.evaluator, planes.clone().requires_grad_(True),
+                                    feats, ctx, torch.bfloat16)
+    # K9: the mask's dtype and shape, the seed's dtype.
+    mask = torch.ones((4, 192), dtype=torch.bool, device=cuda)
+    seed = torch.tensor(7, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="bool"):
+        V._sample_valid_actions_cuda(mask.to(torch.uint8), seed)
+    with pytest.raises(ValueError, match="shape"):
+        V._sample_valid_actions_cuda(mask[:, :191], seed)
+    with pytest.raises(ValueError, match="int64"):
+        V._sample_valid_actions_cuda(mask, seed.int())
     # K6's two entry points, the step and K7.
     state = TState.reset(4, TState.make_generator(0, cuda), cuda)
     acts = torch.zeros(4, dtype=torch.int32, device=cuda)
@@ -255,14 +277,17 @@ def test_gae_kernel_matches_plain_bit_for_bit(cuda):
 @pytest.mark.gpu
 def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
     """Two tiny PPO iterations on the card launch the train path's kernels
-    (K1, K4-K8; K2 and K3 run inside K7): K8 on each rollout step and the
-    last value (8 + 1 a rollout), never in the update, whose forward needs
-    gradients; a saved run loads and runs one more finite iteration."""
+    (K1, K4-K8 and K8's backward; K2 and K3 run inside K7): K8 on each
+    rollout step and the last value (8 + 1 a rollout) and in every update
+    minibatch (2 epochs x 2 minibatches an update), K8b, K8w and the
+    reduction once in every update minibatch; a saved run loads and runs
+    one more finite iteration."""
     cfg = {"training": {"num_envs": 16, "rollout_steps": 8, "batch_size": 64},
            "ppo": {"num_epochs": 2, "final_learning_rate": 1e-4},
            "network": dict(TINY_NET)}
+    grads = (A._evaluator_grad_tiles, A._evaluator_grad_dense0, A._evaluator_grad_reduce)
     counters = (S.valid3_bits, A.afterstate_buffer, P.compute_gae,
-                TStep._move_core, TState.regen_pieces, A.evaluator_scores)
+                TStep._move_core, TState.regen_pieces, A.evaluator_scores, *grads)
     for fn in counters:
         fn.launches = 0
     tr = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
@@ -270,7 +295,8 @@ def test_trainer_on_card_launches_every_kernel_and_resumes(cuda, tmp_path):
         m = {k: float(v) for k, v in tr.iterate().items()}
         assert all(np.isfinite(v) for v in m.values()), m
     assert P.compute_gae.launches == 2
-    assert A.evaluator_scores.launches == 2 * (8 + 1)
+    assert A.evaluator_scores.launches == 2 * (8 + 1) + 2 * 4
+    assert [fn.launches for fn in grads] == [2 * 4] * 3
     assert all(fn.launches > 0 for fn in counters), [fn.launches for fn in counters]
     path = tr.save(str(tmp_path), "mid")
     tr2 = PPOTrainer(cfg, seed=3, total_timesteps=512, device=cuda)
@@ -512,3 +538,141 @@ def test_evaluator_kernel_follows_an_optimizer_step(cuda):
     with torch.no_grad():
         again = A.evaluator_scores(net.evaluator, *inputs, torch.bfloat16)
     assert (again.float() - first.float()).abs().max() > 0.1
+
+
+# ---------------------------------------------------------------------------
+# K8's backward.
+# ---------------------------------------------------------------------------
+
+K8B_PARAMS = ("convs.0.weight", "convs.0.bias", "convs.1.weight", "convs.1.bias",
+              "dense0.weight", "dense0.bias", "dense1.weight", "dense1.bias")
+K8B_COUNTERS = (A._evaluator_grad_tiles, A._evaluator_grad_dense0, A._evaluator_grad_reduce)
+
+
+def _assert_grads_close(net, inputs, ds, dtype):
+    """K8's backward against its plain version, `evaluator_grads_plain`
+    (K8's rounding points in tensor ops: float32 with TF32 off, float64
+    sums in the float32 forward), on the same inputs and upstream gradient
+    and with K8's own ReLU decisions at conv2 and dense0 (read from its x0
+    and dz0): each gradient tensor g within rel |g_plain| + rel max
+    |g_plain|, rel = 2e-2 in bf16 (K8's forward tolerance) and 1e-4 in
+    float32 (sums in another order).  The decisions themselves may differ
+    from the plain version's only where a float32 sum lands on the other
+    side of a bf16 rounding boundary: at most 1% of them, each at a
+    pre-activation within 2e-2 of the layer's largest of 0.  Two runs give
+    the same bits."""
+    planes, feats, ctx = inputs
+    ev = net.evaluator
+    with float32_exact(), torch.no_grad():
+        before = [c.launches for c in K8B_COUNTERS]
+        w = A._GradWork(ev, planes, feats, ctx, ds, dtype)
+        for launch in K8B_COUNTERS:
+            launch(w)
+        dctx2, grads2 = A._evaluator_grads_cuda(ev, planes, feats, ctx, ds, dtype)
+        masks = w.relu_masks()
+        want_ctx, want, pre = A.evaluator_grads_plain(ev, planes, feats, ctx, ds, dtype,
+                                                      masks=masks)
+    assert [c.launches - b for c, b in zip(K8B_COUNTERS, before)] == [2, 2, 2]
+    got = [w.dctx] + w.grads()
+    assert all(torch.equal(a, b) for a, b in zip(got, [dctx2] + list(grads2)))
+    for layer, z in pre.items():
+        flips = masks[layer] != (z > 0)
+        assert flips.float().mean() <= 1e-2, layer
+        assert (z[flips].abs() <= 2e-2 * z.abs().max()).all(), layer
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    errs = {}
+    for name, g, w_ in zip(("ctx",) + K8B_PARAMS, got, [want_ctx] + want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, name
+        assert torch.isfinite(g).all(), name
+        g, w_ = g.double(), w_.double()
+        assert w_.abs().max() > 0, name
+        errs[name] = ((g - w_).abs().max().item(), w_.abs().max().item(),
+                      ((g - w_).abs() - rel * w_.abs() - rel * w_.abs().max()).max().item())
+    assert all(e[2] <= 0 for e in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths,b", [(((24, 24), 96, 32), 512), (((24, 24), 96, 32), 2048),
+                                      (((4, 4), 8, 6), 64), (((5, 12), 20, 7), 3)])
+def test_evaluator_grads_match_plain(cuda, widths, b, dtype):
+    """K8b, K8w and the reduction at run9 widths at B = 512 and the update
+    minibatch's 2048, at the tests' tiny widths and at widths that fill no
+    padded tile, in both dtypes."""
+    net, inputs = _k8_case(cuda, widths, b, dtype)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    ds = torch.randn(b * 192, generator=g, device=cuda).to(dtype)
+    _assert_grads_close(net, inputs, ds, dtype)
+
+
+@pytest.mark.gpu
+def test_evaluator_grads_follow_an_optimizer_step(cuda):
+    """K8's backward lays its weights out from the parameters at every
+    call: after an in-place Adam step it agrees with the plain version on
+    the new weights."""
+    net, inputs = _k8_case(cuda, ((24, 24), 96, 32), 256, torch.bfloat16)
+    opt = torch.optim.Adam(net.evaluator.parameters(), lr=0.05)
+    A.evaluator_scores_plain(net.evaluator, *inputs, torch.bfloat16).float().square().mean().backward()
+    opt.step()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ds = torch.randn(256 * 192, generator=g, device=cuda).to(torch.bfloat16)
+    _assert_grads_close(net, inputs, ds, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_network_backward_on_card_runs_the_evaluator_kernels(cuda):
+    """With gradients on, the network's forward on the card runs K8 and its
+    backward runs K8b, K8w and the reduction, once each, and no plain
+    evaluator: the parameters' gradients are close to the CPU's
+    checkpointed plain evaluator's (float32, TF32 off; 1e-4 of each
+    tensor's largest)."""
+    _, obs, _ = _midgame(torch.device("cpu"), n=16)
+    net = network_from_config(dict(TINY_NET, compute_dtype="float32"),
+                              generator=torch.Generator().manual_seed(4))
+    args = [obs[k] for k in ("board", "pieces", "action_mask")]
+
+    def grads(model, device):
+        model.zero_grad()
+        logits, value = model(*(a.to(device) for a in args))
+        m = args[2].to(device)
+        (torch.where(m, logits, 0.0).square().sum() + value.sum()).backward()
+        return {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+
+    want = grads(net, "cpu")
+    counters = (A.evaluator_scores, *K8B_COUNTERS)
+    before = [c.launches for c in counters]
+    with float32_exact():
+        got = grads(net.to(cuda), cuda)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    errs = {k: ((got[k] - w).abs().max().item(), w.abs().max().item()) for k, w in want.items()}
+    assert all(torch.isfinite(g).all() for g in got.values())
+    assert all(e <= 1e-4 * m for e, m in errs.values()), errs
+
+
+# ---------------------------------------------------------------------------
+# K9: the uniform valid-action sampler.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 16384])
+def test_sample_kernel_matches_plain(cuda, n):
+    """K9 equals its plain version bit for bit on one seed tensor: random
+    masks of every density, and rows with no valid action, one, and all
+    192; each drawn action is valid (0 on an empty row)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    density = torch.rand((n, 1), generator=g, device=cuda)
+    mask = torch.rand((n, 192), generator=g, device=cuda) < density
+    mask[0] = False
+    mask[1] = False
+    mask[1, 191] = True
+    mask[2] = True
+    seed = torch.randint(0, 2**32, (), generator=g, device=cuda, dtype=torch.int64)
+    before = V.sample_valid_actions_device.launches
+    got = V._sample_valid_actions_cuda(mask, seed)
+    assert V.sample_valid_actions_device.launches == before + 1
+    want = V.sample_valid_actions_plain(mask, seed)
+    assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want)
+    assert got[0] == 0 and got[1] == 191
+    some = mask.any(dim=1)
+    rows = torch.arange(n, device=cuda)
+    assert mask[rows[some], got[some].long()].all() and not got[~some].any()

@@ -115,9 +115,10 @@ def test_sample_valid_actions_device_respects_the_mask():
 
 
 def test_sample_valid_actions_device_all_false_mask_takes_action_0_as_bbx():
-    """On a row with no valid action every logit is -1e9; the float32
-    spacing there is 64, so the noise cannot separate them and both
-    samplers return action 0 (not a uniform draw over all 192)."""
+    """On a row with no valid action both samplers return action 0 (not a
+    uniform draw over all 192): bbx's categorical sees 192 logits of -1e9,
+    which its float32 noise cannot separate (the spacing there is 64), and
+    the port's sampler takes action 0 where a row counts no valid action."""
     mask = np.zeros((500, 192), bool)
     got = sample_valid_actions_device(torch.Generator().manual_seed(1),
                                       torch.from_numpy(mask)).numpy()
