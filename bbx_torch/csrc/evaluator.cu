@@ -56,7 +56,7 @@ evaluator_kernel(const S* __restrict__ planes, const S* __restrict__ feats,
     BBX_DYNAMIC_SHARED(smem);
     const size_t first = (size_t)blockIdx.x * T;  // the tile's first afterstate
     ev_forward_tile<S, T>(planes, feats, ctx, lay, e, sm, smem, first,
-                          [](int, const S*, int) {});
+                          [](int, const S*, int) {}, [] { __syncthreads(); });
     const float* s_f = (const float*)(smem + sm.f32);
     const float* s_hid = (const float*)(smem + sm.ring);
     float* s_part = (float*)(smem + sm.stage);

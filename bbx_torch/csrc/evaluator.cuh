@@ -445,17 +445,19 @@ __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int
 // The forward of the tile of T afterstates from `first` (one lane and
 // slot), up to dense0's output: leaves h = relu(dense0) rounded, as float,
 // in [T][hp + 1] at sm.ring, and the tile's features (float) at
-// s_f + sm.feats.  Every thread of the block (8T) calls it.  After conv2's
-// row r is in the stage ([T][8 c2p + 8]) and the block has synchronised,
+// s_f + sm.feats.  Its 8T threads, the block's first, call it and meet at
+// `sync()`, a barrier over exactly them.  After conv2's row r is in the
+// stage ([T][8 c2p + 8]) and they have synchronised,
 // `on_row(r, stage, sstr)` runs on every thread (the backward stores the
 // row there; K8 passes a no-op).
-template <typename S, int T, class OnRow>
+template <typename S, int T, class OnRow, class Sync>
 __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
                                                 const S* __restrict__ feats,
                                                 const S* __restrict__ ctx,
                                                 const S* __restrict__ lay, const EvDims& e,
                                                 const EvSmem& sm, unsigned char* smem,
-                                                size_t first, const OnRow& on_row) {
+                                                size_t first, const OnRow& on_row,
+                                                const Sync& sync) {
     constexpr int NTH = 8 * T, W = T / 4;
     using Acc = typename EvAccT<S>::type;
     S* s_in = (S*)(smem + sm.in);
@@ -552,7 +554,7 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
         for (; dd < e.d; ++dd) s4[0] += (Acc)to_f(crow[dd]) * to_f(lay[e.w0x + dd * e.hp + hh]);
         s_ctx[hh] = (s4[0] + s4[1]) + (s4[2] + s4[3]);
     }
-    __syncthreads();
+    sync();
 
     // conv1 row y into ring row y % 3, columns 1-8.
     auto conv1_row = [&](int y) {
@@ -562,7 +564,7 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
     };
     conv1_row(0);
     conv1_row(1);
-    __syncthreads();
+    sync();
 
     // dense0's accumulators: every m-tile (afterstates 16 i .. + 15, i <
     // T / 16) by n-tiles n0, n0 + W / 2, ... (those below nt0, at most
@@ -593,7 +595,7 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
                 }
             }
         }
-        __syncthreads();
+        sync();
         on_row(r, (const S*)s_stage, sstr);
 
         // dense0 over row r's k-slice (8 c2p columns of the flatten order),
@@ -610,7 +612,7 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
             tile_k16<T / 16, NT0, false, S>(acc, a, b, T / 16, nt0w);
         }
         if (r + 2 < 8) conv1_row(r + 2);
-        __syncthreads();
+        sync();
     }
 
     // dense0's epilogue: the odd k-steps' sums, in [T][hp + 1] over the
@@ -632,7 +634,7 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
         }
     };
     if (kq == 1) each_acc([&](Acc& v, int a, int hh) { s_odd[a * (e.hp + 1) + hh] = v; });
-    __syncthreads();
+    sync();
     if (kq == 0) {
         each_acc([&](Acc& v, int a, int hh) {
             const float* fa = s_f + sm.feats + a * 3;
@@ -641,8 +643,8 @@ __device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
             v = (v + s_odd[a * (e.hp + 1) + hh]) + (fsum + s_ctx[hh]) + (Acc)s_f[sm.b0 + hh];
         });
     }
-    __syncthreads();
+    sync();
     if (kq == 0)
         each_acc([&](Acc& v, int a, int hh) { s_hid[a * (e.hp + 1) + hh] = to_f(relu_to<S>(v)); });
-    __syncthreads();
+    sync();
 }

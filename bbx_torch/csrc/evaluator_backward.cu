@@ -31,54 +31,122 @@
 //  * bbx_evaluator_grad_tiles (K8b): the weight layout with the backward's
 //    operands (evaluator.cuh), then a grid of G blocks (SMs x resident
 //    blocks), block i taking tiles i, i + G, ... of T afterstates of one
-//    (lane, slot) -- T = 32 in bf16, 16 in float32, whose shared memory is
-//    twice as wide.  A tile recomputes K8's forward (ev_forward_tile) and
-//    writes x0 ([tile][kx][T], afterstate innermost) and dz0 ([tile][hk]
-//    [T]) for K8w, dz0's sum over the tile for the context, and keeps in
-//    shared memory a2 > 0 as bits and dz0.  Then it walks the image rows
-//    back, r = 7 .. 0, with rings of three rows in shared memory: conv1's
-//    row r - 1 again (channel-major, afterstate innermost: the B operand
-//    of dW2, whose k is the pixels); da2's row r = dz0 . W0t_r on the
-//    tensor cores (W0t_r: W0's columns of row r, transposed by the layout
-//    kernel, read from L2), masked; dW2 += da2_r^T . patches(a1) on the
-//    tensor cores (k = the row's pixels, afterstate innermost, so each
-//    column's 8 k values are contiguous; a per-row table gives each
-//    column's offset), its accumulators in registers for the block's
-//    life; da1's row r + 1 as the SAME convolution of da2's rows r .. r + 2
-//    with the flipped, transposed weights (ev_conv3_row, as conv2's
-//    forward), masked; dW1 and the biases' sums on the CUDA cores, dW1 by
-//    items (channel, input channel, image column) that read each da1 value
-//    once for their 9 taps.  The block writes one record of float32
+//    (lane, slot): T = 32 in bf16, 16 in float32, whose shared memory is
+//    twice as wide.  A block is two groups of warps, 8 each in bf16 (16 an
+//    SM: its products wait on shared memory and L2, and one group of 8 had
+//    too few warps to hide that), 4 in float32.  The data group recomputes
+//    K8's forward (ev_forward_tile) and writes x0 ([tile][kx][T], afterstate
+//    innermost) and dz0 ([tile][hk][T]) for K8w, 16 bytes a thread, the
+//    bf16 rows' 16-byte chunks permuted (evb_at) so that K8w's ldmatrix
+//    rows fall in distinct banks; dz0's sum over the tile for the context;
+//    and keeps in shared memory a2 > 0 as bits (a byte for each 8
+//    afterstates, no vote) and dz0.  Then it walks the image rows back, r
+//    = 7 .. 0, with rings of three rows in shared memory: conv1's row r - 1
+//    again (channel-major, afterstate innermost); da2's row r = dz0 . W0t_r
+//    on the tensor cores (W0t_r: W0's columns of row r, transposed by the
+//    layout kernel, read from L2), masked; da1's row r + 1 as the SAME
+//    convolution of da2's rows r .. r + 2 with the flipped, transposed
+//    weights (ev_conv3_row, as conv2's forward), masked, into [c1p][8][T].
+//    The weight group follows a row behind, its sums in registers for the
+//    block's life: dW2 += da2_r^T . patches(a1) on the tensor cores (k =
+//    the row's pixels, afterstate innermost, so each column's 8 k values
+//    are contiguous; a table gives each column's offset a row; a column of
+//    ones gives conv2's bias), and dW1 += da1_r . patches(planes), on the
+//    tensor cores in bf16 (k = the row's pixels, afterstate innermost; the
+//    tile's planes staged once, afterstate innermost, with strides that put
+//    an n8 tile's 8 columns in 8 banks; a column of ones gives conv1's
+//    bias), on the CUDA cores in float32.  The groups hand each other rows
+//    through named barriers.  The block writes one record of float32
 //    partial sums.  The forward's sums run in float64 in the float32
 //    instantiation, as in K8's (evaluator.cuh), so the recompute rounds
 //    each activation once and K8b's ReLU masks are K8's.
-//  * bbx_evaluator_grad_dense0 (K8w): dW0 = dz0^T . x0, split over the
-//    afterstates into chunks of tiles: a block a (128 columns of x0, chunk),
-//    128 afterstates staged in shared memory a pass, mma.sync products
-//    (mma.cuh), one float32 partial a chunk.  dW0 is 96 x 1,571 float32 at
-//    run9 (603 KB): it cannot be one block's accumulator.
+//  * bbx_evaluator_grad_dense0 (K8w): dW0 = dz0^T . x0, bound by reading x0
+//    once.  A persistent grid: block (column tile of 128 x0 columns, split)
+//    for enough splits to fill every SM, each split a contiguous run of
+//    tiles.  One producer warp keeps a ring of EVB_K8W_STAGES stages in
+//    flight with bulk asynchronous copies (bulk.cuh: cp.async.bulk and
+//    mbarriers, no tensor map): a stage is one tile's dz0 [hk][T] and its
+//    128 x0 columns [128][T], each one contiguous run of device memory as
+//    K8b wrote it.  Sixteen consumer warps multiply the landed stages on the
+//    tensor cores (mma.sync through ldmatrix; the scalar contract in
+//    float32) while the next stages land, and release each stage to the
+//    producer.  Each consumer sums 16 tiles' products in registers, then
+//    adds that into its total in shared memory (a split is thousands of
+//    tiles: one float32 sum of them all strays 3e-5 from float64, and
+//    ptxas caps a thread of this block at 96 registers).  One float32
+//    partial a split.  dW0 is 96 x 1,571 float32 at run9 (603 KB): it
+//    cannot be one block's accumulator.
 //  * bbx_evaluator_grad_reduce: every gradient element summed over the
-//    records or chunks in a fixed order, rounded once; and dctx, each
+//    records or splits in a fixed order, rounded once; and dctx, each
 //    (lane, slot)'s dz0 sum times W0's context columns.
+#include "bulk.cuh"
 #include "evaluator.cuh"
 
-#define EVB_K8W_COLS 128  // x0 columns a K8w block
-#define EVB_K8W_STAGE 128  // afterstates a K8w pass
-#define EVB_K8W_MAX_CHUNKS 64
+#define EVB_K8W_COLS 128      // x0 columns a K8w block
+#define EVB_K8W_STAGES 5      // K8w's ring: tiles in flight a block
+#define EVB_K8W_RUN 16        // tiles K8w sums before it adds the sum into its total
+#define EVB_K8W_CWARPS 16     // K8w's consumer warps (and one producer warp)
+#define EVB_K8W_THREADS (32 * EVB_K8W_CWARPS + 32)
+// Shared memory a block can have on the H100 (a test builds the emulated
+// library with less, to reach the layout of the width limits).
+#ifndef EVB_SMEM_LIMIT
+#define EVB_SMEM_LIMIT 232448
+#endif
+// dW1's B operand in bf16: the tile's planes [channel][10 rows][10 columns]
+// [T = 32] (zero halo), element strides with 16-byte units of 5 a column,
+// 55 (7 mod 8) a row and 556 (4 mod 8) a channel, so that the 8 columns
+// (tap, channel) of each n8 tile start in 8 different bank groups.
+#define EVB_PT_XS 40
+#define EVB_PT_YS 440
+#define EVB_PT_CS 4448
 
 template <typename S>
 struct EvbTile;
 template <>
-struct EvbTile<unsigned short> { static constexpr int T = 32; };
+struct EvbTile<unsigned short> { static constexpr int T = 32, G = 8; };
 template <>
-struct EvbTile<float> { static constexpr int T = 16; };
+struct EvbTile<float> { static constexpr int T = 16, G = 4; };
+
+// Element (row, afterstate a) of a tile's [rows][T] block of x0 or dz0.  In
+// bf16 the row's four 16-byte chunks (8 afterstates each) are permuted by
+// the row, chunk q stored at q ^ ((row / 2) % 4), so that ldmatrix's 8 rows
+// of one chunk lie in 8 different bank groups; float32 keeps the order.
+// `_GradWork.x0_matrix` / `dz0_matrix` (models/afterstate.py) undo it.
+template <typename S, int T>
+__device__ __forceinline__ int evb_at(int row, int a) {
+    if constexpr (sizeof(S) == 2) {
+        return row * T + (a ^ (((row >> 1) & 3) << 3));
+    } else {
+        return row * T + a;
+    }
+}
+
+// 8 consecutive elements to dst: one 16-byte store in bf16 (dst 16-byte
+// aligned).
+template <typename S>
+__device__ __forceinline__ void store8(S* dst, const S (&v)[8]) {
+    if constexpr (sizeof(S) == 2) {
+        uint4 w;
+        w.x = (unsigned)v[0] | (unsigned)v[1] << 16;
+        w.y = (unsigned)v[2] | (unsigned)v[3] << 16;
+        w.z = (unsigned)v[4] | (unsigned)v[5] << 16;
+        w.w = (unsigned)v[6] | (unsigned)v[7] << 16;
+        *(uint4*)dst = w;
+    } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) dst[u] = v[u];
+    }
+}
+
+__host__ __device__ inline int evb_min(int x, int y) { return x < y ? x : y; }
+__host__ __device__ inline int evb_max(int x, int y) { return x > y ? x : y; }
 
 // Byte offsets of K8b's shared memory: the forward's regions (f), and the
 // backward's, which reuse the forward's ring and stage once the tile's
 // forward is done.
 struct EvbSmem {
     EvSmem f;
-    int a1t, da2, da2t, dz0, mask, bsum, ds, cols, total;
+    int one, a1t, da2, da2t, da1, dz0, mask, ds, cols, pt, total;
 };
 
 template <typename S, int T>
@@ -86,24 +154,33 @@ static EvbSmem evb_smem(const EvDims& e) {
     const int es = (int)sizeof(S);
     EvbSmem s;
     const EvSizes<S, T> z = ev_sizes<S, T>(e, s.f);
-    auto larger = [](int x, int y) { return x > y ? x : y; };
     EvTake take;
     s.f.in = take(z.in);
     s.f.zero = take(32 * es);
+    s.one = take(32 * es);  // a row of ones: the bias columns' B operand
     s.f.w1a = take(z.w1a);
     s.f.w2 = take(z.w2);  // conv2's weights, then the transposed ones (as large)
     s.f.f32 = take(z.f32);
     // The forward's ring and dense0's output; then a1 [c1p][3 rows][10][T] (+8).
-    s.f.ring = s.a1t = take(larger(z.ring, e.c1p * (30 * T + 8) * es));
+    s.f.ring = s.a1t = take(evb_max(z.ring, e.c1p * (30 * T + 8) * es));
     // The forward's stage; then da2 [3 rows][T][10][c2p].
-    s.f.stage = s.da2 = take(larger(z.stage, 3 * T * 10 * e.c2p * es));
-    // da2's row channel-major [c2p][8][T] (+8); then da1's row [c1p][8][T].
-    s.da2t = take(larger(e.c2p * (8 * T + 8), e.c1p * 8 * T) * es);
+    s.f.stage = s.da2 = take(evb_max(z.stage, 3 * T * 10 * e.c2p * es));
+    // da2's row channel-major [c2p][8][T] (+8).
+    const int d1 = e.c1p * (8 * T + 8) * es;
+    s.da2t = take(evb_max(e.c2p * (8 * T + 8) * es, d1));
     s.dz0 = take(T * (e.hk + 8) * es);
     s.mask = take(64 * e.c2p * 4);
-    s.bsum = take(8 * EV_MAX_C * 4);
     s.ds = take(T * 4);
-    s.cols = take(9 * EV_MAX_C * 4);
+    s.cols = take(8 * 9 * e.c1p * 4);
+    s.pt = sizeof(S) == 2 ? take(2 * EVB_PT_CS * es) : 0;
+    // da1's row [c1p][8][T] (+8) on its own where it fits, else over da2t.
+    EvTake apart = take;
+    s.da1 = apart(d1);
+    if (apart.at <= EVB_SMEM_LIMIT) {
+        take = apart;
+    } else {
+        s.da1 = s.da2t;
+    }
     s.f.total = s.total = take.at;
     return s;
 }
@@ -144,18 +221,45 @@ static EvbRecord evb_record(const EvDims& e) {
 // K8b: a tile's forward again, and its backward row by row.
 // ---------------------------------------------------------------------------
 
-template <typename S, int T>
-__global__ void __launch_bounds__(8 * T)
+// The named barriers between K8b's two warp groups (and within each).
+enum : int {
+    EVB_BAR_DATA = 1,      // the data group's own barrier
+    EVB_BAR_WEIGHTS = 2,   // the weight group's own
+    EVB_BAR_WALK = 3,      // the tile's walk is set up
+    EVB_BAR_ROW = 4,       // a1's row r - 1 and da2's row r are in shared memory
+    EVB_BAR_ROW_READ = 5,  // dW2 has read them
+    EVB_BAR_DA1 = 6,       // da1's row y is in shared memory
+    EVB_BAR_DA1_READ = 7,  // dW1 has read it
+    EVB_BAR_TILE = 8,      // the weight group is done with the tile
+};
+
+// A block is two groups of G warps.  The data group (warps 0 .. G - 1)
+// recomputes the tile's forward, writes x0 and dz0, and walks the data
+// gradients back row by row: conv1's row r - 1 again, da2's row r, da1's
+// row r + 1.  The weight group (warps G .. 2G - 1) follows a step behind
+// with the weight gradients of the rows the data group has finished, dW2's
+// of row r and dW1's of row r + 1, holding their sums in its registers for
+// the block's life.  Each hands the other its rows through named barriers
+// (one arrives, the other waits), so that the two groups' products overlap.
+template <typename S, int T, int G>
+__global__ void __launch_bounds__(64 * G)
 evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ feats,
                             const S* __restrict__ ctx, const S* __restrict__ lay,
                             const S* __restrict__ dscores, S* __restrict__ x0,
                             S* __restrict__ dz0g, float* __restrict__ stile,
                             float* __restrict__ part, EvDims e, EvbSmem sm, EvbRecord rec,
                             int ntiles) {
-    constexpr int NTH = 8 * T, NW = T / 4;
+    constexpr int NTH = 32 * G, BOTH = 2 * NTH, Q = T / 8;
+    // conv1's weight gradient on the tensor cores (bf16): warp w of the
+    // weight group takes m-tile w % 2 and k-steps w / 2, w / 2 + G / 2, ...
+    // of each row's 16.
+    constexpr bool TC1 = sizeof(S) == 2;
+    static_assert(!TC1 || T == 32, "bf16 K8b: tiles of 32 afterstates");
+    static_assert(G == T / 4, "the data group runs the forward's 8T threads (evaluator.cuh)");
     BBX_DYNAMIC_SHARED(smem);
     const S* s_in = (const S*)(smem + sm.f.in);
     const S* s_zero = (const S*)(smem + sm.f.zero);
+    S* s_one = (S*)(smem + sm.one);
     const S* s_w1a = (const S*)(smem + sm.f.w1a);
     S* s_w = (S*)(smem + sm.f.w2);
     const float* s_f = (const float*)(smem + sm.f.f32);
@@ -163,271 +267,389 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
     S* s_a1t = (S*)(smem + sm.a1t);
     S* s_da2 = (S*)(smem + sm.da2);
     S* s_da2t = (S*)(smem + sm.da2t);
-    S* s_da1 = (S*)(smem + sm.da2t);
+    S* s_da1 = (S*)(smem + sm.da1);
     S* s_dz0 = (S*)(smem + sm.dz0);
     unsigned* s_mask = (unsigned*)(smem + sm.mask);
-    float* s_bsum = (float*)(smem + sm.bsum);
     float* s_ds = (float*)(smem + sm.ds);
     int* s_cols = (int*)(smem + sm.cols);
+    S* s_pt = (S*)(smem + sm.pt);
 
-    const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
     const int c1p = e.c1p, c2p = e.c2p;
     const int A1S = 30 * T + 8, D2S = 8 * T + 8, DZS = e.hk + 8;
+    // da1 over da2t (at the width limits): each row's da1 waits for dW2's
+    // reads of da2t, and the next da2 for dW1's reads of da1.
+    const bool da1_apart = sm.da1 != sm.da2t;
+    float* out = part + (size_t)blockIdx.x * rec.size;
 
-    // The block's sums over its tiles.  dW2: the tensor-core accumulators,
-    // m = c2 (two m16 tiles), n = (tap, c1) in 9 cg1 n8 tiles, this warp's
-    // n-tiles warp, warp + NW, ...
-    constexpr int NTW = (9 * EV_MAX_C / 8 + NW - 1) / NW;
-    const int n2 = 9 * e.cg1;
-    const int ntw = warp < n2 ? (n2 - warp + NW - 1) / NW : 0;
-    const int mt2 = (c2p + 15) / 16;
-    float acc2[2][NTW][4];
-    zero(acc2);
-    // dW1 and conv1's bias: items it = tid + NTH u of [c1][ci 2][x 8], each
-    // the 9 taps' sums over its column x (and, for ci 0, the bias's).
-    constexpr int U1 = (16 * EV_MAX_C + NTH - 1) / NTH;
-    float acc1[U1][10];
-    // conv2's bias: partial sums o = tid + NTH u of [c2p][8 columns].
-    constexpr int U2 = (8 * EV_MAX_C + NTH - 1) / NTH;
-    float accb2[U2];
-    for (int u = 0; u < U1; ++u)
-        for (int q = 0; q < 10; ++q) acc1[u][q] = 0.0f;
-    for (int u = 0; u < U2; ++u) accb2[u] = 0.0f;
-    float acc_db0 = 0.0f, acc_dwd1 = 0.0f, acc_dbd1 = 0.0f;
-
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const size_t first = (size_t)tile * T;
-        const int ls = (int)(first / 64);  // lane * 3 + slot
-        S* xt = x0 + (size_t)tile * e.kx * T;
-        __syncthreads();  // the previous tile's reads are done
-        for (int i = tid; i < T; i += NTH) s_ds[i] = to_f(dscores[first + i]);
-        // x0's feature and context columns (and the zero columns to kx).
-        for (int i = tid; i < (e.kx - 64 * c2p) * T; i += NTH) {
-            const int j = i / T, a = i % T;
-            S v = 0;
-            if (j < 3) {
-                v = feats[(first + a) * 3 + j];
-            } else if (j < 3 + e.d) {
-                v = ctx[(size_t)ls * e.d + j - 3];
-            }
-            xt[(size_t)(64 * c2p + j) * T + a] = v;
-        }
-
-        // The forward, storing each row of a2 into x0 and its signs as bits.
-        ev_forward_tile<S, T>(
-            planes, feats, ctx, lay, e, sm.f, smem, first, [&](int r, const S* stage, int sstr) {
-                for (int i = tid; i < 8 * c2p * T; i += NTH) {
-                    const int k = i / T, a = i % T;  // k = x c2p + c
-                    const S v = stage[a * sstr + k];
-                    xt[(size_t)(r * 8 * c2p + k) * T + a] = v;
-                    const unsigned bits = __ballot_sync(0xFFFFFFFFu, to_f(v) > 0.0f);
-                    if (a == 0) {
-                        if constexpr (T == 32) {
-                            s_mask[r * 8 * c2p + k] = bits;
-                        } else {
-                            s_mask[r * 8 * c2p + k] = (bits >> (tid & 16)) & 0xFFFFu;
-                        }
-                    }
+    if (threadIdx.x < NTH) {
+        // The data group.
+        const int tid = threadIdx.x, warp = tid >> 5;
+        auto sync = [] { bbx_bar_sync(EVB_BAR_DATA, NTH); };
+        if (tid < 32) s_one[tid] = from_f<S>(1.0f);
+        float acc_db0 = 0.0f, acc_dwd1 = 0.0f, acc_dbd1 = 0.0f;
+        for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+            const size_t first = (size_t)tile * T;
+            const int ls = (int)(first / 64);  // lane * 3 + slot
+            S* xt = x0 + (size_t)tile * e.kx * T;
+            for (int i = tid; i < T; i += NTH) s_ds[i] = to_f(dscores[first + i]);
+            // x0's feature and context columns (and the zero columns to kx),
+            // 8 afterstates a thread.
+            for (int i = tid; i < (e.kx - 64 * c2p) * Q; i += NTH) {
+                const int j = i / Q, q = i % Q;
+                S v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const size_t a = first + 8 * q + u;
+                    v[u] = j < 3 ? feats[a * 3 + j]
+                                 : (j < 3 + e.d ? ctx[(size_t)ls * e.d + j - 3] : (S)0);
                 }
-            });
-
-        // dz0 = ds w1 where h > 0, rounded: [T][hk + 8] here, [hk][T] for K8w.
-        for (int i = tid; i < T * e.hk; i += NTH) {
-            const int hh = i / T, a = i % T;
-            S v = 0;
-            if (hh < e.hp && s_hid[a * (e.hp + 1) + hh] > 0.0f)
-                v = from_f<S>(s_ds[a] * s_f[sm.f.w1 + hh]);
-            s_dz0[a * DZS + hh] = v;
-            dz0g[((size_t)tile * e.hk + hh) * T + a] = v;
-        }
-        __syncthreads();
-        // dense1's gradients, dense0's bias and the tile's dz0 sum (the
-        // context's gradient), float32 in the afterstates' order.
-        if (tid < e.hp) {
-            float sh = 0.0f, sz = 0.0f;
-            for (int a = 0; a < T; ++a) {
-                sh += s_ds[a] * s_hid[a * (e.hp + 1) + tid];
-                sz += to_f(s_dz0[a * DZS + tid]);
+                store8(xt + evb_at<S, T>(64 * c2p + j, 8 * q), v);
             }
-            acc_dwd1 += sh;
-            acc_db0 += sz;
-            stile[(size_t)tile * e.hp + tid] = sz;
-        }
-        if (tid == 0) {
-            float s = 0.0f;
-            for (int a = 0; a < T; ++a) s += s_ds[a];
-            acc_dbd1 += s;
-        }
-        __syncthreads();  // the walk overwrites dense0's output
 
-        // The walk's set-up: conv2's transposed weights over conv2's, the
-        // rings' zero columns, conv1's row 7.
-        {
-            const uint4* src = (const uint4*)(lay + e.w2t);
-            uint4* dst = (uint4*)s_w;
-            for (int i = tid; i < 5 * e.cg2 * e.cg1 * 128 * (int)sizeof(S) / 16; i += NTH)
-                dst[i] = src[i];
-        }
-        for (int i = tid; i < c1p * 6 * T; i += NTH) {
-            const int c = i / (6 * T), rem = i % (6 * T);
-            const int slot = rem / (2 * T), side = (rem / T) & 1;
-            s_a1t[c * A1S + (slot * 10 + side * 9) * T + rem % T] = 0;
-        }
-        for (int i = tid; i < 3 * T * 2 * c2p; i += NTH) {
-            const int row = i / (2 * c2p), side = (i / c2p) & 1;
-            s_da2[(row * 10 + side * 9) * c2p + i % c2p] = 0;
-        }
-        auto conv1_row = [&](int y) {
-            ev_conv1_row<S, T>(s_in, s_w1a, s_zero, s_f + sm.f.b1c, e, y,
-                               [&](int ch, int x, int a, S v) {
-                                   s_a1t[ch * A1S + ((y % 3) * 10 + x + 1) * T + a] = v;
-                               });
-        };
-        conv1_row(7);
+            // The forward, storing each row of a2 into x0 and its signs as
+            // bits, 8 afterstates a thread.
+            ev_forward_tile<S, T>(
+                planes, feats, ctx, lay, e, sm.f, smem, first,
+                [&](int r, const S* stage, int sstr) {
+                    for (int i = tid; i < 8 * c2p * Q; i += NTH) {
+                        const int k = i / Q, q = i % Q;  // k = x c2p + c
+                        const int col = r * 8 * c2p + k;
+                        S v[8];
+                        unsigned bits = 0;
+#pragma unroll
+                        for (int u = 0; u < 8; ++u) {
+                            v[u] = stage[(8 * q + u) * sstr + k];
+                            bits |= (to_f(v[u]) > 0.0f ? 1u : 0u) << u;
+                        }
+                        store8(xt + evb_at<S, T>(col, 8 * q), v);
+                        ((unsigned char*)s_mask)[col * 4 + q] = (unsigned char)bits;
+                    }
+                },
+                sync);
 
-        for (int r = 7; r >= -1; --r) {
-            if (r >= 1) conv1_row(r - 1);
-            // dW2's B column n = (tap, c1) of this row: its offset in the a1
+            // dz0 = ds w1 where h > 0, rounded: [T][hk + 8] here, [hk][T] for K8w.
+            for (int i = tid; i < e.hk * Q; i += NTH) {
+                const int hh = i / Q, q = i % Q;
+                S v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const int a = 8 * q + u;
+                    S x = 0;
+                    if (hh < e.hp && s_hid[a * (e.hp + 1) + hh] > 0.0f)
+                        x = from_f<S>(s_ds[a] * s_f[sm.f.w1 + hh]);
+                    v[u] = x;
+                    s_dz0[a * DZS + hh] = x;
+                }
+                store8(dz0g + (size_t)tile * e.hk * T + evb_at<S, T>(hh, 8 * q), v);
+            }
+            sync();
+            // dense1's gradients, dense0's bias and the tile's dz0 sum (the
+            // context's gradient), float32 in the afterstates' order.
+            if (tid < e.hp) {
+                float sh = 0.0f, sz = 0.0f;
+                for (int a = 0; a < T; ++a) {
+                    sh += s_ds[a] * s_hid[a * (e.hp + 1) + tid];
+                    sz += to_f(s_dz0[a * DZS + tid]);
+                }
+                acc_dwd1 += sh;
+                acc_db0 += sz;
+                stile[(size_t)tile * e.hp + tid] = sz;
+            }
+            if (tid == 0) {
+                float s = 0.0f;
+                for (int a = 0; a < T; ++a) s += s_ds[a];
+                acc_dbd1 += s;
+            }
+            sync();  // the walk overwrites dense0's output
+
+            // The walk's set-up: conv2's transposed weights over conv2's,
+            // the rings' zero columns, dW2's B column table for rows 0-7,
+            // the planes as dW1's B operand (bf16), conv1's row 7.
+            {
+                const uint4* src = (const uint4*)(lay + e.w2t);
+                uint4* dst = (uint4*)s_w;
+                for (int i = tid; i < 5 * e.cg2 * e.cg1 * 128 * (int)sizeof(S) / 16; i += NTH)
+                    dst[i] = src[i];
+            }
+            for (int i = tid; i < c1p * 6 * T; i += NTH) {
+                const int c = i / (6 * T), rem = i % (6 * T);
+                const int slot = rem / (2 * T), side = (rem / T) & 1;
+                s_a1t[c * A1S + (slot * 10 + side * 9) * T + rem % T] = 0;
+            }
+            for (int i = tid; i < 3 * T * 2 * c2p; i += NTH) {
+                const int row = i / (2 * c2p), side = (i / c2p) & 1;
+                s_da2[(row * 10 + side * 9) * c2p + i % c2p] = 0;
+            }
+            // dW2's B column n = (tap, c1) of row r: its offset in the a1
             // ring (its pixels k follow), or -1 where the tap's input row
             // lies outside the image.
-            for (int n = tid; n < 9 * c1p; n += NTH) {
+            for (int i = tid; i < 8 * 9 * c1p; i += NTH) {
+                const int r = i / (9 * c1p), n = i % (9 * c1p);
                 const int tap = n / c1p, c = n % c1p, yy = r + tap / 3 - 1;
-                s_cols[n] = yy < 0 || yy > 7 ? -1 : c * A1S + ((yy % 3) * 10 + tap % 3) * T;
+                s_cols[i] = yy < 0 || yy > 7 ? -1 : c * A1S + ((yy % 3) * 10 + tap % 3) * T;
             }
-            if (r >= 0) {
-                // da2's row r: [T] x [8 c2p] = dz0 [T x hk] . W0t_r [hk x 8 c2p],
-                // this warp's n8 tiles warp, warp + NW, ...; masked, rounded,
-                // into the ring (pixel-major) and channel-major.
-                constexpr int MTB = T / 16, NTB = 32 / NW;
-                const int ntb = warp < c2p ? (c2p - warp + NW - 1) / NW : 0;
-                float cb[MTB][NTB][4];
-                zero(cb);
-                for (int ks = 0; ks < e.hk / 16; ++ks) {
-                    auto a = [&](int i, int row, int half) -> const S* {
-                        return s_dz0 + (i * 16 + row) * DZS + ks * 16 + half * 8;
-                    };
-                    auto b = [&](int j, int half, int col) -> const S* {
-                        return lay + e.w0t +
-                            (((size_t)r * (e.hk / 16) + ks) * c2p + warp + NW * j) * 128 +
-                            half * 64 + col * 8;
-                    };
-                    tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);
+            if constexpr (TC1) {
+                // s_in [a][10][10][2] -> s_pt [ci][10][10][a], 8 afterstates a thread.
+                for (int i = tid; i < 200 * Q; i += NTH) {
+                    const int p = i / Q, q = i % Q;  // p = (row * 10 + column) * 2 + ci
+                    const int yx = p >> 1;
+                    S v[8];
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) v[u] = s_in[(8 * q + u) * 200 + p];
+                    store8(s_pt + (p & 1) * EVB_PT_CS + (yx / 10) * EVB_PT_YS +
+                               (yx % 10) * EVB_PT_XS + 8 * q,
+                           v);
                 }
+            }
+            bbx_bar_arrive(EVB_BAR_WALK, BOTH);
+            auto conv1_row = [&](int y) {
+                ev_conv1_row<S, T>(s_in, s_w1a, s_zero, s_f + sm.f.b1c, e, y,
+                                      [&](int ch, int x, int a, S v) {
+                                          s_a1t[ch * A1S + ((y % 3) * 10 + x + 1) * T + a] = v;
+                                      });
+            };
+            conv1_row(7);
+
+            // The weight group's reads this group waits for before
+            // overwriting what they read: dW2 of rows 7 .. 0, dW1 of rows 7
+            // .. 1, each once, in order.  Each wait is a barrier of this
+            // whole group too.
+            int row_read = 7, da1_read = 7;
+            auto wait_row_read = [&](int upto) {
+                bool waited = false;
+                for (; row_read >= upto && row_read >= 0; --row_read, waited = true)
+                    bbx_bar_sync(EVB_BAR_ROW_READ, BOTH);
+                return waited;
+            };
+            auto wait_da1_read = [&](int upto) {
+                bool waited = false;
+                for (; da1_read >= upto && da1_read >= 1; --da1_read, waited = true)
+                    bbx_bar_sync(EVB_BAR_DA1_READ, BOTH);
+                return waited;
+            };
+            for (int r = 7; r >= -1; --r) {
+                const int y = r + 1;
+                // a1's ring slot of row r + 2 and da2t (and, over it, da1)
+                // are overwritten next; the last row's da1 has read the
+                // rings.
+                bool met = wait_row_read(r + 1);
+                if (!da1_apart) met = wait_da1_read(r + 2) || met;
+                if (!met && r < 7) sync();
+                if (r >= 1) conv1_row(r - 1);
+                if (r >= 0) {
+                    // da2's row r: [T] x [8 c2p] = dz0 [T x hk] . W0t_r [hk x
+                    // 8 c2p], this warp's n8 tiles warp, warp + G, ...; masked,
+                    // rounded, into the ring (pixel-major) and channel-major.
+                    constexpr int MTB = T / 16, NTB = 32 / G;
+                    const int ntb = warp < c2p ? (c2p - warp + G - 1) / G : 0;
+                    float cb[MTB][NTB][4];
+                    zero(cb);
+                    for (int ks = 0; ks < e.hk / 16; ++ks) {
+                        auto a = [&](int i, int row, int half) -> const S* {
+                            return s_dz0 + (i * 16 + row) * DZS + ks * 16 + half * 8;
+                        };
+                        auto b = [&](int j, int half, int col) -> const S* {
+                            return lay + e.w0t +
+                                (((size_t)r * (e.hk / 16) + ks) * c2p + warp + G * j) * 128 +
+                                half * 64 + col * 8;
+                        };
+                        tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);
+                    }
 #pragma unroll
-                for (int i = 0; i < MTB; ++i) {
+                    for (int i = 0; i < MTB; ++i) {
 #pragma unroll
-                    for (int j = 0; j < NTB; ++j) {
-                        if (j < ntb) {
+                        for (int j = 0; j < NTB; ++j) {
+                            if (j < ntb) {
 #pragma unroll
-                            for (int k = 0; k < 4; ++k) {
-                                const int a = i * 16 + g + (k >> 1) * 8;
-                                const int n = (warp + NW * j) * 8 + 2 * t + (k & 1);
-                                const int x = n / c2p, c = n % c2p;
-                                const bool on = (s_mask[(r * 8 + x) * c2p + c] >> a) & 1u;
-                                const S v = on ? from_f<S>(cb[i][j][k]) : (S)0;
-                                s_da2[(((r % 3) * T + a) * 10 + x + 1) * c2p + c] = v;
-                                s_da2t[c * D2S + x * T + a] = v;
+                                for (int k = 0; k < 4; ++k) {
+                                    const int a = i * 16 + g + (k >> 1) * 8;
+                                    const int n = (warp + G * j) * 8 + 2 * t + (k & 1);
+                                    const int x = n / c2p, c = n % c2p;
+                                    const bool on = (s_mask[(r * 8 + x) * c2p + c] >> a) & 1u;
+                                    const S v = on ? from_f<S>(cb[i][j][k]) : (S)0;
+                                    s_da2[(((r % 3) * T + a) * 10 + x + 1) * c2p + c] = v;
+                                    s_da2t[c * D2S + x * T + a] = v;
+                                }
                             }
                         }
                     }
+                    bbx_bar_arrive(EVB_BAR_ROW, BOTH);
+                }
+                if (y <= 7) {
+                    // da1's row y: the transposed convolution of da2's rows r
+                    // .. r + 2, masked by a1 > 0, rounded, into [c1p][8][T].
+                    sync();  // da2's row r is in the ring
+                    float cd[2][4][4];
+                    ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);
+                    wait_da1_read(y + 1);
+                    if (!da1_apart) wait_row_read(r);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            if (j < e.cg1) {
+#pragma unroll
+                                for (int k = 0; k < 4; ++k) {
+                                    const int a = 2 * (warp + G * i) + (k >> 1), x = g;
+                                    const int c = j * 8 + 2 * t + (k & 1);
+                                    const bool on =
+                                        to_f(s_a1t[c * A1S + ((y % 3) * 10 + x + 1) * T + a]) >
+                                        0.0f;
+                                    s_da1[c * D2S + x * T + a] =
+                                        on ? from_f<S>(cd[i][j][k]) : (S)0;
+                                }
+                            }
+                        }
+                    }
+                    bbx_bar_arrive(EVB_BAR_DA1, BOTH);
                 }
             }
-            __syncthreads();
+            bbx_bar_sync(EVB_BAR_TILE, BOTH);  // the weight group is done with the tile
+        }
+        if (tid < e.h) {
+            out[rec.b0 + tid] = acc_db0;
+            out[rec.wd1 + tid] = acc_dwd1;
+        }
+        if (tid == 0) out[rec.bd1] = acc_dbd1;
+        return;
+    }
+
+    // The weight group.
+    const int tid = threadIdx.x - NTH, warp = tid >> 5;
+    // dW2 and conv2's bias: the tensor-core accumulators, m = c2 (two m16
+    // tiles), n = (tap, c1) in 9 cg1 n8 tiles and one of ones, this warp's
+    // n-tiles warp, warp + G, ...
+    constexpr int NTW = (9 * EV_MAX_C / 8 + 1 + G - 1) / G;
+    const int n2 = 9 * e.cg1 + 1;
+    const int ntw = warp < n2 ? (n2 - warp + G - 1) / G : 0;
+    const int mt2 = (c2p + 15) / 16;
+    float acc2[2][NTW][4];
+    zero(acc2);
+    // dW1 and conv1's bias.  bf16: n = (tap, input channel) 18 and one of
+    // ones in 3 n8 tiles.  float32: items it = tid + NTH u of [c1][ci 2][x
+    // 8], each the 9 taps' sums over its column x (and, for ci 0, the
+    // bias's).
+    constexpr int U1 = TC1 ? 1 : (16 * EV_MAX_C + NTH - 1) / NTH;
+    float acc1[1][3][4];
+    float acc1s[U1][10];
+    zero(acc1);
+    for (int u = 0; u < U1; ++u)
+        for (int q = 0; q < 10; ++q) acc1s[u][q] = 0.0f;
+
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        bbx_bar_sync(EVB_BAR_WALK, BOTH);
+        for (int r = 7; r >= -1; --r) {
+            const int y = r + 1;
             if (r >= 0) {
-                // dW2 += da2_r^T [c2 x (8 T pixels)] . patches(a1) [(8 T) x (9 c1p)].
+                // dW2 += da2_r^T [c2 x (8 T pixels)] . patches(a1) [(8 T) x
+                // (9 c1p)], and conv2's bias: the n-tile 9 cg1 of ones.
+                bbx_bar_sync(EVB_BAR_ROW, BOTH);
+                const int* cols = s_cols + r * 9 * c1p;
                 for (int ks = 0; ks < T / 2; ++ks) {
                     auto a = [&](int i, int row, int half) -> const S* {
                         const int c = i * 16 + row;
                         return c < c2p ? s_da2t + c * D2S + ks * 16 + half * 8 : s_zero;
                     };
                     auto b = [&](int j, int half, int col) -> const S* {
-                        const int at = s_cols[(warp + NW * j) * 8 + col];
+                        const int jn = warp + G * j;
+                        if (jn == 9 * e.cg1) return s_one;
+                        const int at = cols[jn * 8 + col];
                         return at < 0 ? s_zero : s_a1t + at + ks * 16 + half * 8;
                     };
                     tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);
                 }
-                for (int u = 0; u < U2; ++u) {
-                    const int o = tid + NTH * u;
-                    if (o < 8 * c2p) {
-                        const S* p = s_da2t + (o / 8) * D2S + (o % 8) * T;
-                        float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-                        for (int a = 0; a < T; a += 4) {
-#pragma unroll
-                            for (int k = 0; k < 4; ++k) s4[k] += to_f(p[a + k]);
-                        }
-                        accb2[u] += (s4[0] + s4[1]) + (s4[2] + s4[3]);
-                    }
-                }
+                bbx_bar_arrive(EVB_BAR_ROW_READ, BOTH);
             }
-            // da1's row r + 1: the transposed convolution of da2's rows r ..
-            // r + 2, masked by a1 > 0, rounded, into [c1p][T][8] over da2t.
-            const int y = r + 1;
-            float cd[2][4][4];
-            if (y <= 7) ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);
-            __syncthreads();
             if (y <= 7) {
+                bbx_bar_sync(EVB_BAR_DA1, BOTH);
+                if constexpr (TC1) {
+                    // dW1 [c1][(tap, ci)] += da1_y [c1 x (8 T pixels)] .
+                    // patches(planes) [(8 T) x (tap, ci)]: k = x T + a.
+                    const int mi = warp & 1;
+                    for (int ks = warp >> 1; ks < T / 2; ks += G / 2) {
+                        const int x = ks >> 1, a0 = (ks & 1) * 16;
+                        auto a = [&](int, int row, int half) -> const S* {
+                            const int c = mi * 16 + row;
+                            return c < c1p ? s_da1 + c * D2S + ks * 16 + half * 8 : s_zero;
+                        };
+                        auto b = [&](int j, int half, int col) -> const S* {
+                            const int n = j * 8 + col;  // tap n / 2, channel n % 2; 18: ones
+                            if (n < 18) {
+                                const int tap = n >> 1;
+                                return s_pt + (n & 1) * EVB_PT_CS + (y + tap / 3) * EVB_PT_YS +
+                                    (x + tap % 3) * EVB_PT_XS + a0 + half * 8;
+                            }
+                            return n == 18 ? s_one : s_zero;
+                        };
+                        tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);
+                    }
+                } else {
+                    // dW1 [c1][ci][dy][dx] += sum over the row's pixels of da1
+                    // x planes(y + dy - 1, x + dx - 1, ci): item (c, ci, x)
+                    // keeps the 9 taps' sums over its column's afterstates,
+                    // ci 0 also the bias's.
+                    for (int u = 0; u < U1; ++u) {
+                        const int it = tid + NTH * u;
+                        if (it < 16 * e.c1) {
+                            const int c = it / 16, ci = (it / 8) % 2, x = it % 8;
+                            const S* dr = s_da1 + c * D2S + x * T;
+                            const S* in = s_in + y * 20 + x * 2 + ci;
+                            for (int a = 0; a < T; ++a) {
+                                const float d = to_f(dr[a]);
+                                const S* w = in + a * 200;
 #pragma unroll
-                for (int i = 0; i < 2; ++i) {
+                                for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        if (j < e.cg1) {
-#pragma unroll
-                            for (int k = 0; k < 4; ++k) {
-                                const int a = 2 * (warp + NW * i) + (k >> 1), x = g;
-                                const int c = j * 8 + 2 * t + (k & 1);
-                                const bool on =
-                                    to_f(s_a1t[c * A1S + ((y % 3) * 10 + x + 1) * T + a]) > 0.0f;
-                                s_da1[(c * T + a) * 8 + x] = on ? from_f<S>(cd[i][j][k]) : (S)0;
+                                    for (int dx = 0; dx < 3; ++dx)
+                                        acc1s[u][dy * 3 + dx] += d * to_f(w[dy * 20 + dx * 2]);
+                                acc1s[u][9] += ci == 0 ? d : 0.0f;
                             }
                         }
                     }
                 }
+                if (y >= 1) bbx_bar_arrive(EVB_BAR_DA1_READ, BOTH);
             }
-            __syncthreads();
-            if (y <= 7) {
-                // dW1 [c1][ci][dy][dx] += sum over the row's pixels of da1 x
-                // planes(y + dy - 1, x + dx - 1, ci): item (c, ci, x) keeps the 9
-                // taps' sums over its column's afterstates, ci 0 also the bias's.
-                for (int u = 0; u < U1; ++u) {
-                    const int it = tid + NTH * u;
-                    if (it < 16 * e.c1) {
-                        const int c = it / 16, ci = (it / 8) % 2, x = it % 8;
-                        const S* dr = s_da1 + c * T * 8 + x;
-                        const S* in = s_in + y * 20 + x * 2 + ci;
-                        for (int a = 0; a < T; ++a) {
-                            const float d = to_f(dr[a * 8]);
-                            const S* w = in + a * 200;
-#pragma unroll
-                            for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-                                for (int dx = 0; dx < 3; ++dx)
-                                    acc1[u][dy * 3 + dx] += d * to_f(w[dy * 20 + dx * 2]);
-                            acc1[u][9] += ci == 0 ? d : 0.0f;
-                        }
-                    }
-                }
-            }
-            __syncthreads();
         }
+        bbx_bar_arrive(EVB_BAR_TILE, BOTH);
     }
 
-    // The block's record.  dW1's items join over their 8 columns in order,
-    // through shared memory (the a1 ring, free now).
-    float* out = part + (size_t)blockIdx.x * rec.size;
+    // The weight group's part of the record.  dW1's parts join in a fixed
+    // order through shared memory (the a1 ring, which the data group no
+    // longer reads).
     float* s_items = (float*)(smem + sm.a1t);
-    __syncthreads();
-    for (int u = 0; u < U1; ++u) {
-        const int it = tid + NTH * u;
-        if (it < 16 * e.c1)
-            for (int q = 0; q < 10; ++q) s_items[it * 10 + q] = acc1[u][q];
-    }
-    __syncthreads();
-    for (int o = tid; o < 19 * e.c1; o += NTH) {
-        const int c = o / 19, q = o % 19;  // q: ci 9 + tap, or 18 for the bias
-        const int ci = q < 18 ? q / 9 : 0, k = q < 18 ? q % 9 : 9;
-        float s = 0.0f;
-        for (int x = 0; x < 8; ++x) s += s_items[((c * 2 + ci) * 8 + x) * 10 + k];
-        out[q < 18 ? rec.w1 + c * 18 + q : rec.b1 + c] = s;
+    if constexpr (TC1) {
+        // Warp w's [c1][19] (18 (tap, ci) columns, then the bias) at row
+        // block w / 2: each (w / 2, c) is one warp's (m-tile c / 16).
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int c = (warp & 1) * 16 + g + (k >> 1) * 8, n = j * 8 + 2 * t + (k & 1);
+                if (c < e.c1 && n < 19) s_items[((warp >> 1) * e.c1 + c) * 19 + n] = acc1[0][j][k];
+            }
+        }
+        bbx_bar_sync(EVB_BAR_WEIGHTS, NTH);
+        for (int o = tid; o < 19 * e.c1; o += NTH) {
+            const int c = o / 19, q = o % 19;  // q: 2 tap + ci, or 18 for the bias
+            float s = 0.0f;
+            for (int p = 0; p < G / 2; ++p) s += s_items[(p * e.c1 + c) * 19 + q];
+            out[q < 18 ? rec.w1 + c * 18 + (q & 1) * 9 + (q >> 1) : rec.b1 + c] = s;
+        }
+    } else {
+        for (int u = 0; u < U1; ++u) {
+            const int it = tid + NTH * u;
+            if (it < 16 * e.c1)
+                for (int q = 0; q < 10; ++q) s_items[it * 10 + q] = acc1s[u][q];
+        }
+        bbx_bar_sync(EVB_BAR_WEIGHTS, NTH);
+        for (int o = tid; o < 19 * e.c1; o += NTH) {
+            const int c = o / 19, q = o % 19;  // q: ci 9 + tap, or 18 for the bias
+            const int ci = q < 18 ? q / 9 : 0, k = q < 18 ? q % 9 : 9;
+            float s = 0.0f;
+            for (int x = 0; x < 8; ++x) s += s_items[((c * 2 + ci) * 8 + x) * 10 + k];
+            out[q < 18 ? rec.w1 + c * 18 + q : rec.b1 + c] = s;
+        }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -437,96 +659,146 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
 #pragma unroll
                 for (int k = 0; k < 4; ++k) {
                     const int c = i * 16 + g + (k >> 1) * 8;
-                    const int n = (warp + NW * j) * 8 + 2 * t + (k & 1);
-                    const int tap = n / c1p, ci = n % c1p;
-                    if (c < e.c2 && ci < e.c1) out[rec.w2 + (c * e.c1 + ci) * 9 + tap] = acc2[i][j][k];
+                    const int jn = warp + G * j, n = jn * 8 + 2 * t + (k & 1);
+                    if (c >= e.c2) continue;
+                    if (jn == 9 * e.cg1) {
+                        if ((n & 7) == 0) out[rec.b2 + c] = acc2[i][j][k];
+                    } else {
+                        const int tap = n / c1p, ci = n % c1p;
+                        if (ci < e.c1) out[rec.w2 + (c * e.c1 + ci) * 9 + tap] = acc2[i][j][k];
+                    }
                 }
             }
         }
     }
-    for (int u = 0; u < U2; ++u) {
-        const int o = tid + NTH * u;
-        if (o < 8 * c2p) s_bsum[o] = accb2[u];
-    }
-    __syncthreads();
-    if (tid < e.c2) {
-        float s = 0.0f;
-        for (int x = 0; x < 8; ++x) s += s_bsum[tid * 8 + x];
-        out[rec.b2 + tid] = s;
-    }
-    if (tid < e.h) {
-        out[rec.b0 + tid] = acc_db0;
-        out[rec.wd1 + tid] = acc_dwd1;
-    }
-    if (tid == 0) out[rec.bd1] = acc_dbd1;
 }
 
 // ---------------------------------------------------------------------------
-// K8w: dW0 = dz0^T . x0, split over chunks of tiles.
+// K8w: dW0 = dz0^T . x0 over a ring of bulk copies.
 // ---------------------------------------------------------------------------
 
-// 8 elements (16 bytes in bf16, 32 in float32) from src, or zeros.
-template <typename S>
-__device__ __forceinline__ void copy8(S* dst, const S* src, bool on) {
-    uint4* d = (uint4*)dst;
-    const uint4* s = (const uint4*)src;
-#pragma unroll
-    for (int q = 0; q < (int)sizeof(S) / 2; ++q) d[q] = on ? s[q] : make_uint4(0, 0, 0, 0);
+// K8w's consumers' accumulators a thread: m-tiles mh, mh + 2, ... of at
+// most 8, n-tiles of their columns.
+#define EVB_K8W_ACC (EV_MAX_H / 32 * (32 / EVB_K8W_CWARPS) * 4)
+
+// Bytes of K8w's shared memory: the stages' barriers (full, then empty),
+// the stages, each dz0 [hk][T] and x0 [128 columns][T], then the
+// consumers' totals [EVB_K8W_ACC][consumer thread] (float32).
+template <typename S, int T>
+static int evb_k8w_smem(const EvDims& e) {
+    return 128 + EVB_K8W_STAGES * (e.hk + EVB_K8W_COLS) * T * (int)sizeof(S) +
+        EVB_K8W_ACC * 32 * EVB_K8W_CWARPS * 4;
 }
 
 template <typename S, int T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(EVB_K8W_THREADS)
 evaluator_grad_dense0_kernel(const S* __restrict__ x0, const S* __restrict__ dz0g,
-                             float* __restrict__ partw, EvDims e, int ntiles, int per_chunk,
+                             float* __restrict__ partw, EvDims e, int ntiles, int splits,
                              int cols) {
-    constexpr int TPS = EVB_K8W_STAGE / T, KS = EVB_K8W_STAGE + 8;
     BBX_DYNAMIC_SHARED(smem);
-    S* s_a = (S*)smem;             // dz0 [hk][KS]: m = h, k = afterstates
-    S* s_b = s_a + e.hk * KS;      // x0 [128 columns][KS]: n = column, k = afterstates
-    const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-    // Block (column tile, chunk) = (blockIdx.x % cols, blockIdx.x / cols).
-    const int chunk = blockIdx.x / cols;
+    unsigned long long* full = (unsigned long long*)smem;
+    unsigned long long* empty = full + EVB_K8W_STAGES;
+    S* ring = (S*)(smem + 128);
+    const int stage = (e.hk + EVB_K8W_COLS) * T;
+    float* s_total = (float*)(ring + EVB_K8W_STAGES * stage);
+    const int tid = threadIdx.x, warp = tid >> 5;
+    // Block (column tile, split) = (blockIdx.x % cols, blockIdx.x / cols);
+    // the split's tiles [t0, t1).
+    const int split = blockIdx.x / cols;
     const int c0 = (blockIdx.x % cols) * EVB_K8W_COLS;
-    const int t0 = chunk * per_chunk;
-    const int t1 = t0 + per_chunk < ntiles ? t0 + per_chunk : ntiles;
-    const int mt = e.hk / 16;
-    float acc[EV_MAX_H / 16][2][4];
-    zero(acc);
-    for (int ts = t0; ts < t1; ts += TPS) {
-        __syncthreads();
-        for (int i = tid; i < e.hk * (EVB_K8W_STAGE / 8); i += 256) {
-            const int hh = i / (EVB_K8W_STAGE / 8), m = (i % (EVB_K8W_STAGE / 8)) * 8;
-            const int tile = ts + m / T;
-            copy8(s_a + hh * KS + m, dz0g + ((size_t)tile * e.hk + hh) * T + m % T, tile < t1);
+    const int ncols = e.kx - c0 < EVB_K8W_COLS ? e.kx - c0 : EVB_K8W_COLS;
+    const int t0 = (int)((long long)ntiles * split / splits);
+    const int n = (int)((long long)ntiles * (split + 1) / splits) - t0;
+    if (tid == 0) {
+        for (int s = 0; s < EVB_K8W_STAGES; ++s) {
+            bbx_mbar_init(full + s, 1);
+            bbx_mbar_init(empty + s, EVB_K8W_CWARPS);
         }
-        for (int i = tid; i < EVB_K8W_COLS * (EVB_K8W_STAGE / 8); i += 256) {
-            const int cc = i / (EVB_K8W_STAGE / 8), m = (i % (EVB_K8W_STAGE / 8)) * 8;
-            const int tile = ts + m / T, col = c0 + cc;
-            copy8(s_b + cc * KS + m, x0 + ((size_t)tile * e.kx + col) * T + m % T,
-                  tile < t1 && col < e.kx);
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int ks = 0; ks < EVB_K8W_STAGE / 16; ++ks) {
-            auto a = [&](int i, int row, int half) -> const S* {
-                return s_a + (i * 16 + row) * KS + ks * 16 + half * 8;
-            };
-            auto b = [&](int j, int half, int col) -> const S* {
-                return s_b + ((2 * warp + j) * 8 + col) * KS + ks * 16 + half * 8;
-            };
-            tile_k16<EV_MAX_H / 16, 2, true, S>(acc, a, b, mt, 2);
-        }
+        bbx_mbar_fence_init();
     }
-    float* out = partw + (size_t)chunk * e.hp * e.kx;
+    __syncthreads();
+
+    if (warp == EVB_K8W_CWARPS) {
+        // The producer: tile it into stage it % STAGES once its readers of
+        // the tile STAGES before have released it.
+        if (tid == 32 * EVB_K8W_CWARPS) {
+            const unsigned bz = e.hk * T * sizeof(S), bx = ncols * T * sizeof(S);
+            for (int it = 0; it < n; ++it) {
+                const int s = it % EVB_K8W_STAGES;
+                if (it >= EVB_K8W_STAGES) bbx_mbar_wait(empty + s, (it / EVB_K8W_STAGES - 1) & 1);
+                const size_t tile = (size_t)(t0 + it);
+                S* st = ring + s * stage;
+                bbx_mbar_expect_tx(full + s, bz + bx);
+                bbx_bulk_copy(st, dz0g + tile * e.hk * T, bz, full + s);
+                bbx_bulk_copy(st + e.hk * T, x0 + (tile * e.kx + c0) * T, bx, full + s);
+            }
+        }
+        return;
+    }
+
+    // The consumers: warp (mh, nq) = (warp / Q, warp % Q), Q = CWARPS / 2,
+    // takes m-tiles mh, mh + 2, ... of dz0's rows and n-tiles NQ nq .. NQ
+    // nq + NQ - 1 of the columns (NQ = 16 / Q).
+    constexpr int Q = EVB_K8W_CWARPS / 2, NQ = 16 / Q;
+    const int g = (tid & 31) >> 2, t = tid & 3;
+    const int mh = warp / Q, nq = warp % Q;
+    const int mt = e.hk / 16;
+    const int mtw = mt > mh ? (mt - mh + 1) / 2 : 0;
+    const int ntw = evb_max(evb_min((ncols - 8 * NQ * nq + 7) / 8, NQ), 0);
+    // Two-level float32 sums, so that a split's thousands of tiles keep
+    // dense0's weight gradient within 1e-5 of its float64 value: the
+    // products of EVB_K8W_RUN tiles in registers, then their sum added
+    // into the thread's total in shared memory.
+    float acc[EV_MAX_H / 32][NQ][4];
+    zero(acc);
+    float* total = s_total + tid;  // element q at total[q * 32 CWARPS]
+    for (int q = 0; q < EVB_K8W_ACC; ++q) total[q * 32 * EVB_K8W_CWARPS] = 0.0f;
+    auto add_run = [&] {
 #pragma unroll
-    for (int i = 0; i < EV_MAX_H / 16; ++i) {
+        for (int i = 0; i < EV_MAX_H / 32; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+            for (int j = 0; j < NQ; ++j)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    total[((i * NQ + j) * 4 + k) * 32 * EVB_K8W_CWARPS] +=
+                        acc[i][j][k];
+                    acc[i][j][k] = 0.0f;
+                }
+    };
+    for (int it = 0; it < n; ++it) {
+        if (it % EVB_K8W_RUN == 0) add_run();
+        const int s = it % EVB_K8W_STAGES;
+        bbx_mbar_wait(full + s, (it / EVB_K8W_STAGES) & 1);
+        const S* sa = ring + s * stage;
+        const S* sb = sa + e.hk * T;
+        if (ntw > 0) {
+#pragma unroll
+            for (int ks = 0; ks < T / 16; ++ks) {
+                auto a = [&](int i, int row, int half) -> const S* {
+                    return sa + evb_at<S, T>((mh + 2 * i) * 16 + row, ks * 16 + half * 8);
+                };
+                auto b = [&](int j, int half, int col) -> const S* {
+                    return sb + evb_at<S, T>((NQ * nq + j) * 8 + col, ks * 16 + half * 8);
+                };
+                tile_k16<EV_MAX_H / 32, NQ, true, S>(acc, a, b, mtw, ntw);
+            }
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) bbx_mbar_arrive(empty + s);
+    }
+    add_run();
+    float* out = partw + (size_t)split * e.hp * e.kx;
+#pragma unroll
+    for (int i = 0; i < EV_MAX_H / 32; ++i) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-                const int hh = i * 16 + g + (k >> 1) * 8;
-                const int col = c0 + (2 * warp + j) * 8 + 2 * t + (k & 1);
-                if (i < mt && hh < e.hp && col < e.kx) out[(size_t)hh * e.kx + col] = acc[i][j][k];
+                const int hh = (mh + 2 * i) * 16 + g + (k >> 1) * 8;
+                const int col = c0 + (NQ * nq + j) * 8 + 2 * t + (k & 1);
+                if (i < mtw && j < ntw && hh < e.hp && col < e.kx)
+                    out[(size_t)hh * e.kx + col] =
+                        total[((i * NQ + j) * 4 + k) * 32 * EVB_K8W_CWARPS];
             }
         }
     }
@@ -540,7 +812,7 @@ evaluator_grad_dense0_kernel(const S* __restrict__ x0, const S* __restrict__ dz0
 template <typename S>
 __global__ void __launch_bounds__(256)
 evaluator_grad_reduce_kernel(const float* __restrict__ part, int blocks, EvbRecord rec,
-                             const float* __restrict__ partw, int chunks, EvDims e,
+                             const float* __restrict__ partw, int splits, EvDims e,
                              float* __restrict__ grads, int total) {
     const int f = 64 * e.c2 + 3 + e.d;
     const int nw1 = e.c1 * 18, nw2 = e.c2 * e.c1 * 9, nw0 = e.h * f;
@@ -558,7 +830,7 @@ evaluator_grad_reduce_kernel(const float* __restrict__ part, int blocks, EvbReco
         } else if ((j -= e.c2) < nw0) {
             const int hh = j / f, ff = j % f;
             const int col = ff < 64 * e.c2 ? (ff / e.c2) * e.c2p + ff % e.c2 : 64 * e.c2p + ff - 64 * e.c2;
-            for (int c = 0; c < chunks; ++c) s += partw[((size_t)c * e.hp + hh) * e.kx + col];
+            for (int c = 0; c < splits; ++c) s += partw[((size_t)c * e.hp + hh) * e.kx + col];
         } else if ((j -= nw0) < e.h) {
             at = rec.b0 + j;
         } else if ((j -= e.h) < e.h) {
@@ -594,30 +866,44 @@ evaluator_grad_ctx_kernel(const float* __restrict__ stile, const S* __restrict__
 // Entry points.
 // ---------------------------------------------------------------------------
 
-// The launch geometry at these widths: K8b's grid (SMs x resident blocks,
-// at most the tiles), K8w's tiles a chunk and chunks.
+// The launch geometry at these widths: K8b's threads a block, resident
+// blocks an SM and grid (SMs x resident blocks, at most the tiles); K8w's
+// column tiles, resident blocks an SM and splits (as many as fill the SMs'
+// resident blocks with every column tile, at most the tiles).
 struct EvbPlan {
-    int ntiles, blocks, per_chunk, chunks;
+    int ntiles, threads, resident, blocks, cols, resident_w, splits;
 };
 
 template <typename S>
 static int evb_plan(int b, const EvDims& e, EvbPlan& p) {
-    constexpr int T = EvbTile<S>::T;
-    static int smem_set[64];
-    auto* const kernel = &evaluator_grad_tiles_kernel<S, T>;
-    const int smem = evb_smem<S, T>(e).total;
-    int err = ev_allow_smem(kernel, smem, smem_set);
-    if (err) return err;
-    int dev = 0, sms = 1, resident = 1;
+    constexpr int T = EvbTile<S>::T, G = EvbTile<S>::G;
+    static int smem_set[64], smem_set_w[64], carveout_set[64];
+    auto* const kernel = &evaluator_grad_tiles_kernel<S, T, G>;
+    auto* const kernel_w = &evaluator_grad_dense0_kernel<S, T>;
+    const int smem = evb_smem<S, T>(e).total, smem_w = evb_k8w_smem<S, T>(e);
+    int dev = 0, sms = 1;
     cudaGetDevice(&dev);
+    int err = ev_allow_smem(kernel, smem, smem_set);
+    if (!err) err = ev_allow_smem(kernel_w, smem_w, smem_set_w);
+    // As much of the SM's unified memory as shared memory (once a device):
+    // K8w holds its ring there, and more blocks an SM keep more bytes in
+    // flight.
+    if (!err && !carveout_set[dev % 64]) {
+        err = (int)cudaFuncSetAttribute(kernel_w, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                        cudaSharedmemCarveoutMaxShared);
+        carveout_set[dev % 64] = !err;
+    }
+    if (err) return err;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 8 * T, smem);
+    p.threads = 64 * G;
+    p.resident = p.resident_w = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.resident, kernel, p.threads, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.resident_w, kernel_w, EVB_K8W_THREADS,
+                                                  smem_w);
     p.ntiles = b * (EV_ACTIONS / T);
-    p.blocks = sms * (resident > 0 ? resident : 1);
-    if (p.blocks > p.ntiles) p.blocks = p.ntiles;
-    p.per_chunk = (p.ntiles + EVB_K8W_MAX_CHUNKS - 1) / EVB_K8W_MAX_CHUNKS;
-    if (p.per_chunk < 1) p.per_chunk = 1;
-    p.chunks = p.ntiles > 0 ? (p.ntiles + p.per_chunk - 1) / p.per_chunk : 0;
+    p.blocks = evb_min(sms * evb_max(p.resident, 1), p.ntiles);
+    p.cols = (e.kx + EVB_K8W_COLS - 1) / EVB_K8W_COLS;
+    p.splits = evb_min(evb_max(sms * evb_max(p.resident_w, 1) / p.cols, 1), p.ntiles);
     return 0;
 }
 
@@ -626,7 +912,11 @@ static const float* const* evb_params(const void* const* p) { return (const floa
 // Sizes of the backward's buffers at b lanes: out[0] the weight layout's
 // elements (compute type), [1] x0's and [2] dz0's elements (compute type),
 // [3] the tiles' dz0 sums, [4] the records, [5] K8w's partials (float32),
-// [6] the gradients' floats.  Returns an error beyond the limits.
+// [6] the gradients' floats; and the plan: [7] K8b's threads a block, [8]
+// its resident blocks an SM, [9] its grid, [10] K8w's ring stages, [11] its
+// resident blocks an SM, [12] its splits, [13] K8b's shared memory bytes,
+// [14] 1 where da1 has its own shared memory.  Returns an error beyond the
+// limits.
 extern "C" int bbx_evaluator_grad_sizes(int b, int c1, int c2, int h, int d, int elem,
                                         long long* out) {
     if ((elem != 2 && elem != 4) || !ev_widths_ok(c1, c2, h, d) || b < 0)
@@ -641,8 +931,18 @@ extern "C" int bbx_evaluator_grad_sizes(int b, int c1, int c2, int h, int d, int
     out[2] = m * e.hk;
     out[3] = (long long)p.ntiles * e.hp;
     out[4] = (long long)p.blocks * evb_record(e).size;
-    out[5] = (long long)p.chunks * e.hp * e.kx;
+    out[5] = (long long)p.splits * e.hp * e.kx;
     out[6] = evb_grad_total(e);
+    out[7] = p.threads;
+    out[8] = p.resident;
+    out[9] = p.blocks;
+    out[10] = EVB_K8W_STAGES;
+    out[11] = p.resident_w;
+    out[12] = p.splits;
+    const EvbSmem sm = elem == 2 ? evb_smem<unsigned short, EvbTile<unsigned short>::T>(e)
+                                 : evb_smem<float, EvbTile<float>::T>(e);
+    out[13] = sm.total;
+    out[14] = sm.da1 != sm.da2t;
     return (int)cudaGetLastError();
 }
 
@@ -650,14 +950,14 @@ template <typename S>
 static int evb_tiles(const void* planes, const void* feats, const void* ctx, const void* ds,
                      const void* const* params, void* layout, void* x0, void* dz0, void* stile,
                      void* part, int b, const EvDims& e, void* stream) {
-    constexpr int T = EvbTile<S>::T;
+    constexpr int T = EvbTile<S>::T, G = EvbTile<S>::G;
     EvbPlan p;
     const int err = evb_plan<S>(b, e, p);
     if (err) return err;
     ev_launch_layout<S>(evb_params(params), layout, e, e.total, stream);
     const EvbSmem sm = evb_smem<S, T>(e);
-    auto* const kernel = &evaluator_grad_tiles_kernel<S, T>;
-    BBX_LAUNCH_SMEM(kernel, p.blocks, 8 * T, sm.total, stream,
+    auto* const kernel = &evaluator_grad_tiles_kernel<S, T, G>;
+    BBX_LAUNCH_SMEM(kernel, p.blocks, p.threads, sm.total, stream,
                     (const S*)planes, (const S*)feats, (const S*)ctx, (const S*)layout,
                     (const S*)ds, (S*)x0, (S*)dz0, (float*)stile, (float*)part, e, sm,
                     evb_record(e), p.ntiles);
@@ -667,8 +967,8 @@ static int evb_tiles(const void* planes, const void* feats, const void* ctx, con
 // K8b: planes [b, 192, 8, 8, 2] (16-byte aligned), feats [b, 192, 3], ctx
 // [b, 3, d], ds [b * 192] in the compute type (elem 2: bf16, 4: float32);
 // the eight float32 parameters (as bbx_evaluator takes them); scratch:
-// layout, x0, dz0 (compute type), stile and the records (float32), sized by
-// bbx_evaluator_grad_sizes.
+// layout, x0, dz0 (compute type, 16-byte aligned), stile and the records
+// (float32), sized by bbx_evaluator_grad_sizes.
 extern "C" int bbx_evaluator_grad_tiles(const void* planes, const void* feats, const void* ctx,
                                         const void* ds, const void* wc1, const void* bc1,
                                         const void* wc2, const void* bc2, const void* wd0,
@@ -694,20 +994,17 @@ static int evb_dense0(const void* x0, const void* dz0, void* partw, int b, const
                       void* stream) {
     constexpr int T = EvbTile<S>::T;
     EvbPlan p;
-    int err = evb_plan<S>(b, e, p);
+    const int err = evb_plan<S>(b, e, p);
     if (err) return err;
-    static int smem_set[64];
     auto* const kernel = &evaluator_grad_dense0_kernel<S, T>;
-    const int smem = (e.hk + EVB_K8W_COLS) * (EVB_K8W_STAGE + 8) * (int)sizeof(S);
-    err = ev_allow_smem(kernel, smem, smem_set);
-    if (err) return err;
-    const int cols = (e.kx + EVB_K8W_COLS - 1) / EVB_K8W_COLS;
-    BBX_LAUNCH_SMEM(kernel, cols * p.chunks, 256, smem, stream, (const S*)x0, (const S*)dz0,
-                    (float*)partw, e, p.ntiles, p.per_chunk, cols);
+    const int smem = evb_k8w_smem<S, T>(e);
+    BBX_LAUNCH_SMEM(kernel, p.cols * p.splits, EVB_K8W_THREADS, smem, stream, (const S*)x0,
+                    (const S*)dz0, (float*)partw, e, p.ntiles, p.splits, p.cols);
     return 0;
 }
 
-// K8w: x0 and dz0 as K8b wrote them; partw: the chunks' partials.
+// K8w: x0 and dz0 as K8b wrote them (16-byte aligned); partw: the splits'
+// partials [splits][hp][kx].
 extern "C" int bbx_evaluator_grad_dense0(const void* x0, const void* dz0, void* partw, int b,
                                          int c1, int c2, int h, int d, int elem, void* stream) {
     if ((elem != 2 && elem != 4) || !ev_widths_ok(c1, c2, h, d))
@@ -729,7 +1026,7 @@ static int evb_reduce(const void* part, const void* partw, const void* stile, co
     const int total = evb_grad_total(e);
     const int grid = total / 256 + 1;
     BBX_LAUNCH(evaluator_grad_reduce_kernel<S>, grid < 2048 ? grid : 2048, 256, stream,
-               (const float*)part, p.blocks, evb_record(e), (const float*)partw, p.chunks, e,
+               (const float*)part, p.blocks, evb_record(e), (const float*)partw, p.splits, e,
                (float*)grads, total);
     const int n = b * 3 * e.d;
     const int cgrid = n / 256 + 1;

@@ -375,10 +375,17 @@ def evaluator_grads_plain(evaluator: "_Evaluator", planes: torch.Tensor,
 
 
 class _GradWork:
-    """K8's backward at one call: its inputs' pointers, the widths and the
+    """K8's backward at one call: its inputs' pointers, the widths, the
     scratch buffers that `bbx_evaluator_grad_sizes` sizes (the weight
     layout, x0 and dz0 in the compute dtype, the tiles' dz0 sums, K8b's
-    block records and K8w's chunk partials in float32), and the outputs."""
+    block records and K8w's split partials in float32), the outputs, and
+    the launch plan (`plan`: K8b's threads a block, resident blocks an SM
+    and grid; K8w's ring stages, resident blocks an SM and splits; K8b's
+    shared memory, and whether da1 has its own there)."""
+
+    PLAN = ("k8b_threads", "k8b_resident_blocks_per_sm", "k8b_blocks",
+            "k8w_stages", "k8w_resident_blocks_per_sm", "k8w_splits",
+            "k8b_smem_bytes", "k8b_da1_apart")
 
     def __init__(self, evaluator, planes, feats, ctx, dscores, dtype):
         b, d = _require_inputs("evaluator backward", planes, feats, ctx, dtype)
@@ -388,11 +395,12 @@ class _GradWork:
         self.inputs = (planes, feats, ctx, dscores)
         self.widths = (b, c1, c2, h, d, dtype.itemsize)
         self.dctx = torch.zeros((b, NUM_SLOTS, d), dtype=dtype, device=dev)
-        sizes = torch.zeros(7, dtype=torch.int64)
+        sizes = torch.zeros(7 + len(self.PLAN), dtype=torch.int64)
         if b:
             build.check("evaluator_grad_sizes", build.function("evaluator_grad_sizes")(
                 *self.widths, sizes.data_ptr()))
-        n_layout, n_x0, n_dz0, n_tiles, n_part, n_partw, n_grads = sizes.tolist()
+        n_layout, n_x0, n_dz0, n_tiles, n_part, n_partw, n_grads = sizes[:7].tolist()
+        self.plan = dict(zip(self.PLAN, sizes[7:].tolist()))
         self.layout = torch.empty(n_layout, dtype=dtype, device=dev)
         self.x0 = torch.empty(n_x0, dtype=dtype, device=dev)
         self.dz0 = torch.empty(n_dz0, dtype=dtype, device=dev)
@@ -403,17 +411,25 @@ class _GradWork:
                                 dtype=torch.float32, device=dev)
         self.stream = build.stream_of(planes)
 
+    def x0_matrix(self):
+        """dense0's input as K8b wrote it, [B * 192, kx] (64 C2p conv
+        columns in the flatten order with channels padded to 8, the 3
+        features, the context, zeros to kx)."""
+        return grad_tile_matrix(self.x0, self.widths[0] * NUM_ACTIONS)
+
+    def dz0_matrix(self):
+        """dense0's output gradient as K8b wrote it, [B * 192, hk] (H
+        padded to 16 with zeros)."""
+        return grad_tile_matrix(self.dz0, self.widths[0] * NUM_ACTIONS)
+
     def relu_masks(self):
         """K8b's ReLU decisions after its run, for `evaluator_grads_plain`:
         {"conv2": [B * 192, 64 C2] bool in the flatten order, where x0's
         a2 is above 0; "dense0": [B * 192, H] bool, where dz0 is not 0
         (dense0's pre-activation above 0, and ds w1 not rounded to 0)}."""
         m, c2, h = self.widths[0] * NUM_ACTIONS, self.widths[2], self.widths[3]
-        t = 32 if self.dz0.dtype == torch.bfloat16 else 16
-        hk, kx = self.dz0.numel() // max(m, 1), self.x0.numel() // max(m, 1)
         c2p = (c2 + 7) // 8 * 8
-        x0 = self.x0.view(m // t, kx, t).permute(0, 2, 1).reshape(m, kx)
-        dz0 = self.dz0.view(m // t, hk, t).permute(0, 2, 1).reshape(m, hk)
+        x0, dz0 = self.x0_matrix(), self.dz0_matrix()
         return {"conv2": x0[:, :64 * c2p].reshape(m, 64, c2p)[:, :, :c2].reshape(m, -1) > 0,
                 "dense0": dz0[:, :h] != 0}
 
@@ -421,6 +437,39 @@ class _GradWork:
         """The eight parameters' gradients, float32, as views of one buffer."""
         return [g.view(p.shape) for g, p in
                 zip(self.flat.split([p.numel() for p in self.params]), self.params)]
+
+
+def _grad_tile_order(rows: int, t: int, device) -> torch.Tensor:
+    """Where afterstate a of row r lies in a [rows][t] block of K8b's tile
+    layout: bf16 (t = 32) stores the row's 8-afterstate chunk q at chunk q
+    ^ ((r // 2) % 4); float32 (t = 16) in order.  [rows, t] int64."""
+    a = torch.arange(t, device=device)
+    if t != 32:
+        return a.expand(rows, t)
+    r = torch.arange(rows, device=device)[:, None]
+    return a ^ (((r >> 1) & 3) << 3)
+
+
+def grad_tile_matrix(buf: torch.Tensor, m: int) -> torch.Tensor:
+    """[m, rows] from K8b's tile layout of x0 or dz0 ([m / t][rows][t], t
+    = 32 afterstates in bf16 and 16 in float32, chunks permuted in bf16:
+    `_grad_tile_order`)."""
+    t = 32 if buf.dtype == torch.bfloat16 else 16
+    rows = buf.numel() // max(m, 1)
+    x = buf.view(m // t, rows, t)
+    x = x.gather(2, _grad_tile_order(rows, t, buf.device).expand(m // t, rows, t))
+    return x.permute(0, 2, 1).reshape(m, rows)
+
+
+def grad_tile_layout(matrix: torch.Tensor) -> torch.Tensor:
+    """The inverse of `grad_tile_matrix`: [m, rows] (bf16 or float32) into
+    K8b's flat tile layout."""
+    m, rows = matrix.shape
+    t = 32 if matrix.dtype == torch.bfloat16 else 16
+    x = matrix.reshape(m // t, t, rows).permute(0, 2, 1)
+    out = torch.empty_like(x)
+    out.scatter_(2, _grad_tile_order(rows, t, matrix.device).expand(m // t, rows, t), x)
+    return out.reshape(-1)
 
 
 def _evaluator_grad_tiles(w: _GradWork) -> None:
@@ -440,7 +489,7 @@ def _evaluator_grad_tiles(w: _GradWork) -> None:
 
 def _evaluator_grad_dense0(w: _GradWork) -> None:
     """K8w (`bbx_evaluator_grad_dense0`): dense0's weight gradient dz0^T
-    x0, one float32 partial a chunk of tiles."""
+    x0, one float32 partial a split of the tiles."""
     if w.widths[0] == 0:
         return
     err = build.function("evaluator_grad_dense0")(

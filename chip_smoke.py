@@ -676,6 +676,9 @@ def kernel_phase(device, report):
     # and float32, and at the tiny and ragged widths (correctness and
     # times under at_other_shapes).
     k8b = k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], bf16)
+    log(f"  K8's backward at B = {b2}, bf16: plan {k8b['plan']} (K8b's threads a block, "
+        f"resident blocks an SM, grid; K8w's ring stages, resident blocks an SM, splits; "
+        f"K8b's shared memory bytes, da1 in its own)")
     others = {"512_bfloat16": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], bf16),
               "512_float32": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], f32, fast=False),
               "tiny_512_bfloat16": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
@@ -695,7 +698,8 @@ def kernel_phase(device, report):
              "mma.cuh)", "bbx/models/afterstate.py:106 (_Evaluator.__call__, :114-127, under "
              "nn.remat at :185): the backward's recompute and per-tile gradients",
              "K8b"),
-            ("_evaluator_grad_dense0", "bbx_torch/csrc/evaluator_backward.cu (+ mma.cuh)",
+            ("_evaluator_grad_dense0", "bbx_torch/csrc/evaluator_backward.cu (+ mma.cuh, "
+             "bulk.cuh)",
              "bbx/models/afterstate.py:123 (the hidden Dense of _Evaluator.__call__, under "
              "nn.remat at :185): its weight gradient", "K8w"),
             ("_evaluator_grad_reduce", "bbx_torch/csrc/evaluator_backward.cu",
@@ -709,18 +713,18 @@ def kernel_phase(device, report):
                                        "bound_by")},
             library=k["library_ms"], device_ms_by_kernel=k["device_ms_by_kernel"],
             whole=k8b["whole"], errors=k8b["errors"], k8w_vs_float64=k8b["k8w_vs_float64"],
-            relu_flips=k8b["relu_flips"],
+            relu_flips=k8b["relu_flips"], plan=k8b["plan"],
             at_other_shapes={key: {"equal": c["equal"], "max_abs_err": c["max_abs_err"],
                                    "same_bits": c["same_bits"], "whole": c["whole"],
                                    "errors": c["errors"], "relu_flips": c["relu_flips"],
-                                   **c["kernels"][what]}
+                                   "plan": c["plan"], **c["kernels"][what]}
                              for key, c in others.items()},
             shape=f"{what} of K8's backward at B = {b2}, run9 widths, bf16: planes "
                   f"[{b2},192,8,8,2], feats [{b2},192,3], ctx [{b2},3,32], ds [{b2 * 192}] "
                   f"-> dctx and the eight parameters' gradients, each tensor within "
                   f"{k8b['tolerance']} of the plain version (same bits twice: "
                   f"{k8b['same_bits']}; K8w's partials vs float64: "
-                  f"{k8b['k8w_vs_float64']}); plain_ms: "
+                  f"{k8b['k8w_vs_float64']}; plan: {k8b['plan']}); plain_ms: "
                   + {"K8b": "the plain evaluator's forward + autograd backward (library: "
                             "the same under torch.utils.checkpoint, the update's path "
                             "before this kernel)",
@@ -1093,6 +1097,10 @@ def k8b_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
         before = [c.launches for c in counters]
         with torch.no_grad():
             w = A._GradWork(ev, planes, feats, ctx, ds, dtype)
+            # K8b's threads a block, resident blocks an SM (the occupancy
+            # query) and grid; K8w's ring stages, resident blocks an SM and
+            # splits.
+            out["plan"] = w.plan
             for launch in (A._evaluator_grad_tiles, A._evaluator_grad_dense0,
                            A._evaluator_grad_reduce):
                 launch(w)
@@ -1139,13 +1147,10 @@ def k8b_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
                           "accuracy_rel_l2_vs_float64": {"kernels": rel_l2(x, e64),
                                                          "autograd": rel_l2(z, e64)}}
             ok = ok and errs[name]["within"]
-        # K8w alone: its chunks' partials summed against dz0^T x0 in float64.
-        t = 32 if dtype == torch.bfloat16 else 16
-        m, ntiles = b * 192, b * 192 // t
-        hk, hp = w.dz0.numel() // m, (h + 7) // 8 * 8
-        kx = w.x0.numel() // m
-        dz0 = w.dz0.view(ntiles, hk, t).permute(0, 2, 1).reshape(m, hk)[:, :hp]
-        x0 = w.x0.view(ntiles, kx, t).permute(0, 2, 1).reshape(m, kx)
+        # K8w alone: its splits' partials summed against dz0^T x0 in float64.
+        hp = (h + 7) // 8 * 8
+        dz0, x0 = w.dz0_matrix()[:, :hp], w.x0_matrix()
+        kx = x0.shape[1]
         partials = w.partw.view(-1, hp, kx)
         exact = dz0.double().t() @ x0.double()
         k8w_err = float((partials.sum(0).double() - exact).abs().max())

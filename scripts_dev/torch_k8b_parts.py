@@ -1,18 +1,24 @@
-"""Where K8b's time goes: the backward's per-tile kernel and variants of it
-without one stage, timed on the card.
+"""Where K8b's and K8w's time goes: K8's backward kernels and variants of
+them without one stage, timed on the card.
 
     python3 scripts_dev/torch_k8b_parts.py [--out chiprun_out/k8b_parts.json]
 
-Compiles `bbx_torch/csrc/evaluator_backward.cu` (with `evaluator.cuh`
-inlined) as it is and edited into variants into `build/k8b_parts/`, then
-times `bbx_evaluator_grad_tiles` (the weight layout and K8b) at run9 widths
-in bf16 at B = 512 and 2048 lanes between CUDA events, in turns (the list,
-then the list reversed).  Each variant drops one stage of the backward
-walk -- da2's product, dW2's product, da1's convolution, conv1's weight
-gradient, x0's stores -- or all four products at once; a stage's time is
-about the full kernel's less the variant's without it (their gradients
-are wrong by design).  The recompute's time is K8's forward's
-(`torch_k8_parts.py`).  Needs a CUDA card.
+Compiles `bbx_torch/csrc/evaluator_backward.cu` (with its headers inlined)
+as it is and edited into variants into `build/k8b_parts/`, then times
+`bbx_evaluator_grad_tiles` (the weight layout and K8b) and
+`bbx_evaluator_grad_dense0` (K8w) at run9 widths in bf16 at B = 512 and
+2048 lanes between CUDA events, in turns (the list, then the list
+reversed).  Each K8b variant drops one stage of the backward walk -- da2's
+product, dW2's product, da1's convolution, conv1's weight gradient, x0's
+stores -- or all four products at once, or the whole walk (what is left
+is the recompute, the epilogues and the record); a stage's time is about
+the full kernel's less the variant's without it (their gradients are
+wrong by design).  The K8w variants drop its products (the bulk copies'
+ring alone) or dz0's copies, or hold 8 stages in place of 5.  The edits
+are exact strings; each stage lists the strings of this tree's source and
+of the source before K8b's and K8w's redesign, so the script also times an
+archive of that tree (run it from there).  A stage whose strings are in
+neither is skipped and named.  Needs a CUDA card.
 """
 import argparse
 import ctypes
@@ -31,38 +37,69 @@ from bbx_torch.engine.step import observe  # noqa: E402
 from bbx_torch.models import afterstate as A  # noqa: E402
 from bbx_torch.ops import build  # noqa: E402
 
-# Each stage, as it stands in evaluator_backward.cu, and what replaces it.
+# Each variant: the kernel it times and, for each tree the script knows,
+# the (string, replacement) pairs that make it; the first list whose
+# strings are all in the source is used.
 STAGES = {
-    "da2": [("tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);", ";")],
-    "dw2": [("tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);", ";")],
-    "da1": [("if (y <= 7) ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);",
-             "zero(cd);")],
-    "dw1": [("for (int a = 0; a < T; ++a) {\n                            const float d",
-             "for (int a = 0; a < 0; ++a) {\n                            const float d")],
-    "x0_stores": [("xt[(size_t)(r * 8 * c2p + k) * T + a] = v;", ";")],
+    "da2": ("k8b", [[("tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);", ";")]]),
+    "dw2": ("k8b", [[("tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);", ";")]]),
+    "da1": ("k8b", [
+        [("ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);", "zero(cd);")]]),
+    "dw1": ("k8b", [
+        [("tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);", ";")],
+        [("for (int a = 0; a < T; ++a) {\n                            const float d",
+          "for (int a = 0; a < 0; ++a) {\n                            const float d")]]),
+    "x0_stores": ("k8b", [
+        [("store8(xt + evb_at<S, T>(col, 8 * q), v);", ";")],
+        [("xt[(size_t)(r * 8 * c2p + k) * T + a] = v;", ";")]]),
+    "walk": ("k8b", [
+        [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {"),
+         ("wait_row_read(0);\n            wait_da1_read(1);\n", "")],
+        [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {")]]),
+    "k8w_products": ("k8w", [
+        [("tile_k16<EV_MAX_H / 32, NQ, true, S>(acc, a, b, mtw, ntw);", ";")],
+        [("tile_k16<EV_MAX_H / 16, 2, true, S>(acc, a, b, mt, 2);", ";")]]),
+    "k8w_dz0": ("k8w", [
+        [("bbx_mbar_expect_tx(full + s, bz + bx);", "bbx_mbar_expect_tx(full + s, bx);"),
+         ("bbx_bulk_copy(st, dz0g + tile * e.hk * T, bz, full + s);", ";")]]),
 }
 
 
-def replaced(text, pairs):
-    for old, new in pairs:
-        if old not in text:
-            raise SystemExit(f"evaluator_backward.cu no longer holds {old!r}: update this script")
-        text = text.replace(old, new)
-    return text
+def replaced(text, options):
+    for pairs in options:
+        if all(old in text for old, _ in pairs):
+            for old, new in pairs:
+                text = text.replace(old, new)
+            return text
+    return None
 
 
 def variants():
     with open(os.path.join(build.CSRC, "evaluator_backward.cu")) as f:
         src = f.read()
-    with open(os.path.join(build.CSRC, "evaluator.cuh")) as f:
-        header = f.read().replace("#pragma once\n", "")
-    src = replaced(src, [('#include "evaluator.cuh"\n', header)])
-    out = {"full": src}
-    for name, pairs in STAGES.items():
-        out[f"no_{name}"] = replaced(src, pairs)
-    out["no_products"] = replaced(src, STAGES["da2"] + STAGES["dw2"] + STAGES["da1"]
-                                  + STAGES["dw1"])
-    return out
+    for header in sorted(os.listdir(build.CSRC)):
+        if header.endswith(".cuh") and f'#include "{header}"\n' in src:
+            with open(os.path.join(build.CSRC, header)) as f:
+                text = f.read().replace("#pragma once\n", "")
+            src = src.replace(f'#include "{header}"\n', text)
+    out, skipped = {"full": src}, []
+    for name, (_, options) in STAGES.items():
+        text = replaced(src, options)
+        if text is None:
+            skipped.append(name)
+        else:
+            out[f"no_{name}"] = text
+    products = src
+    for name in ("da2", "dw2", "da1", "dw1"):
+        products = replaced(products, STAGES[name][1]) if products else None
+    if products:
+        out["no_products"] = products
+    if "#define EVB_K8W_STAGES 5" in src:
+        out["k8w_8_stages"] = src.replace("#define EVB_K8W_STAGES 5", "#define EVB_K8W_STAGES 8")
+    if "#define EVB_K8W_CWARPS 16 " in src:
+        out["k8w_8_consumers"] = src.replace("#define EVB_K8W_CWARPS 16 ",
+                                             "#define EVB_K8W_CWARPS 8 ")
+    return out, skipped
 
 
 def compile_all(sources):
@@ -82,11 +119,30 @@ def compile_all(sources):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name} does not compile:\n{log}")
-        ptxas[name] = [line.strip() for line in log.splitlines() if "registers" in line]
-        fn = ctypes.CDLL(os.path.join(work, f"lib{name}.so")).bbx_evaluator_grad_tiles
-        fn.argtypes, fn.restype = build.SIGNATURES["evaluator_grad_tiles"][2], ctypes.c_int
-        fns[name] = fn
+        ptxas[name] = [line.strip() for line in log.splitlines()
+                       if "registers" in line or "spill" in line]
+        lib = ctypes.CDLL(os.path.join(work, f"lib{name}.so"))
+        pair = {}
+        for kernel, entry in (("k8b", "evaluator_grad_tiles"), ("k8w", "evaluator_grad_dense0"),
+                              ("sizes", "evaluator_grad_sizes")):
+            fn = getattr(lib, build.SIGNATURES[entry][1])
+            fn.argtypes, fn.restype = build.SIGNATURES[entry][2], ctypes.c_int
+            pair[kernel] = fn
+        fns[name] = pair
     return fns, ptxas
+
+
+def timed(call, reps=10):
+    for _ in range(2):
+        call()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -96,11 +152,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    fns, ptxas = compile_all(variants())
+    sources, skipped = variants()
+    if skipped:
+        print(f"not in this tree's source, skipped: {skipped}", flush=True)
+    fns, ptxas = compile_all(sources)
+    # (variant, kernel timed): the full build times both.
+    order = []
+    for name in fns:
+        stage = name[3:] if name.startswith("no_") else None
+        kinds = (["k8b", "k8w"] if name == "full" else ["k8w"] if name.startswith("k8w_")
+                 else [STAGES[stage][0]] if stage in STAGES else ["k8b"])
+        order += [(name, kind) for kind in kinds]
     dev = torch.device("cuda")
     dt = torch.bfloat16
     net = A.AfterstateNetwork(compute_dtype=dt, generator=torch.Generator().manual_seed(1))
     ev = net.to(dev).evaluator
+    stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for b in (512, 2048):
         obs = observe(TState.reset(b, TState.make_generator(3, dev), dev))
@@ -110,32 +177,44 @@ def main() -> int:
                                                  obs["pieces"].contiguous())
             ds = torch.randn(b * 192, generator=g, device=dev).to(dt)
             w = A._GradWork(ev, planes, feats, ctx, ds, dt)
-        for name in list(fns) + list(fns)[::-1]:
-            def call(fn=fns[name]):
-                err = fn(planes.data_ptr(), feats.data_ptr(), ctx.data_ptr(), ds.data_ptr(),
-                         *(p.data_ptr() for p in w.params), w.layout.data_ptr(),
-                         w.x0.data_ptr(), w.dz0.data_ptr(), w.stile.data_ptr(),
-                         w.part.data_ptr(), *w.widths, torch.cuda.current_stream().cuda_stream)
-                build.check(name, err)
+            # A variant plans its own grids (its registers set its resident
+            # blocks): the records and partials as large as any needs.
+            n_part = n_partw = 0
+            for pair in fns.values():
+                sizes = torch.zeros(32, dtype=torch.int64)
+                build.check("sizes", pair["sizes"](*w.widths, sizes.data_ptr()))
+                n_part, n_partw = max(n_part, int(sizes[4])), max(n_partw, int(sizes[5]))
+            w.part = torch.empty(n_part, dtype=torch.float32, device=dev)
+            w.partw = torch.empty(n_partw, dtype=torch.float32, device=dev)
+        calls = {}
+        for name, pair in fns.items():
+            def k8b(fn=pair["k8b"], name=name):
+                build.check(name, fn(planes.data_ptr(), feats.data_ptr(), ctx.data_ptr(),
+                                     ds.data_ptr(), *(p.data_ptr() for p in w.params),
+                                     w.layout.data_ptr(), w.x0.data_ptr(), w.dz0.data_ptr(),
+                                     w.stile.data_ptr(), w.part.data_ptr(), *w.widths, stream))
 
-            for _ in range(2):
-                call()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(10):
-                call()
-            end.record()
-            end.synchronize()
-            row = {"lanes": b, "variant": name, "ms": start.elapsed_time(end) / 10}
+            def k8w(fn=pair["k8w"], name=name):
+                build.check(name, fn(w.x0.data_ptr(), w.dz0.data_ptr(), w.partw.data_ptr(),
+                                     *w.widths, stream))
+
+            calls[name] = {"k8b": k8b, "k8w": k8w}
+        for name, kind in order + order[::-1]:
+            if kind == "k8w":
+                calls["full"]["k8b"]()  # K8w reads the x0 and dz0 the full K8b writes
+            row = {"lanes": b, "variant": name, "kernel": kind,
+                   "ms": timed(calls[name][kind])}
             rows.append(row)
             print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(smi.strip())
+    for name, lines in ptxas.items():
+        print(name, lines)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi.strip(), "ptxas": ptxas, "rows": rows}, f, indent=2)
+            json.dump({"device": smi.strip(), "skipped": skipped, "ptxas": ptxas,
+                       "rows": rows}, f, indent=2)
     return 0
 
 

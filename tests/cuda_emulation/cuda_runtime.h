@@ -3,11 +3,13 @@
 // this directory first on the include path) and hold each kernel against
 // its plain PyTorch version.  Each CUDA thread is a std::thread; the blocks
 // of a grid run one after another, so no block may wait on another;
-// __syncthreads is a std::barrier over the block, and the warp intrinsics
+// __syncthreads is a std::barrier over the block (a named barrier one over
+// the threads that use it), and the warp intrinsics
 // (__syncwarp, __ballot_sync, __any_sync) a std::barrier over the warp's
 // 32 threads, which must all take part (a full mask).  The emulated card
-// has BBX_EMULATED_SMS multiprocessors that hold one block each, so a
-// kernel that sizes its grid by occupancy walks several items a block.
+// has BBX_EMULATED_SMS multiprocessors that hold one block each (or as
+// many as bbx_emulate_set_resident says), so a kernel that sizes its grid
+// by occupancy walks several items a block.
 // A block's dynamic shared memory is filled with 0xFF bytes (a NaN in
 // float32 and in bf16) before it runs, so that a read of shared memory the
 // kernel never wrote shows in its output.  Only what the kernels use is
@@ -40,16 +42,25 @@ inline bbx_dim3 blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+    cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+    cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 inline int cudaGetLastError() { return 0; }
 template <class F>
 inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 #define BBX_EMULATED_SMS 3
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = BBX_EMULATED_SMS; return 0; }
+// Blocks an emulated SM holds: 1, unless a test sets more through
+// bbx_emulate_set_resident (so that an occupancy-sized grid splits its work
+// more finely).
+inline int bbx_emulated_resident = 1;
+extern "C" void bbx_emulate_set_resident(int n) { bbx_emulated_resident = n; }
 template <class F>
 inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
-    *n = 1;
+    *n = bbx_emulated_resident;
     return 0;
 }
 
@@ -128,6 +139,27 @@ inline int __syncthreads_or(int pred) {
     return any;
 }
 
+// Named barriers (bulk.cuh's bbx_bar_sync / bbx_bar_arrive): the running
+// block's barrier of each id, made at its first use with the count given
+// (the first thread to publish one wins; no lock after that).
+inline std::atomic<std::barrier<>*> bbx_named[16];
+
+inline std::barrier<>& bbx_named_barrier(int id, int n) {
+    std::barrier<>* bar = bbx_named[id].load(std::memory_order_acquire);
+    if (bar == nullptr) {
+        auto* made = new std::barrier<>(n);
+        if (bbx_named[id].compare_exchange_strong(bar, made, std::memory_order_acq_rel)) {
+            bar = made;
+        } else {
+            delete made;
+        }
+    }
+    return *bar;
+}
+
+inline void bbx_bar_sync(int id, int n) { bbx_named_barrier(id, n).arrive_and_wait(); }
+inline void bbx_bar_arrive(int id, int n) { (void)bbx_named_barrier(id, n).arrive(); }
+
 // The running block's dynamic shared memory (`BBX_DYNAMIC_SHARED`).
 inline std::vector<unsigned char> bbx_dynamic_smem;
 inline unsigned char* bbx_dynamic_shared() { return bbx_dynamic_smem.data(); }
@@ -139,6 +171,7 @@ void bbx_emulate_launch(int grid, int block, Body body, size_t smem = 0) {
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         bbx_dynamic_smem.assign(smem, 0xFF);
+        for (auto& named : bbx_named) delete named.exchange(nullptr);
         std::barrier<> bar(block);
         bbx_block_barrier = &bar;
         std::vector<std::unique_ptr<bbx_warp>> warps;

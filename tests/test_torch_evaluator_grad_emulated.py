@@ -14,8 +14,15 @@ gradient tensor g against the plain version's g_plain:
     tolerance: K8 rounds each layer once after its bias where the plain
     convolution rounds before it too, so a ReLU mask may flip at a
     pre-activation within rounding of 0).
-Without a C++ compiler these tests skip.
+K8w alone is held to dz0^T x0 in float64 within K8W_REL of its largest
+element (float32 sums of exact products).  Without a C++ compiler these
+tests skip.
 """
+import ctypes
+import os
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +31,9 @@ import torch
 
 from bbx.agent import ppo as JPPO
 from bbx_torch.models import afterstate as A
+from bbx_torch.ops import build
 from test_torch_kernels_emulated import (  # noqa: F401  (fixtures)
+    EMULATION,
     EVAL_WIDTHS,
     _evaluator_inputs,
     _evaluator_net,
@@ -43,6 +52,7 @@ from test_torch_ppo import (  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
+K8W_REL = 1e-5
 PARAM_NAMES = ("convs.0.weight", "convs.0.bias", "convs.1.weight", "convs.1.bias",
                "dense0.weight", "dense0.bias", "dense1.weight", "dense1.bias")
 GRAD_COUNTERS = (A._evaluator_grad_tiles, A._evaluator_grad_dense0, A._evaluator_grad_reduce)
@@ -114,6 +124,98 @@ def test_emulated_evaluator_grads_match_plain_autograd(kernels, widths, lanes, d
     _assert_grad_close(got_ctx, plain_ctx, rel, "ctx (plain version)")
     for name, g, w in zip(PARAM_NAMES, got, plain):
         _assert_grad_close(g, w, rel, name + " (plain version)")
+
+
+@pytest.mark.parametrize("widths,lanes,dtype,resident", [
+    ("tiny", 1, torch.bfloat16, 1), ("tiny", 3, torch.bfloat16, 8),
+    ("ragged", 3, torch.bfloat16, 8), ("run9", 1, torch.bfloat16, 8),
+    ("tiny", 3, torch.float32, 8), ("ragged", 1, torch.float32, 8),
+    ("ragged", 3, torch.float32, 1)])
+def test_emulated_k8w_matches_float64(emulated, kernels, widths, lanes, dtype, resident):
+    """K8w alone (emulated: the producer warp's bulk copies into the ring
+    of stages, its barriers, the consumer warps' products) on seeded x0 and
+    dz0 written in K8b's tile layout (bf16 chunks permuted): the splits'
+    partials summed against dz0^T x0 in float64 within K8W_REL of its
+    largest element; one launch; a second run gives the same bits.  1 and
+    3 lanes (6 and 18 tiles of 32 afterstates in bf16, 12 and 36 of 16 in
+    float32, against a ring of 5 stages), at widths whose x0 columns fill
+    no whole 128-column tile (tiny: 528, ragged: 1,040, run9: 1,576), and
+    with 1 or 8 resident blocks an emulated SM, so that the tiles split 1
+    to 4 ways."""
+    net = _evaluator_net(EVAL_WIDTHS[widths], dtype, seed=lanes)
+    planes, feats, ctx = _evaluator_inputs(net, lanes, seed=lanes)
+    ds = torch.zeros(lanes * 192, dtype=dtype)
+    set_resident = emulated["set_resident:evaluator_backward"]
+    set_resident(resident)
+    try:
+        w = A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype)
+        m, (c1, c2), h = lanes * 192, EVAL_WIDTHS[widths][0], EVAL_WIDTHS[widths][1]
+        hp, kx = (h + 7) // 8 * 8, w.x0.numel() // m
+        hk = w.dz0.numel() // m
+        t = 32 if dtype == torch.bfloat16 else 16
+        cols = -(-kx // 128)
+        splits = min(max(3 * resident // cols, 1), m // t)
+        assert w.plan["k8w_stages"] == 5 and w.plan["k8w_splits"] == splits
+        assert w.partw.numel() == splits * hp * kx
+        rng = np.random.default_rng(lanes + 40)
+        x0 = torch.from_numpy(rng.normal(size=(m, kx)).astype(np.float32)).to(dtype)
+        dz0 = torch.zeros((m, hk), dtype=dtype)
+        dz0[:, :h] = torch.from_numpy(rng.normal(size=(m, h)).astype(np.float32)).to(dtype)
+        w.x0.copy_(A.grad_tile_layout(x0))
+        w.dz0.copy_(A.grad_tile_layout(dz0))
+        assert torch.equal(w.x0_matrix(), x0) and torch.equal(w.dz0_matrix(), dz0)
+        before = A._evaluator_grad_dense0.launches
+        A._evaluator_grad_dense0(w)
+        assert A._evaluator_grad_dense0.launches == before + 1
+        got = w.partw.clone()
+        A._evaluator_grad_dense0(w)
+    finally:
+        set_resident(1)
+    assert torch.equal(w.partw, got)
+    exact = dz0[:, :hp].double().t() @ x0.double()
+    total = got.view(splits, hp, kx).double().sum(0)
+    assert torch.isfinite(total).all()
+    assert (total - exact).abs().max() <= K8W_REL * exact.abs().max()
+
+
+def _backward_with_smem_limit(tmp_path, limit):
+    """`evaluator_backward.cu` built for the emulator with a shared-memory
+    limit of `limit` bytes, bound like the real one."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    lib = str(tmp_path / f"libevaluator_backward_{limit}.so")
+    subprocess.run([cxx, "-std=c++20", "-O1", "-DBBX_EMULATE", f"-DEVB_SMEM_LIMIT={limit}",
+                    "-Wno-unknown-pragmas", "-x", "c++", "-shared", "-fPIC", "-I", EMULATION,
+                    "-I", build.CSRC, "-o", lib,
+                    os.path.join(build.CSRC, "evaluator_backward.cu"), "-lpthread"],
+                   check=True, capture_output=True)
+    handle, fns = ctypes.CDLL(lib), {}
+    for name, (library, symbol, argtypes) in build.SIGNATURES.items():
+        if library == "evaluator_backward":
+            fns[name] = getattr(handle, symbol)
+            fns[name].argtypes, fns[name].restype = argtypes, ctypes.c_int
+    return fns
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_emulated_evaluator_grads_with_da1_over_da2t(emulated, kernels, monkeypatch, tmp_path,
+                                                     dtype):
+    """K8b's layout for widths whose shared memory is short (at the width
+    limits), reached at tiny widths by building the library with less
+    shared memory: da1's row over da2t's, where the data group waits for
+    dW2's reads before it writes da1, and for dW1's before the next da2.
+    The same bits as the full layout's (the same sums in the same order),
+    the context's and all eight parameters' gradients, one lane."""
+    net = _evaluator_net(EVAL_WIDTHS["tiny"], dtype, seed=31)
+    planes, feats, ctx = _evaluator_inputs(net, 1, seed=9)
+    ds = torch.from_numpy(np.random.default_rng(5).normal(size=192).astype(np.float32)).to(dtype)
+    assert A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan["k8b_da1_apart"] == 1
+    want_ctx, want = A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds, dtype)
+    fns = _backward_with_smem_limit(tmp_path, 1)
+    monkeypatch.setattr(build, "function", lambda name: fns.get(name) or emulated[name])
+    assert A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan["k8b_da1_apart"] == 0
+    got_ctx, got = A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds, dtype)
+    assert torch.equal(got_ctx, want_ctx)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_emulated_evaluator_grads_take_an_empty_batch(kernels):

@@ -606,6 +606,32 @@ def test_evaluator_grads_match_plain(cuda, widths, b, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [512, 2048])
+def test_evaluator_grad_dense0_matches_float64(cuda, b):
+    """K8w (its ring of bulk copies and tensor-core products) at run9
+    widths in bf16 at B = 512 and the update minibatch's 2048, on the x0
+    and dz0 that K8b writes: its splits' partials summed against dz0^T x0
+    in float64 within 1e-5 of the largest element; two runs give the same
+    bits.  The plan: K8b 16 warps an SM or more, K8w at least 3 stages."""
+    net, inputs = _k8_case(cuda, ((24, 24), 96, 32), b, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    ds = torch.randn(b * 192, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        w = A._GradWork(net.evaluator, *inputs, ds, torch.bfloat16)
+        A._evaluator_grad_tiles(w)
+        A._evaluator_grad_dense0(w)
+        first = w.partw.clone()
+        A._evaluator_grad_dense0(w)
+    assert torch.equal(first, w.partw)
+    dz0, x0 = w.dz0_matrix()[:, :96], w.x0_matrix()
+    exact = dz0.double().t() @ x0.double()
+    total = first.view(-1, 96, x0.shape[1]).double().sum(0)
+    assert (total - exact).abs().max() <= 1e-5 * exact.abs().max()
+    assert w.plan["k8b_threads"] * w.plan["k8b_resident_blocks_per_sm"] >= 16 * 32
+    assert w.plan["k8w_stages"] >= 3 and w.plan["k8w_resident_blocks_per_sm"] >= 1
+
+
+@pytest.mark.gpu
 def test_evaluator_grads_follow_an_optimizer_step(cuda):
     """K8's backward lays its weights out from the parameters at every
     call: after an in-place Adam step it agrees with the plain version on

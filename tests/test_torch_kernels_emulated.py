@@ -44,7 +44,9 @@ EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emula
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """Each kernel library built for the CPU emulator, bound like the real
-    one (same symbols and argtypes)."""
+    one (same symbols and argtypes); under "set_resident:<library>", the
+    emulator's `bbx_emulate_set_resident` of that library (the blocks an
+    emulated SM holds, 1 unless a test sets more)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++20 compiler to emulate the CUDA kernels")
@@ -52,7 +54,7 @@ def emulated(tmp_path_factory):
     procs = {}
     for name, src in build.SOURCES.items():
         lib = str(out / f"lib{name}.so")
-        cmd = [cxx, "-std=c++20", "-O1", "-DBBX_EMULATE", "-Wno-unknown-pragmas",
+        cmd = [cxx, "-std=c++20", "-O2", "-DBBX_EMULATE", "-Wno-unknown-pragmas",
                "-x", "c++", "-shared", "-fPIC", "-I", EMULATION, "-I", build.CSRC,
                "-o", lib, os.path.join(build.CSRC, src), "-lpthread"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -67,6 +69,8 @@ def emulated(tmp_path_factory):
         fn = getattr(libs[lib], symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
+    for name, lib in libs.items():
+        fns[f"set_resident:{name}"] = lib.bbx_emulate_set_resident
     return fns
 
 
