@@ -12,7 +12,10 @@
 // Bound by operations: about 0.51 M multiply-adds an afterstate at run9's
 // widths (conv1 27.6 K, conv2 331.8 K, dense0 147.5 K), 100 GFLOP at
 // M = 512 x 192 (0.10 ms at the bf16 tensor-core peak), against 26 MB of
-// input.  A block of 8T threads (T = 32) scores a tile of T afterstates,
+// input.  A block of 8T threads (T = 32 in bf16, 16 in float32, whose
+// activations are twice as wide: at 32 channels and a hidden width of 128
+// a float32 tile of 32 needs 232,768 bytes of shared memory, more than the
+// H100's 232,448) scores a tile of T afterstates,
 // which lies in one (lane, slot) because T divides a slot's 64 anchors, and
 // keeps every activation in shared memory.  The tile's planes go into
 // [T][10][10][2] with a zero halo.  The block walks the 8 image rows:
@@ -120,6 +123,6 @@ extern "C" int bbx_evaluator(const void* planes, const void* feats, const void* 
     const int err = elem == 2
         ? evaluator_launch<unsigned short, 32>(planes, feats, ctx, params, layout, scores, b, e,
                                            stream)
-        : evaluator_launch<float, 32>(planes, feats, ctx, params, layout, scores, b, e, stream);
+        : evaluator_launch<float, 16>(planes, feats, ctx, params, layout, scores, b, e, stream);
     return err ? err : (int)cudaGetLastError();
 }

@@ -277,7 +277,12 @@ static int ev_allow_smem(K* kernel, int smem, int (&set)[64]) {
     if (smem > 48 * 1024 && smem > set[dev % 64]) {
         const int err = (int)cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err) return err;
+        if (err) {
+            // Cleared from the runtime's record: the caller reports it, and
+            // this library's next call must not report it again.
+            cudaGetLastError();
+            return err;
+        }
         set[dev % 64] = smem;
     }
     return 0;

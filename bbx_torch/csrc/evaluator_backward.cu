@@ -173,7 +173,10 @@ static EvbSmem evb_smem(const EvDims& e) {
     s.ds = take(T * 4);
     s.cols = take(8 * 9 * e.c1p * 4);
     s.pt = sizeof(S) == 2 ? take(2 * EVB_PT_CS * es) : 0;
-    // da1's row [c1p][8][T] (+8) on its own where it fits, else over da2t.
+    // da1's row [c1p][8][T] (+8) on its own where it fits, else over da2t,
+    // where the data group waits for the weight group's reads twice more a
+    // row (K8b 6% slower at run9 widths on an H100: torch_k8b_parts.py's
+    // k8b_da1_shared).
     EvTake apart = take;
     s.da1 = apart(d1);
     if (apart.at <= EVB_SMEM_LIMIT) {
@@ -893,7 +896,10 @@ static int evb_plan(int b, const EvDims& e, EvbPlan& p) {
                                         cudaSharedmemCarveoutMaxShared);
         carveout_set[dev % 64] = !err;
     }
-    if (err) return err;
+    if (err) {
+        cudaGetLastError();  // reported here, not again by the next call
+        return err;
+    }
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     p.threads = 64 * G;
     p.resident = p.resident_w = 0;

@@ -17,11 +17,13 @@ Phases, each of which must pass (exit code 1 otherwise):
    at the rollout's 512 lanes and at the update's 2048, in bf16 and
    float32 (planes, features and overlap); K8 (the evaluator's no-grad
    forward) at run9 widths at 512 and 2048 lanes in bf16 and float32, at
-   the tests' tiny widths, and at widths that fill no padded tile; K8's
+   the tests' tiny widths, at widths that fill no padded tile and at the
+   width limits; K8's
    backward (K8b, K8w and the reduction) against the plain evaluator's
    autograd, each gradient within the tolerance PERF.md states, two runs
    bit for bit, at 2048 lanes in bf16 (the update minibatch), at 512 in
-   bf16 and float32, at the tiny and ragged widths, with the whole
+   bf16 and float32, at the tiny and ragged widths and at the width
+   limits (where K8b's da1 shares da2t's shared memory), with the whole
    backward timed in turns with the plain autograd and the checkpointed
    cuDNN/cuBLAS forward + backward; K9 (the sampler) bit for bit on the
    engine step's masks at 16,384 lanes and at 512; K6's two
@@ -237,6 +239,9 @@ K8_F32_ATOL = 1e-4
 K8B_F32_REL = 1e-4
 K8B_FLIP_SHARE = 1e-2
 K8W_REL = 1e-5
+# The evaluator's largest widths ((C1, C2), H, D): EV_MAX_C, EV_MAX_H and
+# EV_MAX_D in csrc/evaluator.cuh.
+K8_LIMIT_WIDTHS = ((32, 32), 128, 256)
 RUN9_EVAL_WIDTHS = (tuple(RUN9_NETWORK["eval_channels"]), RUN9_NETWORK["eval_hidden"],
                     RUN9_NETWORK["ctx_dim"])
 
@@ -639,10 +644,10 @@ def kernel_phase(device, report):
 
     # K8 at the rollout's and eval's B = 512 and the update minibatch's
     # 2048 at run9 widths, in bf16 and float32; at the tests' tiny widths;
-    # and at widths that fill no padded tile on 3 lanes (channels 5 / 12,
-    # hidden 20, ctx 7): K8's tiles of 32 afterstates divide a lane's 192,
-    # so no row tile is ever partial, and these widths leave its k and n
-    # tiles partial instead.  The row's times are bf16 at B = 512; its
+    # at widths that fill no padded tile on 3 lanes (channels 5 / 12,
+    # hidden 20, ctx 7): K8's tiles (32 afterstates in bf16, 16 in float32)
+    # divide a lane's 192, so no row tile is ever partial, and these widths
+    # leave its k and n tiles partial instead; and at the width limits.  The row's times are bf16 at B = 512; its
     # library time, cuDNN's channels-last evaluator, joins it from phase 10.
     k8_in = {n: (obs["board"][:n].float().contiguous(), obs["pieces"][:n].contiguous())
              for n in (b, b2, 3)}
@@ -653,7 +658,10 @@ def kernel_phase(device, report):
               "tiny_512_bfloat16": k8_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
               "tiny_512_float32": k8_case(device, ((4, 4), 8, 6), *k8_in[b], f32),
               "ragged_3_bfloat16": k8_case(device, ((5, 12), 20, 7), *k8_in[3], bf16),
-              "ragged_3_float32": k8_case(device, ((5, 12), 20, 7), *k8_in[3], f32)}
+              "ragged_3_float32": k8_case(device, ((5, 12), 20, 7), *k8_in[3], f32),
+              "limits_512_bfloat16": k8_case(device, K8_LIMIT_WIDTHS, *k8_in[b], bf16),
+              "limits_512_float32": k8_case(device, K8_LIMIT_WIDTHS, *k8_in[b], f32,
+                                            fast=False)}
     row.update(
         name="evaluator_scores", source="bbx_torch/csrc/evaluator.cu (+ mma.cuh)",
         replaces="bbx/models/afterstate.py:106 (_Evaluator.__call__, :114-127; run "
@@ -673,8 +681,9 @@ def kernel_phase(device, report):
 
     # K8's backward (K8b, K8w, the reduction) at the update minibatch's B =
     # 2048 at run9 widths in bf16, which the rows report; at B = 512 in bf16
-    # and float32, and at the tiny and ragged widths (correctness and
-    # times under at_other_shapes).
+    # and float32, at the tiny and ragged widths, and at the width limits,
+    # where K8b's da1 has no shared memory of its own and lies over da2t
+    # (correctness and times under at_other_shapes).
     k8b = k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], bf16)
     log(f"  K8's backward at B = {b2}, bf16: plan {k8b['plan']} (K8b's threads a block, "
         f"resident blocks an SM, grid; K8w's ring stages, resident blocks an SM, splits; "
@@ -684,8 +693,15 @@ def kernel_phase(device, report):
               "tiny_512_bfloat16": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
               "tiny_512_float32": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], f32),
               "ragged_3_bfloat16": k8b_case(device, ((5, 12), 20, 7), *k8_in[3], bf16),
-              "ragged_3_float32": k8b_case(device, ((5, 12), 20, 7), *k8_in[3], f32)}
-    equal = k8b["equal"] and all(c["equal"] for c in others.values())
+              "ragged_3_float32": k8b_case(device, ((5, 12), 20, 7), *k8_in[3], f32),
+              "limits_512_bfloat16": k8b_case(device, K8_LIMIT_WIDTHS, *k8_in[b], bf16,
+                                              fast=False),
+              "limits_512_float32": k8b_case(device, K8_LIMIT_WIDTHS, *k8_in[b], f32,
+                                             fast=False)}
+    equal = (k8b["equal"] and all(c["equal"] for c in others.values())
+             and k8b["plan"]["k8b_da1_apart"] == 1
+             and all(others[k]["plan"]["k8b_da1_apart"] == 0
+                     for k in ("limits_512_bfloat16", "limits_512_float32")))
     summary = "; ".join(
         f"{k}: within tolerance={c['equal']} (same bits twice: {c['same_bits']}; worst "
         f"tensor err {c['max_abs_err']:.4g}), K8b {c['kernels']['K8b']['ms']:.4f} ms, K8w "

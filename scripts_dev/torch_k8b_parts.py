@@ -14,11 +14,11 @@ stores -- or all four products at once, or the whole walk (what is left
 is the recompute, the epilogues and the record); a stage's time is about
 the full kernel's less the variant's without it (their gradients are
 wrong by design).  The K8w variants drop its products (the bulk copies'
-ring alone) or dz0's copies, or hold 8 stages in place of 5.  The edits
-are exact strings; each stage lists the strings of this tree's source and
-of the source before K8b's and K8w's redesign, so the script also times an
-archive of that tree (run it from there).  A stage whose strings are in
-neither is skipped and named.  Needs a CUDA card.
+ring alone) or dz0's copies, or hold 8 stages or 8 consumer warps in place
+of 5 and 16.  `k8b_da1_shared` builds K8b as if shared memory were short,
+with da1's row over da2t's (the layout of the width limits).  The edits
+are exact strings of this tree's source; the script stops when one is
+missing.  Needs a CUDA card.
 """
 import argparse
 import ctypes
@@ -37,41 +37,36 @@ from bbx_torch.engine.step import observe  # noqa: E402
 from bbx_torch.models import afterstate as A  # noqa: E402
 from bbx_torch.ops import build  # noqa: E402
 
-# Each variant: the kernel it times and, for each tree the script knows,
-# the (string, replacement) pairs that make it; the first list whose
-# strings are all in the source is used.
+# Each variant: the kernel it times and the (string, replacement) pairs
+# that make it from this tree's source.
 STAGES = {
-    "da2": ("k8b", [[("tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);", ";")]]),
-    "dw2": ("k8b", [[("tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);", ";")]]),
+    "da2": ("k8b", [("tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);", ";")]),
+    "dw2": ("k8b", [("tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);", ";")]),
     "da1": ("k8b", [
-        [("ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);", "zero(cd);")]]),
-    "dw1": ("k8b", [
-        [("tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);", ";")],
-        [("for (int a = 0; a < T; ++a) {\n                            const float d",
-          "for (int a = 0; a < 0; ++a) {\n                            const float d")]]),
-    "x0_stores": ("k8b", [
-        [("store8(xt + evb_at<S, T>(col, 8 * q), v);", ";")],
-        [("xt[(size_t)(r * 8 * c2p + k) * T + a] = v;", ";")]]),
-    "walk": ("k8b", [
-        [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {"),
-         ("wait_row_read(0);\n            wait_da1_read(1);\n", "")],
-        [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {")]]),
-    "k8w_products": ("k8w", [
-        [("tile_k16<EV_MAX_H / 32, NQ, true, S>(acc, a, b, mtw, ntw);", ";")],
-        [("tile_k16<EV_MAX_H / 16, 2, true, S>(acc, a, b, mt, 2);", ";")]]),
+        ("ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);", "zero(cd);")]),
+    "dw1": ("k8b", [("tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);", ";")]),
+    "x0_stores": ("k8b", [("store8(xt + evb_at<S, T>(col, 8 * q), v);", ";")]),
+    "walk": ("k8b", [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {")]),
+    "k8w_products": ("k8w", [("tile_k16<EV_MAX_H / 32, NQ, true, S>(acc, a, b, mtw, ntw);", ";")]),
     "k8w_dz0": ("k8w", [
-        [("bbx_mbar_expect_tx(full + s, bz + bx);", "bbx_mbar_expect_tx(full + s, bx);"),
-         ("bbx_bulk_copy(st, dz0g + tile * e.hk * T, bz, full + s);", ";")]]),
+        ("bbx_mbar_expect_tx(full + s, bz + bx);", "bbx_mbar_expect_tx(full + s, bx);"),
+        ("bbx_bulk_copy(st, dz0g + tile * e.hk * T, bz, full + s);", ";")]),
+}
+# Whole variants, not a stage dropped: the kernel they time and their edits.
+OTHERS = {
+    "k8w_8_stages": ("k8w", [("#define EVB_K8W_STAGES 5", "#define EVB_K8W_STAGES 8")]),
+    "k8w_8_consumers": ("k8w", [("#define EVB_K8W_CWARPS 16 ", "#define EVB_K8W_CWARPS 8 ")]),
+    # K8b's layout of the width limits at run9 widths: da1's row over da2t's.
+    "k8b_da1_shared": ("k8b", [("#define EVB_SMEM_LIMIT 232448", "#define EVB_SMEM_LIMIT 1")]),
 }
 
 
-def replaced(text, options):
-    for pairs in options:
-        if all(old in text for old, _ in pairs):
-            for old, new in pairs:
-                text = text.replace(old, new)
-            return text
-    return None
+def replaced(text, name, pairs):
+    for old, new in pairs:
+        if old not in text:
+            raise SystemExit(f"variant {name}: {old!r} is not in the source")
+        text = text.replace(old, new)
+    return text
 
 
 def variants():
@@ -82,24 +77,16 @@ def variants():
             with open(os.path.join(build.CSRC, header)) as f:
                 text = f.read().replace("#pragma once\n", "")
             src = src.replace(f'#include "{header}"\n', text)
-    out, skipped = {"full": src}, []
-    for name, (_, options) in STAGES.items():
-        text = replaced(src, options)
-        if text is None:
-            skipped.append(name)
-        else:
-            out[f"no_{name}"] = text
+    out = {"full": src}
+    for name, (_, pairs) in STAGES.items():
+        out[f"no_{name}"] = replaced(src, name, pairs)
     products = src
     for name in ("da2", "dw2", "da1", "dw1"):
-        products = replaced(products, STAGES[name][1]) if products else None
-    if products:
-        out["no_products"] = products
-    if "#define EVB_K8W_STAGES 5" in src:
-        out["k8w_8_stages"] = src.replace("#define EVB_K8W_STAGES 5", "#define EVB_K8W_STAGES 8")
-    if "#define EVB_K8W_CWARPS 16 " in src:
-        out["k8w_8_consumers"] = src.replace("#define EVB_K8W_CWARPS 16 ",
-                                             "#define EVB_K8W_CWARPS 8 ")
-    return out, skipped
+        products = replaced(products, name, STAGES[name][1])
+    out["no_products"] = products
+    for name, (_, pairs) in OTHERS.items():
+        out[name] = replaced(src, name, pairs)
+    return out
 
 
 def compile_all(sources):
@@ -152,15 +139,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    sources, skipped = variants()
-    if skipped:
-        print(f"not in this tree's source, skipped: {skipped}", flush=True)
-    fns, ptxas = compile_all(sources)
+    fns, ptxas = compile_all(variants())
     # (variant, kernel timed): the full build times both.
     order = []
     for name in fns:
         stage = name[3:] if name.startswith("no_") else None
-        kinds = (["k8b", "k8w"] if name == "full" else ["k8w"] if name.startswith("k8w_")
+        kinds = (["k8b", "k8w"] if name == "full" else [OTHERS[name][0]] if name in OTHERS
                  else [STAGES[stage][0]] if stage in STAGES else ["k8b"])
         order += [(name, kind) for kind in kinds]
     dev = torch.device("cuda")
@@ -213,7 +197,7 @@ def main() -> int:
         print(name, lines)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi.strip(), "skipped": skipped, "ptxas": ptxas,
+            json.dump({"device": smi.strip(), "ptxas": ptxas,
                        "rows": rows}, f, indent=2)
     return 0
 

@@ -48,8 +48,13 @@ enum {
 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
 inline int cudaGetLastError() { return 0; }
+// The H100's dynamic shared memory a block can opt into: a kernel that asks
+// for more is refused (cudaErrorInvalidValue), as on the card.
+#define BBX_EMULATED_SMEM_OPTIN 232448
 template <class F>
-inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaFuncSetAttribute(F, int attr, int value) {
+    return attr == cudaFuncAttributeMaxDynamicSharedMemorySize && value > BBX_EMULATED_SMEM_OPTIN;
+}
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 #define BBX_EMULATED_SMS 3
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = BBX_EMULATED_SMS; return 0; }

@@ -513,11 +513,12 @@ def _assert_k8_close(net, inputs, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("widths,b", [(((24, 24), 96, 32), 512), (((24, 24), 96, 32), 2048),
-                                      (((4, 4), 8, 6), 64), (((5, 12), 20, 7), 3)])
+                                      (((4, 4), 8, 6), 64), (((5, 12), 20, 7), 3),
+                                      (((32, 32), 128, 256), 512)])
 def test_evaluator_kernel_matches_plain(cuda, widths, b, dtype):
     """K8 at run9 widths at the rollout's and eval's B = 512 and the
-    update minibatch's 2048, at the tests' tiny widths and at widths that
-    fill no padded tile, in both dtypes."""
+    update minibatch's 2048, at the tests' tiny widths, at widths that
+    fill no padded tile and at the width limits, in both dtypes."""
     net, inputs = _k8_case(cuda, widths, b, dtype)
     _assert_k8_close(net, inputs, dtype)
 
@@ -602,6 +603,20 @@ def test_evaluator_grads_match_plain(cuda, widths, b, dtype):
     net, inputs = _k8_case(cuda, widths, b, dtype)
     g = torch.Generator(device=cuda).manual_seed(b)
     ds = torch.randn(b * 192, generator=g, device=cuda).to(dtype)
+    _assert_grads_close(net, inputs, ds, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_evaluator_grads_at_the_width_limits(cuda, dtype):
+    """K8's backward at the width limits (32 channels, hidden 128, context
+    256) on 512 lanes, where K8b's rings leave da1 no shared memory of its
+    own: its row lies over da2t's, and the data group waits for dW2's
+    reads before it writes da1 and for dW1's before the next da2."""
+    net, inputs = _k8_case(cuda, ((32, 32), 128, 256), 512, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ds = torch.randn(512 * 192, generator=g, device=cuda).to(dtype)
+    assert A._GradWork(net.evaluator, *inputs, ds, dtype).plan["k8b_da1_apart"] == 0
     _assert_grads_close(net, inputs, ds, dtype)
 
 

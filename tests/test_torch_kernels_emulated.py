@@ -479,7 +479,7 @@ def test_emulated_step_matches_plain_step(kernels):
 # widths that fill no padded tile (channels, hidden and ctx not multiples
 # of 8).
 EVAL_WIDTHS = {"tiny": ((4, 4), 8, 6), "run9": ((24, 24), 96, 32),
-               "ragged": ((5, 12), 20, 7)}
+               "ragged": ((5, 12), 20, 7), "limits": ((32, 32), 128, 256)}
 
 
 def _evaluator_net(widths, dtype, seed):
@@ -509,13 +509,15 @@ def _evaluator_inputs(net, lanes, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths,lanes", [("tiny", 1), ("tiny", 3), ("run9", 1),
-                                          ("run9", 3), ("ragged", 3)])
+                                          ("run9", 3), ("ragged", 3), ("limits", 1)])
 def test_emulated_evaluator_kernel_matches_plain(kernels, widths, lanes, dtype):
     """K8 (emulated) against `evaluator_scores_plain` on the same inputs:
-    one lane (6 tiles of 32 afterstates in 3 slots) and three (18 tiles,
-    each lane's three context rows), at the tiny, run9 and ragged widths
-    (the tiles of 32 divide a lane's 192 afterstates, so no row tile is
-    partial; the ragged widths leave the k and n tiles partial).
+    one lane (6 tiles of 32 afterstates in bf16, 12 of 16 in float32, in 3
+    slots) and three (each lane's three context rows), at the tiny, run9
+    and ragged widths and at the width limits (whose float32 shared memory
+    fits the card's only in tiles of 16; the emulator refuses what the
+    card refuses) (the tiles divide a lane's 192 afterstates, so no row
+    tile is partial; the ragged widths leave the k and n tiles partial).
     float32: within 1e-5 (sums in another order).  bf16: within rtol 2e-2
     plus atol 2e-2 x the largest score (the bf16 tolerance of the forward
     tests: K8 rounds each layer once after its bias where the CPU's
