@@ -1,9 +1,12 @@
 // What K8 (evaluator.cu, the evaluator's forward) and its backward
 // (evaluator_backward.cu) share: the widths and the weight layout, the
-// kernel that lays the weights out, the product of one k16 step, and the
-// forward of one tile of afterstates -- planes into shared memory, conv1
-// and conv2 row by row, dense0 accumulated across the rows -- which K8
-// finishes with dense1 and the backward recomputes (bbx's nn.remat).
+// kernel that lays the weights out, the product of one k16 step, conv1's
+// and conv2's rows, and the backward's forward of one tile of afterstates
+// -- planes into shared memory, conv1 and conv2 row by row, dense0
+// accumulated across the rows -- which it recomputes (bbx's nn.remat).
+// K8 walks the same rows with the same sums in the same order, in blocks
+// that stage the weights once and take many tiles (evaluator.cu), so that
+// the backward's ReLU decisions are K8's.
 //
 // The weight layout is written on the card at every call, from the
 // module's float32 parameters (never stale): cast to the compute type,
@@ -27,6 +30,7 @@
 #define EV_MAX_H 128
 #define EV_MAX_D 256
 #define EV_W1_STRIDE 40  // conv1's A rows: 32 k + 8 (ldmatrix without bank conflicts)
+#define EV_SMEM_LIMIT 232448  // shared memory a block can have on the H100
 
 // Widths, padded widths and the weight layout's offsets (elements).
 struct EvDims {
@@ -293,9 +297,14 @@ static int ev_allow_smem(K* kernel, int smem, int (&set)[64]) {
 // ---------------------------------------------------------------------------
 
 // Byte offsets of the forward's regions of dynamic shared memory, each
-// 16-aligned; the backward places them inside its own (evaluator_backward.cu).
+// 16-aligned; K8 (evaluator.cu) and the backward (evaluator_backward.cu)
+// place them inside their own.
 struct EvSmem {
     int in, zero, w1a, w2, f32, ring, stage, total;
+    // K8's own (0 in the backward's): the next tile's planes and features
+    // as they land, the mbarriers they and W0's slices report to, and
+    // dense0's B blocks of w0n image rows (w0b bytes each).
+    int raw = 0, bars = 0, w0s = 0, w0b = 0, w0n = 0;
     // float32 arrays inside f32, in floats
     int b1c, b2, b0, w1, w0f, ctx, feats;
 };
@@ -354,22 +363,6 @@ struct EvTake {
     }
 };
 
-template <typename S, int T>
-static EvSmem ev_smem(const EvDims& e) {
-    EvSmem s;
-    const EvSizes<S, T> z = ev_sizes<S, T>(e, s);
-    EvTake take;
-    s.in = take(z.in);
-    s.zero = take(32 * (int)sizeof(S));  // a row of zeros for A or B
-    s.w1a = take(z.w1a);
-    s.w2 = take(z.w2);
-    s.f32 = take(z.f32);
-    s.ring = take(z.ring);
-    s.stage = take(z.stage);
-    s.total = take.at;
-    return s;
-}
-
 // conv1 for image row y, transposed: out^T [channel][pixel] = W1 [c1m x
 // 32] . patches [32 x 8T]; k = dy * 8 + dx * 2 + channel, whose 8 values
 // for one dy are the contiguous padded pixels (y + dy, x .. x + 3) (the
@@ -414,8 +407,10 @@ __device__ __forceinline__ void ev_conv1_row(const S* s_in, const S* s_w1a, cons
 // `ring` ([3][T][10][cinp], input row yy in slot yy % 3, columns 0 and 9
 // zero), B (the weights, `nt` n8 tiles a step) by ldmatrix from shared
 // memory.  Warp `warp`'s m-tile i is afterstates 2 (warp + W i) (rows
-// 0-7: columns 0-7) and that + 1 (rows 8-15).
-template <typename S, int T, typename A>
+// 0-7: columns 0-7) and that + 1 (rows 8-15).  With Q_UNROLLED the loop
+// over channel groups is unrolled 4 times (K8: 5% faster on an H100;
+// the backward's kernel, at its register limit, 2% slower: PERF.md).
+template <typename S, int T, typename A, bool Q_UNROLLED = false>
 __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int cinp,
                                              int cg, const S* w, int nt, const S* s_zero,
                                              int r) {
@@ -432,17 +427,33 @@ __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int
     zero(c);
 #pragma unroll
     for (int p = 0; p < 5; ++p) {
-        for (int q = 0; q < cg; ++q) {
-            auto a = [&](int i, int row, int half) -> const S* {
-                const int at = half ? tap_at[2 * p + 1] : tap_at[2 * p];
-                if (at < 0) return s_zero;
-                const int as = 2 * (warp + W * i) + (row >> 3);
-                return ring + at + (as * 10 + (row & 7)) * cinp + q * 8;
-            };
-            auto b = [&](int j, int half, int col) -> const S* {
-                return w + ((p * cg + q) * nt + j) * 128 + half * 64 + col * 8;
-            };
-            tile_k16<2, 4, true, S>(c, a, b, 2, nt);
+        if constexpr (Q_UNROLLED) {
+#pragma unroll 4
+            for (int q = 0; q < cg; ++q) {
+                auto a = [&](int i, int row, int half) -> const S* {
+                    const int at = half ? tap_at[2 * p + 1] : tap_at[2 * p];
+                    if (at < 0) return s_zero;
+                    const int as = 2 * (warp + W * i) + (row >> 3);
+                    return ring + at + (as * 10 + (row & 7)) * cinp + q * 8;
+                };
+                auto b = [&](int j, int half, int col) -> const S* {
+                    return w + ((p * cg + q) * nt + j) * 128 + half * 64 + col * 8;
+                };
+                tile_k16<2, 4, true, S>(c, a, b, 2, nt);
+            }
+        } else {
+            for (int q = 0; q < cg; ++q) {
+                auto a = [&](int i, int row, int half) -> const S* {
+                    const int at = half ? tap_at[2 * p + 1] : tap_at[2 * p];
+                    if (at < 0) return s_zero;
+                    const int as = 2 * (warp + W * i) + (row >> 3);
+                    return ring + at + (as * 10 + (row & 7)) * cinp + q * 8;
+                };
+                auto b = [&](int j, int half, int col) -> const S* {
+                    return w + ((p * cg + q) * nt + j) * 128 + half * 64 + col * 8;
+                };
+                tile_k16<2, 4, true, S>(c, a, b, 2, nt);
+            }
         }
     }
 }

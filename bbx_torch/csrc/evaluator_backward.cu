@@ -77,8 +77,8 @@
 //    partial a split.  dW0 is 96 x 1,571 float32 at run9 (603 KB): it
 //    cannot be one block's accumulator.
 //  * bbx_evaluator_grad_reduce: every gradient element summed over the
-//    records or splits in a fixed order, rounded once; and dctx, each
-//    (lane, slot)'s dz0 sum times W0's context columns.
+//    records or splits in a fixed order, rounded once; and dctx, one
+//    product of the (lane, slot)s' dz0 sums by W0's context columns.
 #include "bulk.cuh"
 #include "evaluator.cuh"
 
@@ -190,9 +190,10 @@ static EvbSmem evb_smem(const EvDims& e) {
 
 // The block record's offsets (floats): conv1 weight [c1][2][3][3] and
 // bias, conv2 weight [c2][c1][3][3] and bias, dense0 bias, dense1 weight
-// and bias.
+// and bias; its size, and the records' stride (size to a multiple of 4, so
+// that the reduction reads them 16 bytes a thread).
 struct EvbRecord {
-    int w1, b1, w2, b2, b0, wd1, bd1, size;
+    int w1, b1, w2, b2, b0, wd1, bd1, size, stride;
 };
 
 // Floats of the eight parameters' gradients.
@@ -217,6 +218,7 @@ static EvbRecord evb_record(const EvDims& e) {
     at += e.h;
     r.bd1 = at;
     r.size = at + 1;
+    r.stride = (r.size + 3) / 4 * 4;
     return r;
 }
 
@@ -283,7 +285,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
     // da1 over da2t (at the width limits): each row's da1 waits for dW2's
     // reads of da2t, and the next da2 for dW1's reads of da1.
     const bool da1_apart = sm.da1 != sm.da2t;
-    float* out = part + (size_t)blockIdx.x * rec.size;
+    float* out = part + (size_t)blockIdx.x * rec.stride;
 
     if (threadIdx.x < NTH) {
         // The data group.
@@ -811,57 +813,146 @@ evaluator_grad_dense0_kernel(const S* __restrict__ x0, const S* __restrict__ dz0
 // The reduction and the context's gradient.
 // ---------------------------------------------------------------------------
 
-// grads: the eight parameters' gradients, flat, in the module's order.
-template <typename S>
-__global__ void __launch_bounds__(256)
-evaluator_grad_reduce_kernel(const float* __restrict__ part, int blocks, EvbRecord rec,
-                             const float* __restrict__ partw, int splits, EvDims e,
-                             float* __restrict__ grads, int total) {
-    const int f = 64 * e.c2 + 3 + e.d;
-    const int nw1 = e.c1 * 18, nw2 = e.c2 * e.c1 * 9, nw0 = e.h * f;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-        int j = i, at = -1;
-        float s = 0.0f;
-        if (j < nw1) {
-            at = rec.w1 + j;
-        } else if ((j -= nw1) < e.c1) {
-            at = rec.b1 + j;
-        } else if ((j -= e.c1) < nw2) {
-            at = rec.w2 + j;
-        } else if ((j -= nw2) < e.c2) {
-            at = rec.b2 + j;
-        } else if ((j -= e.c2) < nw0) {
-            const int hh = j / f, ff = j % f;
-            const int col = ff < 64 * e.c2 ? (ff / e.c2) * e.c2p + ff % e.c2 : 64 * e.c2p + ff - 64 * e.c2;
-            for (int c = 0; c < splits; ++c) s += partw[((size_t)c * e.hp + hh) * e.kx + col];
-        } else if ((j -= nw0) < e.h) {
-            at = rec.b0 + j;
-        } else if ((j -= e.h) < e.h) {
-            at = rec.wd1 + j;
-        } else {
-            at = rec.bd1;
-        }
-        if (at >= 0)
-            for (int b = 0; b < blocks; ++b) s += part[(size_t)b * rec.size + at];
-        grads[i] = to_f(from_f<S>(s));
-    }
+// One kernel, three kinds of block (the block's kind by its index v, from
+// `v0` on, in the order below; launched twice, the sums' blocks and then
+// dctx's), each reading its inputs once, 16 bytes a thread, neighbouring
+// threads on neighbouring addresses:
+//  * the records' sums: a block takes 64 record elements (16 columns of 4)
+//    and 16 groups of records, group u summing records u, u + 16, ... in
+//    order; the 16 group sums join in a fixed pairwise tree (((u0 + u1) +
+//    (u2 + u3)) + ...), so that no sum is a chain of all the records;
+//  * dW0's sums: a thread takes 4 neighbouring x0 columns of one hidden
+//    unit and sums K8w's splits in order;
+//  * dctx: a block takes EVB_CTX_SLOTS (lane, slot)s; each one's dz0 sum
+//    (its 64 / T tiles' sums, in order) into shared memory, W0's context
+//    columns too, 32 at a time, then dctx = the slot sums [slots x h] .
+//    W0[:, ctx] [h x d], each output's sum over the hidden units in
+//    order.
+// Every gradient element is a float32 sum rounded once to the compute
+// type (then widened), and the order is fixed, so two runs give the same
+// bits.
+#define EVB_REC_COLS 64   // record elements a block of the records' sums
+#define EVB_REC_GROUPS 16 // groups of records
+#define EVB_CTX_SLOTS 32  // (lane, slot)s a block of dctx
+#define EVB_CTX_COLS 32   // context columns a pass of dctx
+
+// The blocks of each kind at b lanes.
+struct EvbReduceGrid {
+    int rec, w0, ctx;
+};
+
+static EvbReduceGrid evb_reduce_grid(int b, const EvDims& e, const EvbRecord& rec) {
+    EvbReduceGrid g;
+    g.rec = (rec.stride + EVB_REC_COLS - 1) / EVB_REC_COLS;
+    g.w0 = (e.h * (e.kx / 4) + 255) / 256;
+    g.ctx = (b * 3 + EVB_CTX_SLOTS - 1) / EVB_CTX_SLOTS;
+    return g;
 }
 
-// dctx [lane][slot][d] = (sum of the slot's tiles' dz0 sums) . W0[:, ctx], rounded.
+// grads: the eight parameters' gradients, flat, in the module's order;
+// dctx [b * 3][d] in the compute type.
 template <typename S, int T>
 __global__ void __launch_bounds__(256)
-evaluator_grad_ctx_kernel(const float* __restrict__ stile, const S* __restrict__ lay, EvDims e,
-                          S* __restrict__ dctx, int n) {
-    constexpr int TPSLOT = 64 / T;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-        const int ls = i / e.d, dd = i % e.d;
-        float acc = 0.0f;
-        for (int hh = 0; hh < e.h; ++hh) {
-            float s = 0.0f;
-            for (int q = 0; q < TPSLOT; ++q) s += stile[(size_t)(ls * TPSLOT + q) * e.hp + hh];
-            acc += s * to_f(lay[e.w0x + dd * e.hp + hh]);
+evaluator_grad_reduce_kernel(const float* __restrict__ part, int blocks, EvbRecord rec,
+                             const float* __restrict__ partw, int splits,
+                             const float* __restrict__ stile, const S* __restrict__ lay,
+                             EvDims e, float* __restrict__ grads, S* __restrict__ dctx,
+                             int nslots, EvbReduceGrid grid, int v0) {
+    __shared__ float s_a[EVB_CTX_SLOTS * (EV_MAX_H + 1)];
+    __shared__ float s_b[EV_MAX_H * (EVB_CTX_COLS + 1)];
+    const int tid = threadIdx.x;
+    int v = v0 + (int)blockIdx.x;
+    const int nw1 = e.c1 * 18, nw2 = e.c2 * e.c1 * 9, f = 64 * e.c2 + 3 + e.d;
+    if (v < grid.rec) {
+        // s_a [group][64 columns].
+        const int u = tid / 16, c4 = tid % 16, col = v * EVB_REC_COLS + 4 * c4;
+        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (col < rec.stride) {
+            for (int b = u; b < blocks; b += EVB_REC_GROUPS) {
+                const float4 x = *(const float4*)(part + (size_t)b * rec.stride + col);
+                s.x += x.x;
+                s.y += x.y;
+                s.z += x.z;
+                s.w += x.w;
+            }
         }
-        dctx[i] = from_f<S>(acc);
+        float* o = s_a + u * EVB_REC_COLS + 4 * c4;
+        o[0] = s.x;
+        o[1] = s.y;
+        o[2] = s.z;
+        o[3] = s.w;
+        __syncthreads();
+        for (int w = 1; w < EVB_REC_GROUPS; w *= 2) {
+            for (int i = tid; i < EVB_REC_COLS * EVB_REC_GROUPS / (2 * w); i += 256) {
+                float* lo = s_a + 2 * w * (i / EVB_REC_COLS) * EVB_REC_COLS + i % EVB_REC_COLS;
+                *lo = *lo + lo[w * EVB_REC_COLS];
+            }
+            __syncthreads();
+        }
+        const int j = v * EVB_REC_COLS + tid;  // the record element
+        if (tid < EVB_REC_COLS && j < rec.size)
+            grads[j < rec.b0 ? j : j + e.h * f] = to_f(from_f<S>(s_a[tid]));
+        return;
+    }
+    if ((v -= grid.rec) < grid.w0) {
+        const int i = v * 256 + tid, kq = e.kx / 4;
+        if (i >= e.h * kq) return;
+        const int hh = i / kq, col = (i % kq) * 4;
+        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int c = 0; c < splits; ++c) {
+            const float4 x = *(const float4*)(partw + ((size_t)c * e.hp + hh) * e.kx + col);
+            s.x += x.x;
+            s.y += x.y;
+            s.z += x.z;
+            s.w += x.w;
+        }
+        const float sv[4] = {s.x, s.y, s.z, s.w};
+        float* out = grads + nw1 + e.c1 + nw2 + e.c2 + (size_t)hh * f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int cc = col + q;  // x0's column: (pixel, channel to c2p), then the rest
+            int ff = -1;
+            if (cc < 64 * e.c2p) {
+                if (cc % e.c2p < e.c2) ff = cc / e.c2p * e.c2 + cc % e.c2p;
+            } else if (cc - 64 * e.c2p < 3 + e.d) {
+                ff = 64 * e.c2 + cc - 64 * e.c2p;
+            }
+            if (ff >= 0) out[ff] = to_f(from_f<S>(sv[q]));
+        }
+        return;
+    }
+    v -= grid.w0;
+    // dctx for (lane, slot)s ls0 .. ls0 + EVB_CTX_SLOTS - 1: their dz0 sums
+    // into s_a [slot][hp + 1].
+    constexpr int TPSLOT = 64 / T;
+    const int ls0 = v * EVB_CTX_SLOTS, hs = e.hp + 1;
+    const int ns = nslots - ls0 < EVB_CTX_SLOTS ? nslots - ls0 : EVB_CTX_SLOTS;
+    for (int i = tid; i < ns * e.hp; i += 256) {
+        const int sl = i / e.hp, hh = i % e.hp;
+        const float* at = stile + (size_t)(ls0 + sl) * TPSLOT * e.hp + hh;
+        float s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < TPSLOT; ++q) s += at[q * e.hp];
+        s_a[sl * hs + hh] = s;
+    }
+    const int dd = tid % EVB_CTX_COLS, sl0 = tid / EVB_CTX_COLS;
+    for (int d0 = 0; d0 < e.d; d0 += EVB_CTX_COLS) {
+        __syncthreads();  // s_a is in; the last pass has read s_b
+        // W0's context columns d0 .. d0 + 31 into s_b [hh][32 + 1].
+        for (int i = tid; i < e.h * EVB_CTX_COLS; i += 256) {
+            const int hh = i / EVB_CTX_COLS, c = i % EVB_CTX_COLS;
+            s_b[hh * (EVB_CTX_COLS + 1) + c] =
+                d0 + c < e.d ? to_f(lay[e.w0x + (d0 + c) * e.hp + hh]) : 0.0f;
+        }
+        __syncthreads();
+        if (d0 + dd < e.d) {
+            for (int sl = sl0; sl < ns; sl += 256 / EVB_CTX_COLS) {
+                const float* a = s_a + sl * hs;
+                float acc = 0.0f;
+                for (int hh = 0; hh < e.h; ++hh) acc += a[hh] * s_b[hh * (EVB_CTX_COLS + 1) + dd];
+                dctx[(size_t)(ls0 + sl) * e.d + d0 + dd] = from_f<S>(acc);
+            }
+        }
     }
 }
 
@@ -936,7 +1027,7 @@ extern "C" int bbx_evaluator_grad_sizes(int b, int c1, int c2, int h, int d, int
     out[1] = m * e.kx;
     out[2] = m * e.hk;
     out[3] = (long long)p.ntiles * e.hp;
-    out[4] = (long long)p.blocks * evb_record(e).size;
+    out[4] = (long long)p.blocks * evb_record(e).stride;
     out[5] = (long long)p.splits * e.hp * e.kx;
     out[6] = evb_grad_total(e);
     out[7] = p.threads;
@@ -1029,16 +1120,18 @@ static int evb_reduce(const void* part, const void* partw, const void* stile, co
     EvbPlan p;
     const int err = evb_plan<S>(b, e, p);
     if (err) return err;
-    const int total = evb_grad_total(e);
-    const int grid = total / 256 + 1;
-    BBX_LAUNCH(evaluator_grad_reduce_kernel<S>, grid < 2048 ? grid : 2048, 256, stream,
-               (const float*)part, p.blocks, evb_record(e), (const float*)partw, p.splits, e,
-               (float*)grads, total);
-    const int n = b * 3 * e.d;
-    const int cgrid = n / 256 + 1;
-    auto* const ctx_kernel = &evaluator_grad_ctx_kernel<S, T>;
-    BBX_LAUNCH(ctx_kernel, cgrid < 2048 ? cgrid : 2048, 256, stream,
-               (const float*)stile, (const S*)layout, e, (S*)dctx, n);
+    const EvbRecord rec = evb_record(e);
+    const EvbReduceGrid g = evb_reduce_grid(b, e, rec);
+    // Two launches, the sums' blocks and dctx's (at B = 2048 on an H100 2%
+    // faster than one launch of all: torch_k8b_parts.py's reduce_fused).
+    auto* const kernel = &evaluator_grad_reduce_kernel<S, T>;
+    BBX_LAUNCH(kernel, g.rec + g.w0, 256, stream,
+               (const float*)part, p.blocks, rec, (const float*)partw, p.splits,
+               (const float*)stile, (const S*)layout, e, (float*)grads, (S*)dctx, b * 3, g, 0);
+    BBX_LAUNCH(kernel, g.ctx, 256, stream,
+               (const float*)part, p.blocks, rec, (const float*)partw, p.splits,
+               (const float*)stile, (const S*)layout, e, (float*)grads, (S*)dctx, b * 3, g,
+               g.rec + g.w0);
     return 0;
 }
 

@@ -433,6 +433,27 @@ class _GradWork:
         return {"conv2": x0[:, :64 * c2p].reshape(m, 64, c2p)[:, :, :c2].reshape(m, -1) > 0,
                 "dense0": dz0[:, :h] != 0}
 
+    def reduce_plain(self, acc=torch.float64):
+        """Plain version of the reduction (`_evaluator_grad_reduce`) on this
+        call's block records, K8w's split partials and the tiles' dz0 sums,
+        each sum taken in `acc`: (dctx [B, 3, D] in the compute dtype, the
+        eight parameters' gradients flat, each rounded once to the compute
+        dtype, then widened to float32)."""
+        b, c1, c2, h, d, _ = self.widths
+        cdt = self.dctx.dtype
+        hp, c2p = (h + 7) // 8 * 8, (c2 + 7) // 8 * 8
+        size = 19 * c1 + c2 * (9 * c1 + 1) + 2 * h + 1  # a record; dense0's bias at size - 2h - 1
+        rec = self.part.view(max(self.plan["k8b_blocks"], 1), -1)[:, :size].to(acc).sum(0)
+        kx = self.x0.numel() // max(b * NUM_ACTIONS, 1)
+        w0 = self.partw.view(-1, hp, kx).to(acc).sum(0)[:h]
+        conv = w0[:, :64 * c2p].reshape(h, 64, c2p)[:, :, :c2].reshape(h, 64 * c2)
+        w0 = torch.cat([conv, w0[:, 64 * c2p:64 * c2p + NUM_FEATS + d]], dim=1)
+        nb0 = size - 2 * h - 1
+        flat = torch.cat([rec[:nb0], w0.reshape(-1), rec[nb0:]]).to(cdt).float()
+        slots = self.stile.view(b * NUM_SLOTS, -1, hp).to(acc).sum(1)[:, :h]
+        wctx = self.params[4].detach()[:, 64 * c2 + NUM_FEATS:].to(cdt).to(acc)
+        return (slots @ wctx).to(cdt).view(b, NUM_SLOTS, d), flat
+
     def grads(self):
         """The eight parameters' gradients, float32, as views of one buffer."""
         return [g.view(p.shape) for g, p in

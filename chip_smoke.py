@@ -25,7 +25,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    bf16 and float32, at the tiny and ragged widths and at the width
    limits (where K8b's da1 shares da2t's shared memory), with the whole
    backward timed in turns with the plain autograd and the checkpointed
-   cuDNN/cuBLAS forward + backward; K9 (the sampler) bit for bit on the
+   cuDNN/cuBLAS forward + backward, and the reduction held to the same
+   sums in float64, its device time by kernel and its library time
+   (`torch.sum` and `torch.matmul`) reported; K9 (the sampler) bit for bit on the
    engine step's masks at 16,384 lanes and at 512; K6's two
    entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
@@ -74,11 +76,13 @@ Phases, each of which must pass (exit code 1 otherwise):
    backward;
 10. profile a 16-step rollout and a 4-minibatch update at run9 widths
    (device time by kernel, the device's busy share in each; an update
-   minibatch must run K8 and K8's backward once each and no convolution of
-   the evaluator's size, only the value head's), then time
+   minibatch must run K8 and K8's backward once each -- K8b's and K8w's
+   kernels once, the reduction's twice -- and no convolution of the
+   evaluator's size, only the value head's), then time
    the evaluator alone in turns: cuDNN in NCHW and channels-last, K8, and
    `torch.compile` of the plain evaluator where `import triton` works
-   (`evaluator_layouts`);
+   (`evaluator_layouts`; cuDNN channels-last and K8 at 512 and 2048
+   lanes);
 11. the flat CNN: the float32 forward at default widths, card against CPU
    in train mode (dropout off) and eval mode, then `bench_network` and
    `bench_train` at bbx's defaults (2 timed iterations, losses finite).
@@ -459,6 +463,15 @@ def evaluator_layouts(device) -> dict:
         try:
             with torch.no_grad():
                 turn["forward_ms"] = time_ms(fwd)
+                if fmt in ("channels_last", "k8"):
+                    # The same forward at the update minibatch's lanes.
+                    big = inputs(RUN9_TRAINING["batch_size"])
+                    mb = big[0].shape[0] * 192
+                    bb = big[0].view(mb, 8, 8, 2).permute(0, 3, 1, 2)
+                    turn["forward_2048_ms"] = time_ms(
+                        (lambda: evaluator(bb, big[3], True)) if fmt == "channels_last"
+                        else (lambda: A.evaluator_scores(ev, *big[:3], dt)), reps=7, inner=3)
+                    del big, bb
         except Exception as e:
             if fmt != "compiled":
                 raise
@@ -487,7 +500,7 @@ def evaluator_layouts(device) -> dict:
         mine = [t for t in turns if t["layout"] == fmt]
         if mine:
             out[fmt] = {k: statistics.mean(t[k] for t in mine)
-                        for k in ("forward_ms", "train_ms") if k in mine[0]}
+                        for k in ("forward_ms", "forward_2048_ms", "train_ms") if k in mine[0]}
     return out
 
 
@@ -645,7 +658,7 @@ def kernel_phase(device, report):
     # K8 at the rollout's and eval's B = 512 and the update minibatch's
     # 2048 at run9 widths, in bf16 and float32; at the tests' tiny widths;
     # at widths that fill no padded tile on 3 lanes (channels 5 / 12,
-    # hidden 20, ctx 7): K8's tiles (32 afterstates in bf16, 16 in float32)
+    # hidden 20, ctx 7): K8's tiles (64 afterstates in bf16, 16 in float32)
     # divide a lane's 192, so no row tile is ever partial, and these widths
     # leave its k and n tiles partial instead; and at the width limits.  The row's times are bf16 at B = 512; its
     # library time, cuDNN's channels-last evaluator, joins it from phase 10.
@@ -688,6 +701,13 @@ def kernel_phase(device, report):
     log(f"  K8's backward at B = {b2}, bf16: plan {k8b['plan']} (K8b's threads a block, "
         f"resident blocks an SM, grid; K8w's ring stages, resident blocks an SM, splits; "
         f"K8b's shared memory bytes, da1 in its own)")
+    red = k8b["kernels"]["reduction"]
+    log(f"  the reduction at B = {b2}: {red['ms']:.4f} ms, device {red['device_ms']} "
+        f"(by kernel: {red['device_ms_by_kernel']}), plain {red['plain_ms']:.4f} ms, library "
+        f"{red['library_ms']:.4f} ms; against float64: {k8b['reduction_vs_float64']}; K8b's "
+        f"ReLU decisions apart from the plain version's: "
+        + ", ".join(f"{k} {v['count']} (share {v['share']:.3g})"
+                    for k, v in k8b["relu_flips"].items()))
     others = {"512_bfloat16": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], bf16),
               "512_float32": k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b], f32, fast=False),
               "tiny_512_bfloat16": k8b_case(device, ((4, 4), 8, 6), *k8_in[b], bf16),
@@ -729,6 +749,7 @@ def kernel_phase(device, report):
                                        "bound_by")},
             library=k["library_ms"], device_ms_by_kernel=k["device_ms_by_kernel"],
             whole=k8b["whole"], errors=k8b["errors"], k8w_vs_float64=k8b["k8w_vs_float64"],
+            reduction_vs_float64=k8b["reduction_vs_float64"],
             relu_flips=k8b["relu_flips"], plan=k8b["plan"],
             at_other_shapes={key: {"equal": c["equal"], "max_abs_err": c["max_abs_err"],
                                    "same_bits": c["same_bits"], "whole": c["whole"],
@@ -745,7 +766,10 @@ def kernel_phase(device, report):
                             "the same under torch.utils.checkpoint, the update's path "
                             "before this kernel)",
                      "K8w": "dz0^T x0 by torch.matmul in float32 (library: in bf16)",
-                     "reduction": "the records and partials summed by torch.sum"}[what]
+                     "reduction": "the same sums in tensor ops, float32 "
+                                  "(`_GradWork.reduce_plain`; library: the records and "
+                                  "partials summed by torch.sum, dctx by torch.matmul of "
+                                  "the slot sums by W0's context columns)"}[what]
                   + f"; whole backward + forward {k8b['whole']['kernels']:.4f} ms vs plain "
                     f"autograd {k8b['whole']['plain']:.4f} ms, checkpointed "
                     f"{k8b['whole']['library']:.4f} ms (in turns); also " + summary))
@@ -1174,9 +1198,24 @@ def k8b_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
         out["k8w_vs_float64"] = {"max_abs_err": k8w_err, "max_abs": k8w_scale,
                                  "within": k8w_err <= K8W_REL * k8w_scale}
         ok = ok and out["k8w_vs_float64"]["within"]
-        # The reduction's plain version: the block records (19 C1 + C2 (9 C1
-        # + 1) + 2 H + 1 floats each) and K8w's partials summed.
-        records = w.part.view(-1, 19 * c1 + c2 * (9 * c1 + 1) + 2 * h + 1)
+        # The reduction against the same sums in float64 (its plain version,
+        # `_GradWork.reduce_plain`): dctx and every gradient within tol of
+        # it.  Its library time: the block records (19 C1 + C2 (9 C1 + 1) +
+        # 2 H + 1 floats each) and K8w's partials summed by torch.sum, and
+        # dctx as torch.matmul of the slot sums of the tiles' dz0 sums by
+        # W0's context columns.
+        exact_ctx, exact = w.reduce_plain(torch.float64)
+        red = {}
+        for name, x, y in (("ctx", w.dctx, exact_ctx), ("grads", w.flat, exact)):
+            x, y = x.double(), y.double()
+            excess = float(((x - y).abs() - rel * y.abs() - rel * y.abs().max()).max())
+            red[name] = {"max_abs_err": float((x - y).abs().max()),
+                         "max_abs": float(y.abs().max()), "within": excess <= 0}
+        out["reduction_vs_float64"] = red
+        ok = ok and all(r["within"] for r in red.values())
+        records = w.part.view(w.plan["k8b_blocks"], -1)[:, :19 * c1 + c2 * (9 * c1 + 1) + 2 * h + 1]
+        tiles = w.stile.view(b * 3, -1, hp)[:, :, :h]
+        wctx = ev.dense0.weight.detach()[:, 64 * c2 + 3:].to(dtype).float().contiguous()
         dz0_c, x0_c = dz0.contiguous(), x0.contiguous()
         dz0_f, x0_f = dz0_c.float(), x0_c.float()
         reps, inner = (15, 10) if fast else (5, 2)
@@ -1187,18 +1226,26 @@ def k8b_case(device, widths, board, pieces, dtype, fast: bool = True) -> dict:
                 ("K8w", A._evaluator_grad_dense0, ("evaluator_grad_dense0_kernel",),
                  lambda: torch.matmul(dz0_f.t(), x0_f),
                  lambda: torch.matmul(dz0_c.t(), x0_c)),
-                ("reduction", A._evaluator_grad_reduce,
-                 ("evaluator_grad_reduce_kernel", "evaluator_grad_ctx_kernel"),
-                 lambda: (records.sum(0), partials.sum(0)), None)):
+                ("reduction", A._evaluator_grad_reduce, None,
+                 lambda: w.reduce_plain(torch.float32),
+                 lambda: (records.sum(0), partials.sum(0),
+                          torch.matmul(tiles.sum(1), wctx)))):
             def fn(launch=launch):
                 with torch.no_grad():
                     launch(w)
-            dev = [kernel_device_ms(fn, k) for k in names_k]
+            if names_k:
+                dev = [kernel_device_ms(fn, k) for k in names_k]
+                by_kernel = dict(zip(names_k, dev))
+                device = (sum(dev) if all(isinstance(x, float) for x in dev)
+                          else "not measured")
+            else:  # every kernel the call launches, each apart
+                calls = calls_device(fn)
+                by_kernel = {k: v[0] for k, v in calls["kernels"].items()}
+                device = calls["device_ms"]
             kernels[name] = dict(
                 ms=time_ms(fn, reps, inner),
-                device_ms=(sum(dev) if all(isinstance(x, float) for x in dev)
-                           else "not measured"),
-                device_ms_by_kernel=dict(zip(names_k, dev)),
+                device_ms=device,
+                device_ms_by_kernel=by_kernel,
                 host_us=host_us(fn, reps=20 if fast else 5),
                 plain_ms=time_ms(plain_fn, reps, inner),
                 library_ms=time_ms(lib_fn, reps, inner) if lib_fn else None)
@@ -2021,14 +2068,17 @@ def train_profile_phase(device, report):
             conv_ops[size] = conv_ops.get(size, 0) + evt.count / cfg.num_minibatches
     conv_kernels = sum(c for k, (_, c) in kernels_u.items()
                        if any(w in k.lower() for w in CONV_KERNEL_WORDS)) / cfg.num_minibatches
+    # Launches of each a minibatch: the reduction launches its kernel twice
+    # (the gradients' sums, then dctx).
+    expected = {"evaluator_kernel": 1, "evaluator_grad_tiles_kernel": 1,
+                "evaluator_grad_dense0_kernel": 1, "evaluator_grad_reduce_kernel": 2}
     ours = {k: sum(c for name, (_, c) in kernels_u.items() if k in name) / cfg.num_minibatches
-            for k in ("evaluator_kernel", "evaluator_grad_tiles_kernel",
-                      "evaluator_grad_dense0_kernel", "evaluator_grad_reduce_kernel")}
+            for k in expected}
     update_checks = {"convolution_ops_per_minibatch": conv_ops,
                      "convolution_kernels_per_minibatch": conv_kernels,
                      "k8_kernels_per_minibatch": ours,
                      "ok": conv_ops.get("evaluator", 0) == 0 and bool(kernels_u)
-                     and all(v == 1 for v in ours.values())}
+                     and ours == expected}
     out = {"update_checks": update_checks}
     for name, units, unit, wall, by_name in (
             ("rollout", t_len, "step", wall_r, kernels_r),
@@ -2061,6 +2111,8 @@ def train_profile_phase(device, report):
     for t in layouts["turns"]:
         log(f"  evaluator alone, {t['layout']}: forward at M = {K4_LANES} x 192 "
             f"{t['forward_ms']:.4f} ms"
+            + (f", forward at M = {RUN9_TRAINING['batch_size']} x 192 "
+               f"{t['forward_2048_ms']:.4f} ms" if "forward_2048_ms" in t else "")
             + (f", forward + backward (checkpointed) at M = {RUN9_TRAINING['batch_size']}"
                f" x 192 {t['train_ms']:.4f} ms" if "train_ms" in t else ""))
     log(f"  torch.compile yardstick: {layouts['compiled_status']}")
@@ -2489,6 +2541,8 @@ def main() -> int:
             # M = 512 x 192 (phase 10), measured in turns with K8.
             r["evaluator_layouts"] = report["evaluator_layouts"]
             r["library_ms"] = report["evaluator_layouts"]["channels_last"]["forward_ms"]
+            r["at_update_shape"]["library_ms"] = (
+                report["evaluator_layouts"]["channels_last"]["forward_2048_ms"])
         split = {p: sum(c.get(name, 0) for name in ROW_COUNTERS[r["name"]])
                  for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (

@@ -1,24 +1,35 @@
 """Where K8's time goes: the evaluator kernel and variants of it, timed on
 the card.
 
-    python3 scripts_dev/torch_k8_parts.py [--variants parts|knobs|tile]
-                                          [--out chiprun_out/k8_parts.json]
+    python3 scripts_dev/torch_k8_parts.py [--variants parts|knobs]
+                                          [--parent DIR]
+                                          [--out FILE]
 
 Compiles `bbx_torch/csrc/evaluator.cu` (with `evaluator.cuh`, which holds
-the tile's forward, inlined) as it is and edited into variants into
-`build/k8_parts/`, then times each at run9 widths in bf16 at B = 512
-and 2048 lanes between CUDA events, in turns (the list, then the list
-reversed).  The variant sets:
+the tile's forward, and `bulk.cuh` inlined) as it is and edited into
+variants into `build/k8_parts/`, then times each at run9 widths in bf16
+at B = 512 and 2048 lanes between CUDA events, in turns (the list, then
+the list reversed), with each variant's largest error against the plain
+version and its ptxas registers and spills.  The variant sets:
   parts  the products of conv1, conv2, dense0, or all three removed (and,
          with all three removed, also without the convolutions' epilogue
-         stores or the context's part of dense0): a stage's time is about
-         the full kernel's less the variant's without it; those variants'
-         scores are wrong by design;
-  knobs  `__launch_bounds__(256, 2)`, conv2's channel-group loop unrolled,
-         dense0's k loop unrolled 4 or 1 times (2 in the source);
-  tile   a bf16 tile of 64 afterstates (16 warps) against 32, with and
-         without dense0's products.
-Needs a CUDA card.
+         stores, without the context's part of dense0, or without both,
+         which leaves the staging, the loads and the barriers): a stage's
+         time is about the full kernel's less the variant's without it;
+         those variants' scores are wrong by design; `w0_from_l2`, bf16
+         K8 reading dense0's B operand from L2 at the product, as the
+         float32 instantiation does, instead of through shared memory;
+         `one_tile_a_block`, a block for every tile instead of the
+         persistent grid; `tile_32`, bf16 tiles of 32 afterstates (8 warps
+         a block) in place of 64, and `tile_32_w0_from_l2`, that with
+         dense0's B from L2;
+  knobs  `__launch_bounds__(8T, 2)`, conv2's channel-group loop not
+         unrolled (4 times in K8), dense0's k loop unrolled 4 or 1 times (2
+         in the source).
+With `--parent DIR` (a checkout of another commit, e.g. unpacked from
+`git archive`) its `evaluator.cu` joins the list as the variant `parent`.
+The edits are exact strings of this tree's source; the script stops when
+one is missing.  Needs a CUDA card.
 """
 import argparse
 import ctypes
@@ -37,19 +48,27 @@ from bbx_torch.engine.step import observe  # noqa: E402
 from bbx_torch.models import afterstate as A  # noqa: E402
 from bbx_torch.ops import build  # noqa: E402
 
-# Each stage's call of the product, as it stands in evaluator.cuh.
+# Each stage's calls of the product, as they stand in evaluator.cuh.
 PRODUCTS = {
-    "conv1": "tile_k16<2, 4, false, S>(c, a, b, e.c1m / 16, 4);",
-    "conv2": "tile_k16<2, 4, true, S>(c, a, b, 2, nt);",
-    "dense0": "tile_k16<T / 16, NT0, false, S>(acc, a, b, T / 16, nt0w);",
+    "conv1": ["tile_k16<2, 4, false, S>(c, a, b, e.c1m / 16, 4);"],
+    "conv2": ["tile_k16<2, 4, true, S>(c, a, b, 2, nt);"],
+    "dense0": ["tile_k16<T / 16, NT0, B_LDM, S>(acc, a, b, T / 16, nt0w);"],
 }
 EPILOGUES = [
     ("put(ch, x, 4 * warp + j, relu_to<S>(c[i][j][k] + bb));", ";"),
     ("store2(o, relu_to<S>(c[i][j][0] + b0), relu_to<S>(c[i][j][1] + b1));", ";"),
     ("store2(o + sstr, relu_to<S>(c[i][j][2] + b0), relu_to<S>(c[i][j][3] + b1));", ";"),
 ]
-CONTEXT = [("        for (; dd + 4 <= e.d; dd += 4) {", "        for (; dd + 4 <= 0; dd += 4) {"),
-           ("        for (; dd < e.d; ++dd) s4[0]", "        for (; dd < 0; ++dd) s4[0]")]
+CONTEXT = [("for (; dd + 4 <= e.d; dd += 4) {", "for (; dd + 4 <= 0; dd += 4) {"),
+           ("for (; dd < e.d; ++dd) s4[0]", "for (; dd < 0; ++dd) s4[0]")]
+W0_FROM_L2 = [("const bool w0s = ev_smem<unsigned short, TB, true>(e).total <= EV_SMEM_LIMIT;",
+               "const bool w0s = false;")]
+TILE_32 = [("constexpr int TB = 64;", "constexpr int TB = 32;")]
+# Other whole variants of the parts set: their edits.
+OTHERS = {
+    "one_tile_a_block": [("const int grid = sms * (resident > 1 ? resident : 1);",
+                          "const int grid = ntiles;")],
+}
 
 
 def replaced(text, pairs):
@@ -60,36 +79,46 @@ def replaced(text, pairs):
     return text
 
 
-def variants(which):
-    with open(os.path.join(build.CSRC, "evaluator.cu")) as f:
+def inlined(csrc):
+    """`evaluator.cu` of the source directory `csrc` with the headers of
+    its own that it includes inlined."""
+    with open(os.path.join(csrc, "evaluator.cu")) as f:
         src = f.read()
-    with open(os.path.join(build.CSRC, "evaluator.cuh")) as f:
-        header = f.read().replace("#pragma once\n", "")
-    src = replaced(src, [('#include "evaluator.cuh"\n', header)])
+    for header in ("bulk.cuh", "evaluator.cuh"):
+        if f'#include "{header}"\n' in src:
+            with open(os.path.join(csrc, header)) as f:
+                text = f.read().replace("#pragma once\n", "")
+            src = src.replace(f'#include "{header}"\n', text)
+    return src
+
+
+def variants(which, parent=None):
+    src = inlined(build.CSRC)
     out = {"full": src}
+    if parent:
+        out["parent"] = inlined(os.path.join(parent, "bbx_torch", "csrc"))
     if which == "parts":
         for name, call in PRODUCTS.items():
-            out[f"no_{name}"] = replaced(src, [(call, "")])
-        bare = replaced(src, [(call, "") for call in PRODUCTS.values()])
+            out[f"no_{name}"] = replaced(src, [(c, "") for c in call])
+        bare = replaced(src, [(c, "") for call in PRODUCTS.values() for c in call])
         out["no_products"] = bare
         out["no_products_no_epilogues"] = replaced(bare, EPILOGUES)
         out["no_products_no_context"] = replaced(bare, CONTEXT)
-    elif which == "knobs":
+        out["no_products_no_epilogues_no_context"] = replaced(replaced(bare, EPILOGUES), CONTEXT)
+        out["w0_from_l2"] = replaced(src, W0_FROM_L2)
+        for name, pairs in OTHERS.items():
+            out[name] = replaced(src, pairs)
+        out["tile_32"] = replaced(src, TILE_32)
+        out["tile_32_w0_from_l2"] = replaced(src, TILE_32 + W0_FROM_L2)
+    else:
         dense0_loop = "#pragma unroll 2\n        for (int s = kq; s < e.c2p / 2; s += 2) {"
         out["launch_bounds_2"] = replaced(src, [(
             "__launch_bounds__(8 * T)\nevaluator_kernel(",
             "__launch_bounds__(8 * T, 2)\nevaluator_kernel(")])
-        out["conv2_groups_unrolled"] = replaced(src, [(
-            "        for (int q = 0; q < cg; ++q) {",
-            "#pragma unroll 4\n        for (int q = 0; q < cg; ++q) {")])
+        out["conv2_groups_rolled"] = replaced(src, [(
+            "ev_conv3_row<S, T, Acc, true>(", "ev_conv3_row<S, T, Acc, false>(")])
         out["dense0_unroll_4"] = replaced(src, [(dense0_loop, dense0_loop.replace("2", "4", 1))])
         out["dense0_unroll_1"] = replaced(src, [(dense0_loop, dense0_loop.replace("2", "1", 1))])
-    else:
-        t64 = replaced(src, [("evaluator_launch<unsigned short, 32>(",
-                              "evaluator_launch<unsigned short, 64>(")])
-        out["no_dense0"] = replaced(src, [(PRODUCTS["dense0"], "")])
-        out["tile_64"] = t64
-        out["tile_64_no_dense0"] = replaced(t64, [(PRODUCTS["dense0"], "")])
     return out
 
 
@@ -110,7 +139,8 @@ def compile_all(sources):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name} does not compile:\n{log}")
-        ptxas[name] = [line.strip() for line in log.splitlines() if "registers" in line]
+        ptxas[name] = [line.strip() for line in log.splitlines()
+                       if "registers" in line or "spill" in line or "Compiling" in line]
         fn = ctypes.CDLL(os.path.join(work, f"lib{name}.so")).bbx_evaluator
         fn.argtypes, fn.restype = build.SIGNATURES["evaluator"][2], ctypes.c_int
         fns[name] = fn
@@ -119,13 +149,14 @@ def compile_all(sources):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", choices=("parts", "knobs", "tile"), default="parts")
+    ap.add_argument("--variants", choices=("parts", "knobs"), default="parts")
+    ap.add_argument("--parent", default=None, help="a checkout of another commit")
     ap.add_argument("--out", default=None, help="JSON results path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    fns, ptxas = compile_all(variants(args.variants))
+    fns, ptxas = compile_all(variants(args.variants, args.parent))
     dev = torch.device("cuda")
     dt = torch.bfloat16
     net = A.AfterstateNetwork(compute_dtype=dt, generator=torch.Generator().manual_seed(1))

@@ -1,24 +1,30 @@
-"""Where K8b's and K8w's time goes: K8's backward kernels and variants of
-them without one stage, timed on the card.
+"""Where K8b's, K8w's and the reduction's time goes: K8's backward kernels
+and variants of them without one stage, timed on the card.
 
-    python3 scripts_dev/torch_k8b_parts.py [--out chiprun_out/k8b_parts.json]
+    python3 scripts_dev/torch_k8b_parts.py [--parent DIR]
+                                           [--out FILE]
 
 Compiles `bbx_torch/csrc/evaluator_backward.cu` (with its headers inlined)
 as it is and edited into variants into `build/k8b_parts/`, then times
-`bbx_evaluator_grad_tiles` (the weight layout and K8b) and
-`bbx_evaluator_grad_dense0` (K8w) at run9 widths in bf16 at B = 512 and
-2048 lanes between CUDA events, in turns (the list, then the list
-reversed).  Each K8b variant drops one stage of the backward walk -- da2's
-product, dW2's product, da1's convolution, conv1's weight gradient, x0's
-stores -- or all four products at once, or the whole walk (what is left
-is the recompute, the epilogues and the record); a stage's time is about
-the full kernel's less the variant's without it (their gradients are
-wrong by design).  The K8w variants drop its products (the bulk copies'
-ring alone) or dz0's copies, or hold 8 stages or 8 consumer warps in place
-of 5 and 16.  `k8b_da1_shared` builds K8b as if shared memory were short,
-with da1's row over da2t's (the layout of the width limits).  The edits
-are exact strings of this tree's source; the script stops when one is
-missing.  Needs a CUDA card.
+`bbx_evaluator_grad_tiles` (the weight layout and K8b),
+`bbx_evaluator_grad_dense0` (K8w) and `bbx_evaluator_grad_reduce` (the
+reduction, after the same build's K8b and K8w) at run9 widths in bf16 at
+B = 512 and 2048 lanes between CUDA events, in turns (the list, then the
+list reversed).  Each K8b variant drops one stage of the backward walk --
+da2's product, dW2's product, da1's convolution, conv1's weight gradient,
+x0's stores -- or all four products at once, or the whole walk (what is
+left is the recompute, the epilogues and the record); a stage's time is
+about the full kernel's less the variant's without it (their gradients
+are wrong by design).  The K8w variants drop its products (the bulk
+copies' ring alone) or dz0's copies, or hold 8 stages or 8 consumer warps
+in place of 5 and 16.  `k8b_da1_shared` builds K8b as if shared memory
+were short, with da1's row over da2t's (the layout of the width limits).
+`reduce_fused` launches the reduction's dctx blocks with its sums' blocks,
+in one launch in place of two.  With `--parent DIR` (a checkout of another commit, e.g. unpacked
+from `git archive`) its `evaluator_backward.cu` joins the list as the
+variant `parent`, its three kernels timed.  The edits are exact strings of
+this tree's source; the script stops when one is missing.  Needs a CUDA
+card.
 """
 import argparse
 import ctypes
@@ -58,6 +64,17 @@ OTHERS = {
     "k8w_8_consumers": ("k8w", [("#define EVB_K8W_CWARPS 16 ", "#define EVB_K8W_CWARPS 8 ")]),
     # K8b's layout of the width limits at run9 widths: da1's row over da2t's.
     "k8b_da1_shared": ("k8b", [("#define EVB_SMEM_LIMIT 232448", "#define EVB_SMEM_LIMIT 1")]),
+    "reduce_fused": ("reduce", [(
+        """    BBX_LAUNCH(kernel, g.rec + g.w0, 256, stream,
+               (const float*)part, p.blocks, rec, (const float*)partw, p.splits,
+               (const float*)stile, (const S*)layout, e, (float*)grads, (S*)dctx, b * 3, g, 0);
+    BBX_LAUNCH(kernel, g.ctx, 256, stream,
+               (const float*)part, p.blocks, rec, (const float*)partw, p.splits,
+               (const float*)stile, (const S*)layout, e, (float*)grads, (S*)dctx, b * 3, g,
+               g.rec + g.w0);""",
+        """    BBX_LAUNCH(kernel, g.rec + g.w0 + g.ctx, 256, stream,
+               (const float*)part, p.blocks, rec, (const float*)partw, p.splits,
+               (const float*)stile, (const S*)layout, e, (float*)grads, (S*)dctx, b * 3, g, 0);""")]),
 }
 
 
@@ -69,15 +86,24 @@ def replaced(text, name, pairs):
     return text
 
 
-def variants():
-    with open(os.path.join(build.CSRC, "evaluator_backward.cu")) as f:
+def inlined(csrc):
+    """`evaluator_backward.cu` of the source directory `csrc` with the
+    headers of its own that it includes inlined."""
+    with open(os.path.join(csrc, "evaluator_backward.cu")) as f:
         src = f.read()
-    for header in sorted(os.listdir(build.CSRC)):
+    for header in sorted(os.listdir(csrc)):
         if header.endswith(".cuh") and f'#include "{header}"\n' in src:
-            with open(os.path.join(build.CSRC, header)) as f:
+            with open(os.path.join(csrc, header)) as f:
                 text = f.read().replace("#pragma once\n", "")
             src = src.replace(f'#include "{header}"\n', text)
+    return src
+
+
+def variants(parent=None):
+    src = inlined(build.CSRC)
     out = {"full": src}
+    if parent:
+        out["parent"] = inlined(os.path.join(parent, "bbx_torch", "csrc"))
     for name, (_, pairs) in STAGES.items():
         out[f"no_{name}"] = replaced(src, name, pairs)
     products = src
@@ -111,6 +137,7 @@ def compile_all(sources):
         lib = ctypes.CDLL(os.path.join(work, f"lib{name}.so"))
         pair = {}
         for kernel, entry in (("k8b", "evaluator_grad_tiles"), ("k8w", "evaluator_grad_dense0"),
+                              ("reduce", "evaluator_grad_reduce"),
                               ("sizes", "evaluator_grad_sizes")):
             fn = getattr(lib, build.SIGNATURES[entry][1])
             fn.argtypes, fn.restype = build.SIGNATURES[entry][2], ctypes.c_int
@@ -134,17 +161,19 @@ def timed(call, reps=10):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None, help="a checkout of another commit")
     ap.add_argument("--out", default=None, help="JSON results path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    fns, ptxas = compile_all(variants())
-    # (variant, kernel timed): the full build times both.
+    fns, ptxas = compile_all(variants(args.parent))
+    # (variant, kernel timed): the full and the parent's builds time all three.
     order = []
     for name in fns:
         stage = name[3:] if name.startswith("no_") else None
-        kinds = (["k8b", "k8w"] if name == "full" else [OTHERS[name][0]] if name in OTHERS
+        kinds = (["k8b", "k8w", "reduce"] if name in ("full", "parent")
+                 else [OTHERS[name][0]] if name in OTHERS
                  else [STAGES[stage][0]] if stage in STAGES else ["k8b"])
         order += [(name, kind) for kind in kinds]
     dev = torch.device("cuda")
@@ -182,10 +211,21 @@ def main() -> int:
                 build.check(name, fn(w.x0.data_ptr(), w.dz0.data_ptr(), w.partw.data_ptr(),
                                      *w.widths, stream))
 
-            calls[name] = {"k8b": k8b, "k8w": k8w}
+            def reduce(fn=pair["reduce"], name=name):
+                build.check(name, fn(w.part.data_ptr(), w.partw.data_ptr(), w.stile.data_ptr(),
+                                     w.layout.data_ptr(), w.flat.data_ptr(), w.dctx.data_ptr(),
+                                     *w.widths, stream))
+
+            calls[name] = {"k8b": k8b, "k8w": k8w, "reduce": reduce}
         for name, kind in order + order[::-1]:
             if kind == "k8w":
                 calls["full"]["k8b"]()  # K8w reads the x0 and dz0 the full K8b writes
+            if kind == "reduce":
+                # The reduction reads the records, partials and layout its
+                # own build's K8b and K8w write.
+                own = "parent" if name == "parent" else "full"
+                calls[own]["k8b"]()
+                calls[own]["k8w"]()
             row = {"lanes": b, "variant": name, "kernel": kind,
                    "ms": timed(calls[name][kind])}
             rows.append(row)

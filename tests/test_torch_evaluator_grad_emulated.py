@@ -178,6 +178,47 @@ def test_emulated_k8w_matches_float64(emulated, kernels, widths, lanes, dtype, r
     assert (total - exact).abs().max() <= K8W_REL * exact.abs().max()
 
 
+@pytest.mark.parametrize("widths,lanes,dtype", [("tiny", 3, torch.bfloat16),
+                                                 ("ragged", 3, torch.float32)])
+def test_emulated_reduction_matches_float64(emulated, kernels, widths, lanes, dtype):
+    """The reduction alone (emulated) on the records, K8w's partials and the
+    tiles' dz0 sums that K8b and K8w wrote, with 8 resident blocks an
+    emulated SM, so that K8b writes one record a tile (18 records in bf16,
+    24 of 36 tiles in float32): the eight gradients and dctx against the
+    same sums taken in float64 (`_GradWork.reduce_plain`), rounded to the
+    compute dtype, within the module docstring's tolerances; one launch; a
+    second run gives the same bits."""
+    net = _evaluator_net(EVAL_WIDTHS[widths], dtype, seed=lanes + 50)
+    planes, feats, ctx = _evaluator_inputs(net, lanes, seed=lanes + 3)
+    ds = torch.from_numpy(np.random.default_rng(lanes + 7).normal(size=lanes * 192)
+                          .astype(np.float32)).to(dtype)
+    set_resident = emulated["set_resident:evaluator_backward"]
+    set_resident(8)
+    try:
+        with torch.no_grad():
+            w = A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype)
+            A._evaluator_grad_tiles(w)
+            A._evaluator_grad_dense0(w)
+            before = A._evaluator_grad_reduce.launches
+            A._evaluator_grad_reduce(w)
+            assert A._evaluator_grad_reduce.launches == before + 1
+            got_ctx, got = w.dctx.clone(), w.flat.clone()
+            A._evaluator_grad_reduce(w)
+    finally:
+        set_resident(1)
+    assert w.plan["k8b_blocks"] == min(3 * 8, lanes * 192 // (32 if dtype == torch.bfloat16
+                                                                 else 16))
+    assert torch.equal(w.dctx, got_ctx) and torch.equal(w.flat, got)
+    want_ctx, want = w.reduce_plain(torch.float64)
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    _assert_grad_close(got_ctx, want_ctx, rel, "ctx")
+    assert want_ctx.abs().max() > 0
+    sizes = [p.numel() for p in net.evaluator.parameters()]
+    for name, g, w_ in zip(PARAM_NAMES, got.split(sizes), want.split(sizes)):
+        _assert_grad_close(g, w_, rel, name)
+        assert w_.abs().max() > 0 or name == "dense1.bias", name
+
+
 def _backward_with_smem_limit(tmp_path, limit):
     """`evaluator_backward.cu` built for the emulator with a shared-memory
     limit of `limit` bytes, bound like the real one."""

@@ -647,6 +647,33 @@ def test_evaluator_grad_dense0_matches_float64(cuda, b):
 
 
 @pytest.mark.gpu
+def test_evaluator_grad_reduce_matches_float64(cuda):
+    """The reduction at run9 widths in bf16 at the update minibatch's B =
+    2048, on the records, partials and tile sums that K8b and K8w write:
+    dctx and each parameter's gradient within 2e-2 |x| + 2e-2 max |x| of
+    the same sums taken in float64 (`_GradWork.reduce_plain`) and rounded
+    to bf16; two runs give the same bits."""
+    net, inputs = _k8_case(cuda, ((24, 24), 96, 32), 2048, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(2048)
+    ds = torch.randn(2048 * 192, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        w = A._GradWork(net.evaluator, *inputs, ds, torch.bfloat16)
+        for launch in K8B_COUNTERS:
+            launch(w)
+        first_ctx, first = w.dctx.clone(), w.flat.clone()
+        A._evaluator_grad_reduce(w)
+        want_ctx, want = w.reduce_plain(torch.float64)
+    assert torch.equal(first_ctx, w.dctx) and torch.equal(first, w.flat)
+    sizes = [p.numel() for p in net.evaluator.parameters()]
+    pairs = [("ctx", w.dctx, want_ctx)] + list(zip(K8B_PARAMS, w.flat.split(sizes),
+                                                    want.split(sizes)))
+    for name, got, exact in pairs:
+        got, exact = got.double(), exact.double()
+        assert exact.abs().max() > 0, name
+        assert ((got - exact).abs() <= 2e-2 * exact.abs() + 2e-2 * exact.abs().max()).all(), name
+
+
+@pytest.mark.gpu
 def test_evaluator_grads_follow_an_optimizer_step(cuda):
     """K8's backward lays its weights out from the parameters at every
     call: after an in-place Adam step it agrees with the plain version on

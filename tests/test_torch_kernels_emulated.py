@@ -512,7 +512,7 @@ def _evaluator_inputs(net, lanes, seed):
                                           ("run9", 3), ("ragged", 3), ("limits", 1)])
 def test_emulated_evaluator_kernel_matches_plain(kernels, widths, lanes, dtype):
     """K8 (emulated) against `evaluator_scores_plain` on the same inputs:
-    one lane (6 tiles of 32 afterstates in bf16, 12 of 16 in float32, in 3
+    one lane (3 tiles of 64 afterstates in bf16, 12 of 16 in float32, in 3
     slots) and three (each lane's three context rows), at the tiny, run9
     and ragged widths and at the width limits (whose float32 shared memory
     fits the card's only in tiles of 16; the emulator refuses what the
@@ -538,6 +538,34 @@ def test_emulated_evaluator_kernel_matches_plain(kernels, widths, lanes, dtype):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_evaluator_kernel_with_a_tile_a_block(emulated, kernels, dtype):
+    """K8 (emulated) on two lanes with 8 resident blocks an emulated SM: its
+    persistent grid then has a block for each tile (6 of 64 afterstates in
+    bf16, 24 of 16 in float32, against 24 blocks), where with one resident
+    block each of the 3 blocks walks 2 or 8 tiles, its next tile's planes
+    and features landing while the current one computes; the same bits
+    both ways (every sum in the same order), run9 widths."""
+    net = _evaluator_net(EVAL_WIDTHS["run9"], dtype, seed=4)
+    planes, feats, ctx = _evaluator_inputs(net, 2, seed=12)
+    with torch.no_grad():
+        walked = A._evaluator_scores_cuda(net.evaluator, planes, feats, ctx, dtype)
+        set_resident = emulated["set_resident:evaluator"]
+        set_resident(8)
+        try:
+            one_each = A._evaluator_scores_cuda(net.evaluator, planes, feats, ctx, dtype)
+        finally:
+            set_resident(1)
+        want = A.evaluator_scores_plain(net.evaluator, planes, feats, ctx, dtype)
+    assert torch.equal(one_each, walked)
+    scale = want.float().abs().max().item()
+    assert scale > 0.1
+    if dtype == torch.float32:
+        torch.testing.assert_close(walked, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(walked.float(), want.float(), rtol=2e-2, atol=2e-2 * scale)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
