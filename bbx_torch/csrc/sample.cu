@@ -7,14 +7,27 @@
 // negations, clamp, add, argmax, a cast).
 //
 // Bound by bytes: 192 mask bytes in and 4 out a lane (3.2 MB at 16,384
-// lanes, 1 us at 3.35 TB/s); a launch is latency.  One warp a lane: six
-// ballots over the mask's 192 bytes give its 6 words, their popcounts the
-// count c of valid actions.  The draw is u = bbx_mix32(bbx_mix32(seed) ^
-// lane) (hash.cuh), k = (u * c) >> 32 (a bias below 1e-7 at c <= 192), and
-// the lane takes its k-th valid action; c = 0 gives action 0, as bbx's
-// categorical does on an all-false row.  The plain version
-// (`bbx_torch/env/vector.py:sample_valid_actions_plain`) computes the same
-// hash and pick, so the two agree bit for bit.
+// lanes, 1 us at 3.35 TB/s); at 512 lanes a launch is latency.  A warp
+// serves SAMPLE_LANES = 8 lanes, whose 1.5 KB of mask lie in one run: each
+// thread reads three 16-byte chunks of it, neighbouring threads on
+// neighbouring chunks (512 bytes a warp load, all three in flight
+// together, with the seed's), and folds each chunk into 16 bits with
+// integer arithmetic (a byte's high bit set where the byte is nonzero, the
+// four of a word gathered by one multiply: no branch a byte).  A shuffle
+// pairs neighbouring chunks into 32-bit words, which go to shared memory,
+// 7 words a lane (odd, so that the lanes' reads of their six words hit
+// different banks).  Then a thread takes each lane: the popcounts of its
+// six words give its count c of valid actions; the draw is u =
+// bbx_mix32(bbx_mix32(seed) ^ lane) (hash.cuh), k = (u * c) >> 32 (a bias
+// below 1e-7 at c <= 192), and the lane takes its k-th valid action, found
+// in a fixed number of steps: a popcount prefix over the six words picks
+// the word, a popcount binary search (16, 8, 4, 2, 1) the bit.  c = 0
+// gives action 0, as bbx's categorical does on an all-false row.  Eight
+// lanes a warp rather than 32 spread the per-thread chain of loads,
+// folds and shuffles over four times the warps (2,048 at 16,384 lanes,
+// 64 at 512).  The mask must be 16-byte aligned (the wrapper checks).  The
+// plain version (`bbx_torch/env/vector.py:sample_valid_actions_plain`)
+// computes the same hash and pick, so the two agree bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,45 +35,95 @@
 #include "launch.cuh"
 
 #define SAMPLE_ACTIONS 192
-#define SAMPLE_WARPS 8  // lanes a block
+#define SAMPLE_WORDS (SAMPLE_ACTIONS / 32)   // 32-bit words a lane
+#define SAMPLE_CHUNKS (SAMPLE_ACTIONS / 16)  // 16-byte chunks a lane
+#define SAMPLE_STRIDE (SAMPLE_WORDS + 1)     // shared words a lane
+#define SAMPLE_LANES 8                       // lanes a warp (8, 16 or 32)
+#define SAMPLE_LOADS (SAMPLE_CHUNKS * SAMPLE_LANES / 32)  // 16-byte loads a thread
+#define SAMPLE_WARPS 4                       // warps a block
 
-// mask [n][192] bool, seed: one int64, out [n] int32.
+// Bit i of the result set where byte i of x is nonzero (i < 4).
+__device__ __forceinline__ unsigned sample_pack4(unsigned x) {
+    const unsigned high = (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+    // Bits 0, 8, 16, 24 times 2^28 + 2^21 + 2^14 + 2^7 land on 28-31, and
+    // no two of the 16 products share a bit, so nothing carries.
+    return ((high >> 7) * 0x10204080u) >> 28;
+}
+
+__device__ __forceinline__ unsigned sample_pack16(uint4 v) {
+    return sample_pack4(v.x) | sample_pack4(v.y) << 4 | sample_pack4(v.z) << 8 |
+           sample_pack4(v.w) << 12;
+}
+
+// mask [n][192] bool (16-byte aligned), seed: one int64, out [n] int32.
 __global__ void __launch_bounds__(32 * SAMPLE_WARPS)
 sample_kernel(const unsigned char* __restrict__ mask, const long long* __restrict__ seed,
               int* __restrict__ out, int n) {
-    const int l = threadIdx.x & 31;
-    const int lane = blockIdx.x * SAMPLE_WARPS + (threadIdx.x >> 5);
-    if (lane >= n) return;  // a whole warp: n is the same for its 32 threads
-    const unsigned char* row = mask + (size_t)lane * SAMPLE_ACTIONS;
-    unsigned words[SAMPLE_ACTIONS / 32];
+    __shared__ unsigned s_words[SAMPLE_WARPS][SAMPLE_LANES * SAMPLE_STRIDE];
+    const uint32_t key = bbx_mix32((uint32_t)seed[0]);  // in flight with the mask's loads
+    const int l = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int first = (blockIdx.x * SAMPLE_WARPS + warp) * SAMPLE_LANES;
+    if (first >= n) return;  // a whole warp
+    const int chunks = min(SAMPLE_LANES, n - first) * SAMPLE_CHUNKS;
+    const uint4* src = (const uint4*)(mask + (size_t)first * SAMPLE_ACTIONS);
+    unsigned* words = s_words[warp];
+    uint4 v[SAMPLE_LOADS];
+#pragma unroll
+    for (int i = 0; i < SAMPLE_LOADS; ++i) {
+        const int c = 32 * i + l;
+        v[i] = c < chunks ? src[c] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < SAMPLE_LOADS; ++i) {
+        // Chunk c is bytes 16 (c % 12) of the warp's lane c / 12; c is even
+        // where l is, and then chunk c + 1 (thread l + 1's) is the word's
+        // high half.
+        const int c = 32 * i + l;
+        const unsigned half = sample_pack16(v[i]);
+        const unsigned high = __shfl_down_sync(0xFFFFFFFFu, half, 1);
+        if (!(l & 1)) words[(c / SAMPLE_CHUNKS) * SAMPLE_STRIDE + (c % SAMPLE_CHUNKS) / 2] =
+            half | high << 16;
+    }
+    __syncwarp();
+    const int lane = first + l;
+    if (l >= SAMPLE_LANES || lane >= n) return;
+    unsigned w[SAMPLE_WORDS];
     int count = 0;
 #pragma unroll
-    for (int w = 0; w < SAMPLE_ACTIONS / 32; ++w) {
-        words[w] = __ballot_sync(0xFFFFFFFFu, row[w * 32 + l] != 0);
-        count += __popc(words[w]);
+    for (int j = 0; j < SAMPLE_WORDS; ++j) {
+        w[j] = words[l * SAMPLE_STRIDE + j];
+        count += __popc(w[j]);
     }
-    if (l != 0) return;
-    const uint32_t u = bbx_mix32(bbx_mix32((uint32_t)seed[0]) ^ (uint32_t)lane);
-    int k = (int)(((uint64_t)u * (uint32_t)count) >> 32);
-    int action = 0;
-    if (count > 0) {
-        for (int w = 0; w < SAMPLE_ACTIONS / 32; ++w) {
-            const int c = __popc(words[w]);
-            if (k < c) {
-                unsigned m = words[w];
-                for (int i = 0; i < k; ++i) m &= m - 1;  // drop the k lowest set bits
-                action = w * 32 + __ffs(m) - 1;
-                break;
-            }
-            k -= c;
-        }
+    const uint32_t u = bbx_mix32(key ^ (uint32_t)lane);
+    const int k = (int)(((uint64_t)u * (uint32_t)count) >> 32);
+    // The word of the k-th set bit: the last j whose prefix count p_j <= k
+    // (a later one would have p_j >= p_{j*+1} > k); k becomes its rank there.
+    unsigned m = w[0];
+    int base = 0, r = k, prefix = 0;
+#pragma unroll
+    for (int j = 1; j < SAMPLE_WORDS; ++j) {
+        prefix += __popc(w[j - 1]);
+        const bool here = prefix <= k;
+        m = here ? w[j] : m;
+        base = here ? 32 * j : base;
+        r = here ? k - prefix : r;
     }
-    out[lane] = action;
+    int pos = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const int low = __popc(m & ((1u << s) - 1u));
+        const bool up = r >= low;
+        pos += up ? s : 0;
+        r -= up ? low : 0;
+        m = up ? m >> s : m;
+    }
+    out[lane] = count ? base + pos : 0;
 }
 
 extern "C" int bbx_sample(const void* mask, const void* seed, void* out, int n, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
-    BBX_LAUNCH(sample_kernel, (n + SAMPLE_WARPS - 1) / SAMPLE_WARPS, 32 * SAMPLE_WARPS, stream,
+    constexpr int lanes = SAMPLE_LANES * SAMPLE_WARPS;  // a block
+    BBX_LAUNCH(sample_kernel, (n + lanes - 1) / lanes, 32 * SAMPLE_WARPS, stream,
                (const unsigned char*)mask, (const long long*)seed, (int*)out, n);
     return (int)cudaGetLastError();
 }

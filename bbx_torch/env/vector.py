@@ -119,6 +119,8 @@ def _sample_valid_actions_cuda(mask: torch.Tensor, seed: torch.Tensor) -> torch.
     n = mask.shape[0]
     build.require_many((("sample: mask", mask, torch.bool, (n, NUM_ACTIONS)),
                         ("sample: seed", seed, torch.int64, ())))
+    if mask.data_ptr() % 16:
+        raise ValueError("sample: mask must be 16-byte aligned")
     out = torch.empty(n, dtype=torch.int32, device=mask.device)
     err = build.function("sample")(mask.data_ptr(), seed.data_ptr(), out.data_ptr(), n,
                                    build.stream_of(mask))

@@ -28,7 +28,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    cuDNN/cuBLAS forward + backward, and the reduction held to the same
    sums in float64, its device time by kernel and its library time
    (`torch.sum` and `torch.matmul`) reported; K9 (the sampler) bit for bit on the
-   engine step's masks at 16,384 lanes and at 512; K6's two
+   engine step's masks at 16,384 lanes, at 512 and at 16,383; K5 (GAE) bit
+   for bit at run9's [128, 512], default's [128, 64] and tpu.yaml's
+   [128, 4096]; K6's two
    entry points and the whole step (K6, K7, K6) on one step
    of the engine path's own fleet, at its 16,384 lanes and at the eval and
    train paths' 512; K7 on that step's inputs (its attempts equal to the
@@ -114,6 +116,10 @@ K4_LANES = 512
 K6_LANES = 512
 K7_LANES = 512
 GAE_T, GAE_N = 128, 512   # K5 at run9's rollout shape
+# K5 also at config/default.yaml's and config/tpu.yaml's rollouts.
+GAE_OTHER_SHAPES = ((128, 64), (128, 4096))
+# K9 also at a lane count that fills no whole block or warp.
+K9_RAGGED_LANES = 16383
 TRAIN_SEED = 7
 TRAIN_TIMESTEPS = 196_608  # 3 iterations of 512 envs x 128 steps
 # The `network:` section of config/run9.yaml (ctx_dim at its default).
@@ -774,29 +780,25 @@ def kernel_phase(device, report):
                     f"autograd {k8b['whole']['plain']:.4f} ms, checkpointed "
                     f"{k8b['whole']['library']:.4f} ms (in turns); also " + summary))
 
-    # K5 at run9's rollout shape: seeded rewards / values, ~2% dones.
+    # K5 at run9's rollout shape, which the row reports, and at default's
+    # and tpu.yaml's: seeded rewards / values, ~2% dones.
     g = torch.Generator(device=device).manual_seed(SEED)
-    t, n = GAE_T, GAE_N
-    gae_in = (torch.randn((t, n), generator=g, device=device),
-              torch.rand((t, n), generator=g, device=device) < 0.02,
-              torch.randn((t, n), generator=g, device=device),
-              torch.randn(n, generator=g, device=device))
     cfg = P.PPOConfig(gamma=RUN9_PPO["gamma"], gae_lambda=RUN9_PPO["gae_lambda"])
-    got = P.compute_gae(cfg, *gae_in)
-    want = P.compute_gae_plain(cfg, *gae_in)
-    rows.append(dict(
+    k5 = {(t, n): k5_case(cfg, g, t, n) for t, n in ((GAE_T, GAE_N), *GAE_OTHER_SHAPES)}
+    row = k5.pop((GAE_T, GAE_N))
+    others = {f"{t}x{n}": c for (t, n), c in k5.items()}
+    row.update(
         name="compute_gae", source="bbx_torch/csrc/gae.cu",
         replaces="bbx/agent/ppo.py:354 (compute_gae)",
-        equal=all(torch.equal(x, y) for x, y in zip(got, want)),
-        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-        ms=time_ms(lambda: P.compute_gae(cfg, *gae_in)),
-        device_ms=kernel_device_ms(lambda: P.compute_gae(cfg, *gae_in), "gae_kernel"),
-        host_us=host_us(lambda: P.compute_gae(cfg, *gae_in)),
-        plain_ms=time_ms(lambda: P.compute_gae_plain(cfg, *gae_in), reps=5, inner=2),
-        # rewards, dones, values read, adv and ret written; 8 flops a step.
-        nbytes=t * n * (4 + 1 + 4 + 4 + 4) + n * 4, ops=t * n * 8,
-        shape=f"rewards, dones, values [{t},{n}], last_value [{n}] -> adv, ret "
-              f"[{t},{n}] (equal bit for bit)"))
+        equal=row["equal"] and all(c["equal"] for c in others.values()),
+        max_abs_err=max([row["max_abs_err"]] + [c["max_abs_err"] for c in others.values()]),
+        at_other_shapes=others,
+        shape=f"rewards, dones, values [{GAE_T},{GAE_N}], last_value [{GAE_N}] -> adv, ret "
+              f"[{GAE_T},{GAE_N}] (equal bit for bit); also "
+              + "; ".join(f"[{k.replace('x', ',')}]: equal={c['equal']}, {c['ms']:.4f} ms "
+                          f"(device {c['device_ms']}), plain {c['plain_ms']:.4f} ms, bound "
+                          f"{c['bound_ms']:.6f} ms" for k, c in others.items()))
+    rows.append(row)
 
     # K6's `bbx_move` on reachable boards with some slots used, some lanes
     # done, streaks, and actions that are valid (3 in 4) or random, on all
@@ -911,23 +913,28 @@ def kernel_phase(device, report):
                          f"{e['bound_ms']:.6f} ms")
 
     # K9 on the masks of the same engine-path step (16,384 lanes), which the
-    # row reports, and on their first 512 lanes.
+    # row reports, on their first 512 lanes and on their first
+    # K9_RAGGED_LANES.
     k9 = k9_case(eng["mask"], eng["seed"])
     k9_512 = k9_case(eng["mask"][:512].contiguous(), eng["seed"])
+    k9_ragged = k9_case(eng["mask"][:K9_RAGGED_LANES].contiguous(), eng["seed"])
     rows.append(dict(
         name="sample_valid_actions_device", source="bbx_torch/csrc/sample.cu (+ hash.cuh)",
         replaces="bbx/env/vector.py:90 (sample_valid_actions_device)",
-        equal=k9["equal"] and k9_512["equal"],
-        max_abs_err=max(k9["max_abs_err"], k9_512["max_abs_err"]),
+        equal=k9["equal"] and k9_512["equal"] and k9_ragged["equal"],
+        max_abs_err=max(k9["max_abs_err"], k9_512["max_abs_err"], k9_ragged["max_abs_err"]),
         **{key: k9[key] for key in ("ms", "device_ms", "host_us", "plain_ms", "bound_ms",
                                     "bound_by")},
-        library=k9["library_ms"], at_other_shapes={"512": k9_512},
+        library=k9["library_ms"],
+        at_other_shapes={"512": k9_512, str(K9_RAGGED_LANES): k9_ragged},
         shape=f"mask [{k9['lanes']},192] bool ({k9['empty_rows']} rows with no valid "
               f"action), seed: one int64 -> actions [{k9['lanes']}] int32 (equal bit for "
               f"bit); library: torch.multinomial over the rows, {k9['library_ms']:.4f} ms; "
               f"at 512 lanes: equal={k9_512['equal']}, {k9_512['ms']:.4f} ms (device "
               f"{k9_512['device_ms']}), plain {k9_512['plain_ms']:.4f} ms, library "
-              f"{k9_512['library_ms']:.4f} ms"))
+              f"{k9_512['library_ms']:.4f} ms; at {K9_RAGGED_LANES} lanes: "
+              f"equal={k9_ragged['equal']}, {k9_ragged['ms']:.4f} ms (device "
+              f"{k9_ragged['device_ms']})"))
 
     for r in rows:
         with_bound(r)
@@ -1313,6 +1320,35 @@ def k9_case(mask, seed) -> dict:
                 plain_ms=time_ms(lambda: V.sample_valid_actions_plain(mask, seed)),
                 library_ms=time_ms(lambda: torch.multinomial(weights, 1)),
                 bound_ms=t, bound_by=by)
+
+
+def k5_case(cfg, g, t: int, n: int) -> dict:
+    """K5 and its plain version on seeded [t, n] rewards and values, ~2%
+    dones (and dones at t = 0 and t = T - 1): bit for bit, times, bound
+    (17 bytes an element and last_value; 8 float operations an element)."""
+    import torch
+
+    from bbx_torch.agent import ppo as P
+
+    device = g.device
+    args = (torch.randn((t, n), generator=g, device=device),
+            torch.rand((t, n), generator=g, device=device) < 0.02,
+            torch.randn((t, n), generator=g, device=device),
+            torch.randn(n, generator=g, device=device))
+    args[1][0, ::7] = True
+    args[1][-1, ::5] = True
+    got = P.compute_gae(cfg, *args)
+    want = P.compute_gae_plain(cfg, *args)
+
+    def fn():
+        return P.compute_gae(cfg, *args)
+
+    return with_bound(dict(
+        shape_tn=[t, n], equal=all(torch.equal(x, y) for x, y in zip(got, want)),
+        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+        ms=time_ms(fn), device_ms=kernel_device_ms(fn, "gae_kernel"), host_us=host_us(fn),
+        plain_ms=time_ms(lambda: P.compute_gae_plain(cfg, *args), reps=5, inner=2),
+        nbytes=t * n * (4 + 1 + 4 + 4 + 4) + n * 4, ops=t * n * 8))
 
 
 def k4_bytes(b: int, elem: int) -> int:
@@ -1826,9 +1862,14 @@ def profile_phase(device, report):
         "top_device_kernels": [{"name": k[:90], "ms_per_step": t / steps,
                                 "calls_per_step": n / steps} for k, (t, n) in top],
     }
-    for _ in range(3):  # a session may record no kernel (a process's first)
+    # A session may record no kernel (a process's first), or lose some of
+    # its records, which leaves a count a call that is not a whole number:
+    # such a session is taken again, twice at most.
+    for attempt in range(1, 4):
         prof_out["forward"] = fwd_k = forward_kernels(device)
-        if fwd_k["kernels"]:
+        prof_out["forward_attempts"] = attempt
+        if fwd_k["kernels"] and all(float(n).is_integer()
+                                    for _, n in fwd_k["kernels"].values()):
             break
     # One forward runs K8 (and its weight layout) once, and no convolution
     # but the value head's two.

@@ -5,8 +5,9 @@
 // of a grid run one after another, so no block may wait on another;
 // __syncthreads is a std::barrier over the block (a named barrier one over
 // the threads that use it), and the warp intrinsics
-// (__syncwarp, __ballot_sync, __any_sync) a std::barrier over the warp's
-// 32 threads, which must all take part (a full mask).  The emulated card
+// (__syncwarp, __ballot_sync, __any_sync, __shfl_down_sync) a
+// std::barrier over the warp's 32 threads, which must all take part (a
+// full mask).  The emulated card
 // has BBX_EMULATED_SMS multiprocessors that hold one block each (or as
 // many as bbx_emulate_set_resident says), so a kernel that sizes its grid
 // by occupancy walks several items a block.
@@ -103,11 +104,13 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline std::barrier<>* bbx_block_barrier;
 inline std::atomic<int> bbx_block_or{0};
 
-// One warp: its barrier and the word its ballots gather in.
+// One warp: its barrier, the word its ballots gather in and the values its
+// shuffles exchange.
 struct bbx_warp {
     explicit bbx_warp(int size) : barrier(size) {}
     std::barrier<> barrier;
     std::atomic<unsigned> ballot{0};
+    unsigned shuffled[32];
 };
 inline thread_local bbx_warp* bbx_this_warp;
 
@@ -125,6 +128,18 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 
 inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+
+// Thread l gets thread l + delta's value, or its own where l + delta is
+// past the warp's 32 threads.
+inline unsigned __shfl_down_sync(unsigned, unsigned v, unsigned delta) {
+    bbx_warp* w = bbx_this_warp;
+    const unsigned l = threadIdx.x % 32;
+    w->shuffled[l] = v;
+    w->barrier.arrive_and_wait();
+    const unsigned got = l + delta < 32 ? w->shuffled[l + delta] : v;
+    w->barrier.arrive_and_wait();
+    return got;
+}
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }

@@ -259,17 +259,54 @@ def test_move_kernel_matches_plain(cuda):
     assert (want[4] > 0).any() and (~want[0]).any()
 
 
+def _assert_one_launch_a_call(fn, kernel):
+    """One call of `fn` launches `kernel` once and nothing else on the card:
+    the call captured into a CUDA graph is one node, a kernel node of that
+    function, read through libcuda (`torch.profiler` can lose a launch's
+    record)."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    assert count.value == 1, count.value
+    node_type = ctypes.c_int(-1)
+    assert cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[0]), ctypes.byref(node_type)) == 0
+    assert node_type.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    params = (ctypes.c_void_p * 16)()  # CUDA_KERNEL_NODE_PARAMS: the function first
+    assert cuda.cuGraphKernelNodeGetParams(ctypes.c_void_p(nodes[0]), params) == 0
+    name = ctypes.c_char_p()
+    assert cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])) == 0
+    assert kernel in name.value.decode(), name.value
+
+
 @pytest.mark.gpu
 def test_gae_kernel_matches_plain_bit_for_bit(cuda):
+    """K5 bit for bit at run9's [128, 512], default's [128, 64] and
+    tpu.yaml's [128, 4096], and at ragged shapes: one step, three of the
+    kernel's 128-step chunks, envs that fill no whole block; dones at t = 0
+    and t = T - 1.  One launch a call, and nothing else on the card."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    t_len, n = 128, 512
-    args = (torch.randn((t_len, n), generator=g, device=cuda),
-            torch.rand((t_len, n), generator=g, device=cuda) < 0.02,
-            torch.randn((t_len, n), generator=g, device=cuda),
-            torch.randn(n, generator=g, device=cuda))
     cfg = P.PPOConfig()
-    for a, b in zip(P.compute_gae(cfg, *args), P.compute_gae_plain(cfg, *args)):
-        assert torch.equal(a, b)
+    for t_len, n in ((128, 512), (128, 64), (128, 4096), (1, 45), (300, 45), (257, 1)):
+        args = (torch.randn((t_len, n), generator=g, device=cuda),
+                torch.rand((t_len, n), generator=g, device=cuda) < 0.02,
+                torch.randn((t_len, n), generator=g, device=cuda),
+                torch.randn(n, generator=g, device=cuda))
+        args[1][0, ::2] = True
+        args[1][-1, ::3] = True
+        before = P.compute_gae.launches
+        got = P.compute_gae(cfg, *args)
+        assert P.compute_gae.launches == before + 1
+        for a, b in zip(got, P.compute_gae_plain(cfg, *args)):
+            assert torch.equal(a, b), (t_len, n)
+    _assert_one_launch_a_call(lambda: P.compute_gae(cfg, *args), "gae_kernel")
     with pytest.raises(ValueError, match="float32"):
         P.compute_gae(cfg, args[0].double(), *args[1:])
 
@@ -722,11 +759,13 @@ def test_network_backward_on_card_runs_the_evaluator_kernels(cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [512, 16384])
+@pytest.mark.parametrize("n", [512, 16384, 16383, 300])
 def test_sample_kernel_matches_plain(cuda, n):
     """K9 equals its plain version bit for bit on one seed tensor: random
     masks of every density, and rows with no valid action, one, and all
-    192; each drawn action is valid (0 on an empty row)."""
+    192; each drawn action is valid (0 on an empty row); lane counts that
+    fill no whole block or warp.  One launch a call, and nothing else on
+    the card; a mask that does not start on 16 bytes is refused."""
     g = torch.Generator(device=cuda).manual_seed(n)
     density = torch.rand((n, 1), generator=g, device=cuda)
     mask = torch.rand((n, 192), generator=g, device=cuda) < density
@@ -744,3 +783,7 @@ def test_sample_kernel_matches_plain(cuda, n):
     some = mask.any(dim=1)
     rows = torch.arange(n, device=cuda)
     assert mask[rows[some], got[some].long()].all() and not got[~some].any()
+    _assert_one_launch_a_call(lambda: V._sample_valid_actions_cuda(mask, seed), "sample_kernel")
+    store = torch.zeros(n * 192 + 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        V._sample_valid_actions_cuda(store[4:4 + n * 192].view(n, 192), seed)

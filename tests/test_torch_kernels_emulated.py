@@ -248,24 +248,42 @@ def test_emulated_move_blocks_views_match_pointers(kernels, n):
         assert edges[-1][1] == block.data_ptr() + block.numel() * block.element_size()
 
 
-def test_emulated_gae_kernel_matches_plain(kernels):
-    """K5 equals the plain version bit for bit (both round every float
-    operation on its own, in bbx's order)."""
-    rng = np.random.default_rng(12)
-    t_len, n = 16, 40
+def _gae_inputs(t_len, n, seed):
+    """Seeded rewards, dones (10%, and on every third env at t = T - 1 and
+    every second at t = 0), values and last_value."""
+    rng = np.random.default_rng(seed)
     dones = rng.random((t_len, n)) < 0.1
     dones[-1, ::3] = True
-    args = [torch.from_numpy(a) for a in (
+    dones[0, ::2] = True
+    return [torch.from_numpy(a) for a in (
         rng.normal(size=(t_len, n)).astype(np.float32), dones,
         rng.normal(size=(t_len, n)).astype(np.float32),
         rng.normal(size=n).astype(np.float32))]
-    cfg = P.PPOConfig(gamma=0.99, gae_lambda=0.95)
+
+
+def _assert_gae_equal(args, cfg=P.PPOConfig(gamma=0.99, gae_lambda=0.95)):
     before = P.compute_gae.launches
     got = P._compute_gae_cuda(cfg, *args)
     want = P.compute_gae_plain(cfg, *args)
     assert P.compute_gae.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_emulated_gae_kernel_matches_plain(kernels):
+    """K5 equals the plain version bit for bit (both round every float
+    operation on its own, in bbx's order)."""
+    _assert_gae_equal(_gae_inputs(16, 40, seed=12))
+
+
+@pytest.mark.parametrize("t_len", [1, 16, 300])
+@pytest.mark.parametrize("n", [1, 40, 45])
+def test_emulated_gae_kernel_matches_plain_at_ragged_shapes(kernels, t_len, n):
+    """K5 bit for bit at one step, at 16, and at 300 (three of the
+    kernel's 128-step chunks, the first partial, A carried across them),
+    on one env, 40 (five blocks of 8 envs) and 45 (a last block of 5);
+    dones at t = 0 and t = T - 1 in each."""
+    _assert_gae_equal(_gae_inputs(t_len, n, seed=t_len * 100 + n))
 
 
 @pytest.mark.parametrize("which", ["realistic", "all", "full"])

@@ -42,7 +42,7 @@ def _numpy_mix32(x):
 
 @pytest.mark.parametrize("n", [1, 37, 300])
 def test_emulated_sample_kernel_matches_plain(kernels, n):
-    """K9 (emulated: one warp a lane, ballots over the mask) equals
+    """K9 (emulated: a warp reads 32 lanes' masks in 16-byte chunks) equals
     `sample_valid_actions_plain` bit for bit on one seed, with rows of
     none, one and 192 valid actions, and a lane count that leaves the last
     block's warps partly idle."""
@@ -58,6 +58,52 @@ def test_emulated_sample_kernel_matches_plain(kernels, n):
         assert got[1] == 0 and got[2] == 191
     some = mask.any(dim=1)
     assert mask[torch.arange(n)[some], got[some].long()].all() and not got[~some].any()
+
+
+def test_emulated_sample_kernel_finds_every_action(kernels):
+    """K9 on rows of one valid action at each of the 192 places (every
+    byte of every 16-byte chunk, every bit of every word it folds into),
+    then rows of two and all 192, on several seeds: equal to the plain
+    version bit for bit."""
+    one = torch.eye(192, dtype=torch.bool)
+    two = one | one.roll(97, dims=1)
+    mask = torch.cat([one, two, torch.ones((40, 192), dtype=torch.bool)])
+    assert torch.equal(V._sample_valid_actions_cuda(mask[:192], torch.tensor(9)),
+                       torch.arange(192, dtype=torch.int32))
+    for seed in (0, 1, 2**32 - 1):
+        seed = torch.tensor(seed, dtype=torch.int64)
+        assert torch.equal(V._sample_valid_actions_cuda(mask, seed),
+                           V.sample_valid_actions_plain(mask, seed))
+
+
+def test_emulated_sample_kernel_counts_any_nonzero_byte_as_valid(kernels):
+    """A mask byte counts as valid when it is not 0 (the plain version's
+    `mask > 0`), whatever its value: bytes 1, 2, 0x7F, 0x80 and 0xFF in
+    a bool tensor's storage give the draws of the same mask of 0/1 bytes."""
+    rng = np.random.default_rng(4)
+    values = np.array([0, 0, 0, 1, 2, 0x7F, 0x80, 0xFF], dtype=np.uint8)
+    raw = values[rng.integers(0, len(values), (70, 192))]
+    seed = torch.tensor(123_456_789, dtype=torch.int64)
+    got = V._sample_valid_actions_cuda(torch.from_numpy(raw).view(torch.bool), seed)
+    assert torch.equal(got, V.sample_valid_actions_plain(torch.from_numpy(raw != 0), seed))
+
+
+def test_emulated_sample_wrapper_refuses_a_misaligned_mask(kernels):
+    """K9 reads the mask in 16-byte loads: a contiguous view that does not
+    start on 16 bytes is refused before any launch; a whole-row slice of
+    an aligned mask (192 = 12 x 16 bytes a row) is taken."""
+    store = torch.zeros(50 * 192 + 16, dtype=torch.bool)
+    assert store.data_ptr() % 16 == 0
+    seed = torch.tensor(5, dtype=torch.int64)
+    before = V.sample_valid_actions_device.launches
+    for offset in (1, 8):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            V._sample_valid_actions_cuda(store[offset:offset + 50 * 192].view(50, 192), seed)
+    assert V.sample_valid_actions_device.launches == before
+    rows = store[:50 * 192].view(50, 192)[3:]
+    assert torch.equal(V._sample_valid_actions_cuda(rows, seed),
+                       V.sample_valid_actions_plain(rows, seed))
+    assert V.sample_valid_actions_device.launches == before + 1
 
 
 def test_emulated_sample_kernel_takes_an_empty_batch(kernels):
