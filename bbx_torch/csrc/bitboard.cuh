@@ -5,6 +5,7 @@
 // keeps bbx's two-word layout ([..., 2] int64 holding u32 values); only the
 // kernels combine the words.
 #pragma once
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 typedef unsigned long long u64;
@@ -73,6 +74,21 @@ __host__ __device__ __forceinline__ u64 bb_pack_bytes(const unsigned char* v) {
             r |= (u64)(((x >> (8 * j)) & 0xFFULL) != 0) << (8 * i + j);
     }
     return r;
+}
+
+// Bit i of the result set where byte i of x is nonzero (i < 4), with no
+// branch a byte: a byte's high bit is set where the byte is not 0, and one
+// multiply gathers the four (bits 0, 8, 16, 24 times 2^28 + 2^21 + 2^14 +
+// 2^7 land on 28-31, and no two of the 16 products share a bit, so nothing
+// carries).
+__host__ __device__ __forceinline__ unsigned bb_pack4(unsigned x) {
+    const unsigned high = (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+    return ((high >> 7) * 0x10204080u) >> 28;
+}
+
+// 16 bytes -> 16 bits, bit i set where byte i is nonzero.
+__host__ __device__ __forceinline__ unsigned bb_pack16(uint4 v) {
+    return bb_pack4(v.x) | bb_pack4(v.y) << 4 | bb_pack4(v.z) << 8 | bb_pack4(v.w) << 12;
 }
 
 // Bits 0..7 of x -> eight bool bytes (byte j = bit j), little-endian.

@@ -54,7 +54,6 @@
 
 #define REGEN_MAX_ATTEMPTS 100
 #define REGEN_CHUNK 32
-#define REGEN_FULL_WARP 0xFFFFFFFFu
 // Block width: 12 warps, so 12 draws are decided side by side in a round
 // (of 128, 192, 256 and 384 threads, 384 was the fastest at the engine
 // step's inputs; PERF.md).
@@ -83,37 +82,6 @@ __host__ __device__ __forceinline__ int regen_nth_bit(u64 m, int k) {
         }
     }
     return pos;
-}
-
-// The disjoint tier on draw `id` (valid-anchor masks v) of a lane, by warp
-// lane l of the 32 that share it: whether pairwise-disjoint valid anchors
-// exist.  `s_nc12` is the warp's slice of shared memory for the (1,2) row.
-__device__ __forceinline__ bool regen_disjoint(const int* id, const u64* v, int l,
-                                               const u64* nc, u64* s_nc12) {
-    const u64* nc01 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[1]) * BB_ANCHORS;
-    const u64* nc02 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
-    const u64* nc12 = nc + (size_t)(id[1] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
-    const u64 r01[2] = {__ldg(nc01 + l), __ldg(nc01 + l + 32)};
-    const u64 r02[2] = {__ldg(nc02 + l), __ldg(nc02 + l + 32)};
-    s_nc12[l] = __ldg(nc12 + l);
-    s_nc12[l + 32] = __ldg(nc12 + l + 32);
-    __syncwarp();
-    // For first anchor a0: some a1 in NC01[a0] & v1 whose row NC12[a1] meets
-    // NC02[a0] & v2, tested row by row so that a solvable draw stops at
-    // its first compatible pair.
-    for (int h = 0; h < 2; ++h) {
-        int hit = 0;
-        if ((v[0] >> (l + 32 * h)) & 1ULL) {
-            const u64 third = r02[h] & v[2];
-            u64 m01 = third ? r01[h] & v[1] : 0;
-            while (m01 && !hit) {
-                hit = (s_nc12[BB_LOWEST(m01)] & third) != 0;
-                m01 &= m01 - 1;
-            }
-        }
-        if (__any_sync(REGEN_FULL_WARP, hit)) return true;
-    }
-    return false;
 }
 
 // Item u of a draw's exact tier: its valid first placements, 2 * |v_i|
@@ -226,7 +194,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
             // The open lanes in turn, round robin over the warps: the
             // open lane of rank r takes warps r, r + c, ... (c open
             // lanes), at its next attempts.
-            const unsigned mask = __ballot_sync(REGEN_FULL_WARP, open);
+            const unsigned mask = __ballot_sync(BB_FULL_WARP, open);
             const int c = BB_POPC((u64)mask);
             __syncwarp();
             if (open) {
@@ -260,7 +228,11 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
                 id[s] = regen_shape(key, s);
                 v[s] = bb_fit(s_board[k], s_shift + BB_SHIFTS * id[s], s_aok[id[s]]);
             }
-            const bool ok = regen_disjoint(id, v, l, nc, s_nc12[w]);
+            // The disjoint tier (verdict.cuh's body, which K2 runs too).
+            bb_disjoint_rows rows;
+            bb_disjoint_rows_load(nc, id, l, &rows, s_nc12[w]);
+            __syncwarp();
+            const bool ok = bb_disjoint_warp(v[0], v[1], v[2], rows, l, s_nc12[w]);
             if (l == 0) {
                 s_ok[w] = ok ? 1 : 0;
                 s_items[w] = ok ? 0 : 2 * (BB_POPC(v[0]) + BB_POPC(v[1]) + BB_POPC(v[2]));

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitboard.cuh"
 #include "hash.cuh"
 #include "launch.cuh"
 
@@ -42,18 +43,6 @@
 #define SAMPLE_LOADS (SAMPLE_CHUNKS * SAMPLE_LANES / 32)  // 16-byte loads a thread
 #define SAMPLE_WARPS 4                       // warps a block
 
-// Bit i of the result set where byte i of x is nonzero (i < 4).
-__device__ __forceinline__ unsigned sample_pack4(unsigned x) {
-    const unsigned high = (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
-    // Bits 0, 8, 16, 24 times 2^28 + 2^21 + 2^14 + 2^7 land on 28-31, and
-    // no two of the 16 products share a bit, so nothing carries.
-    return ((high >> 7) * 0x10204080u) >> 28;
-}
-
-__device__ __forceinline__ unsigned sample_pack16(uint4 v) {
-    return sample_pack4(v.x) | sample_pack4(v.y) << 4 | sample_pack4(v.z) << 8 |
-           sample_pack4(v.w) << 12;
-}
 
 // mask [n][192] bool (16-byte aligned), seed: one int64, out [n] int32.
 __global__ void __launch_bounds__(32 * SAMPLE_WARPS)
@@ -79,7 +68,7 @@ sample_kernel(const unsigned char* __restrict__ mask, const long long* __restric
         // where l is, and then chunk c + 1 (thread l + 1's) is the word's
         // high half.
         const int c = 32 * i + l;
-        const unsigned half = sample_pack16(v[i]);
+        const unsigned half = bb_pack16(v[i]);
         const unsigned high = __shfl_down_sync(0xFFFFFFFFu, half, 1);
         if (!(l & 1)) words[(c / SAMPLE_CHUNKS) * SAMPLE_STRIDE + (c % SAMPLE_CHUNKS) / 2] =
             half | high << 16;

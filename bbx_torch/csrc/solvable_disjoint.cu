@@ -3,43 +3,72 @@
 //
 // Replaces bbx/engine/solvability.py: solvable_disjoint_bits, an AND /
 // OR-reduce boolean matrix product over NO_CONFLICT_BITS that XLA
-// materialises as a [K, 64, 64, 2] plane.  Here one block of 64 threads
-// serves one lane, thread a0 = first-piece anchor: it walks the set bits a1
-// of nc01[a0] & valid1 and ORs the rows nc12[a1] (64-bit words, the table
-// slices stay in L1/L2), then tests t & nc02[a0] & valid2.  The block ORs
-// the threads' hits with __syncthreads_or.  Bound by bytes (the 192 bool
-// bytes of valid3 and 3 x 512 B table slices per lane) and launch latency.
+// materialises as a [K, 64, 64, 2] plane.
+//
+// Bound by bytes (the 192 bool bytes of valid3 and 12 bytes of ids a lane,
+// the 700 KB table, which stays in L2) and, at the parity engine's one
+// lane, by launch latency.  A warp serves one lane, DISJOINT_WARPS lanes a
+// block, with no block barrier:
+//   * the lane's ids and its 192 mask bytes are loaded together, the masks
+//     as twelve coalesced 16-byte chunks (threads 0..11), each folded into
+//     16 bits branch-free (a byte's high bit where it is not 0, gathered by
+//     one multiply, as in K9); a shuffle pairs the halves into 32-bit words
+//     and six more give every thread the three 64-bit masks;
+//   * the three NO_CONFLICT rows follow in one L2 round trip, then the
+//     tier's body `bb_disjoint_warp` (verdict.cuh), which K7 runs on its
+//     draws: thread l takes first anchors l and l + 32, walks the valid
+//     second anchors a1 row by row against the (1,2) row in shared memory,
+//     stops at its first compatible pair, and the warp votes with
+//     __any_sync.
+// valid3 must be 16-byte aligned (the wrapper checks).  Ids outside
+// [0, 37) give false.
 #include <cuda_runtime.h>
 
 #include "bitboard.cuh"
 #include "launch.cuh"
 #include "verdict.cuh"
 
-__global__ void disjoint_kernel(const int* __restrict__ ids,
-                                const unsigned char* __restrict__ valid3,
-                                const long long* __restrict__ no_conflict,
-                                unsigned char* __restrict__ out) {
-    const int lane = blockIdx.x;
-    const int a0 = threadIdx.x;
-    const int* id = ids + 3 * lane;
-    const unsigned char* v = valid3 + 192 * (size_t)lane;
-    int hit = 0;
-    if (bb_ids_ok(id) && v[a0]) {
-        const u64 *nc01, *nc02, *nc12;
-        bb_conflict_rows(no_conflict, id, &nc01, &nc02, &nc12);
-        hit = bb_disjoint_hit(a0, bb_pack_bytes(v + 64), bb_pack_bytes(v + 128),
-                              nc01, nc02, nc12);
-    }
-    int any = __syncthreads_or(hit);
-    if (a0 == 0) out[lane] = any ? 1 : 0;
+#define DISJOINT_WARPS 16                     // lanes (warps) a block
+#define DISJOINT_CHUNKS (3 * BB_ANCHORS / 16)  // 16-byte chunks of a lane's masks
+
+// ids [k][3] int32, valid3 [k][3][64] bool (16-byte aligned), out [k] bool.
+__global__ void __launch_bounds__(32 * DISJOINT_WARPS)
+disjoint_kernel(const int* __restrict__ ids, const unsigned char* __restrict__ valid3,
+                const long long* __restrict__ no_conflict, unsigned char* __restrict__ out,
+                int k) {
+    __shared__ u64 s_nc12[DISJOINT_WARPS][BB_ANCHORS];
+    const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int lane = blockIdx.x * DISJOINT_WARPS + w;
+    if (lane >= k) return;  // a whole warp
+    int id[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) id[s] = ids[3 * lane + s];
+    const uint4* src = (const uint4*)(valid3 + (size_t)lane * 3 * BB_ANCHORS);
+    const uint4 v = l < DISJOINT_CHUNKS ? src[l] : make_uint4(0, 0, 0, 0);
+    const bool ok = bb_ids_ok(id);  // the same in the whole warp
+    bb_disjoint_rows rows;
+    if (ok) bb_disjoint_rows_load((const u64*)no_conflict, id, l, &rows, s_nc12[w]);
+    // Chunk l holds anchors 16 (l % 4) .. + 15 of slot l / 4; the word at
+    // even l, anchors 32 (l / 2 % 2) .. + 31 of that slot.
+    const unsigned half = bb_pack16(v);
+    const unsigned word = half | __shfl_down_sync(BB_FULL_WARP, half, 1) << 16;
+    u64 m[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+        m[s] = (u64)__shfl_sync(BB_FULL_WARP, word, 4 * s) |
+               (u64)__shfl_sync(BB_FULL_WARP, word, 4 * s + 2) << 32;
+    __syncwarp();
+    const bool hit = ok && bb_disjoint_warp(m[0], m[1], m[2], rows, l, s_nc12[w]);
+    if (l == 0) out[lane] = hit ? 1 : 0;
 }
 
 extern "C" int bbx_solvable_disjoint(const void* ids, const void* valid3,
                                      const void* no_conflict, void* out,
                                      int k, void* stream) {
     if (k > 0)
-        BBX_LAUNCH(disjoint_kernel, k, 64, stream, (const int*)ids,
-                   (const unsigned char*)valid3,
-                   (const long long*)no_conflict, (unsigned char*)out);
+        BBX_LAUNCH(disjoint_kernel, (k + DISJOINT_WARPS - 1) / DISJOINT_WARPS,
+                   32 * DISJOINT_WARPS, stream, (const int*)ids,
+                   (const unsigned char*)valid3, (const long long*)no_conflict,
+                   (unsigned char*)out, k);
     return (int)cudaGetLastError();
 }

@@ -10,8 +10,8 @@
 // shared flag lets every thread of the block stop once any thread has
 // found a solution -- the early exit XLA could not express.  Bound by
 // integer ALU work (a clear and a 9-shift fit per candidate), not bytes.
-// The search itself is `bb_exact_hit` of verdict.cuh, which the fused
-// regen kernel K7 runs too.
+// The search itself is `bb_exact_hit_at` of verdict.cuh (through
+// `bb_exact_hit`), which the fused regen kernel K7 runs too.
 #include <cuda_runtime.h>
 
 #include "bitboard.cuh"

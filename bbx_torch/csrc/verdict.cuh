@@ -1,11 +1,17 @@
-// The bodies of the solvability verdict, shared by the standalone kernels
-// K2 (solvable_disjoint.cu) and K3 (solvable_exact.cu) and by the fused
-// regen kernel K7 (regen.cu), so the three run the same code.  K1's body,
-// the shift-OR fit `bb_fit`, is in bitboard.cuh.
+// The bodies of the solvability verdict's two tiers, each shared by a
+// standalone kernel and the fused regen kernel K7 (regen.cu):
+//   * the disjoint tier, one draw on one warp (`bb_disjoint_rows_load`,
+//     `bb_disjoint_warp`): K2 (solvable_disjoint.cu) and K7's disjoint
+//     tier;
+//   * the exact search from one first placement (`bb_exact_hit_at`): K3
+//     (solvable_exact.cu, through `bb_exact_hit` on a staged triple) and
+//     K7's exact tier (through its own item walk).
+// K1's body, the shift-OR fit `bb_fit`, is in bitboard.cuh; K7 runs it too.
 #pragma once
 #include "bitboard.cuh"
 
 #define BB_ANCHORS 64
+#define BB_FULL_WARP 0xFFFFFFFFu
 #define BB_TRIPLE_THREADS 384  // the exact tier: 6 orders x 64 first anchors
 
 // The geometry of one drawn triple, staged in shared memory by a block.
@@ -32,33 +38,52 @@ __device__ __forceinline__ void bb_stage_triple(bb_triple* s, int t,
     if (t < 3) s->aok[t] = (u64)anchor_ok[id[t]];
 }
 
-// K2's body for first anchor a0: given that piece 0 is valid at a0, walk
-// the set bits a1 of nc01[a0] & v1 (piece 1 valid and disjoint from piece 0
-// at a0), OR the rows nc12[a1], and test the result against nc02[a0] & v2.
-// 1 iff pairwise-disjoint valid anchors (a0, a1, a2) exist.
-__device__ __forceinline__ int bb_disjoint_hit(int a0, u64 v1, u64 v2,
-                                               const u64* nc01,
-                                               const u64* nc02,
-                                               const u64* nc12) {
-    u64 m01 = nc01[a0] & v1;
-    u64 t = 0;
-    while (m01) {
-        t |= nc12[BB_LOWEST(m01)];
-        m01 &= m01 - 1;
-    }
-    return (t & nc02[a0] & v2) != 0;
+// Warp lane l's share of the NO_CONFLICT rows of triple `id` (in [0, 37)):
+// words l and l + 32 (first anchors a0 = l, l + 32) of the (0,1) and (0,2)
+// rows, and its two words of the (1,2) row, stored into the warp's slice
+// `s_nc12` of shared memory (read after a __syncwarp).  One L2 round trip:
+// the six loads are independent.
+struct bb_disjoint_rows {
+    u64 r01[2], r02[2];
+};
+
+__device__ __forceinline__ void bb_disjoint_rows_load(const u64* nc, const int* id, int l,
+                                                      bb_disjoint_rows* r, u64* s_nc12) {
+    const u64* nc01 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[1]) * BB_ANCHORS;
+    const u64* nc02 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
+    const u64* nc12 = nc + (size_t)(id[1] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
+    r->r01[0] = __ldg(nc01 + l);
+    r->r01[1] = __ldg(nc01 + l + 32);
+    r->r02[0] = __ldg(nc02 + l);
+    r->r02[1] = __ldg(nc02 + l + 32);
+    s_nc12[l] = __ldg(nc12 + l);
+    s_nc12[l + 32] = __ldg(nc12 + l + 32);
 }
 
-// The NO_CONFLICT rows of the pairs (0,1), (0,2), (1,2) of a triple.
-__device__ __forceinline__ void bb_conflict_rows(const long long* no_conflict,
-                                                 const int* id,
-                                                 const u64** nc01,
-                                                 const u64** nc02,
-                                                 const u64** nc12) {
-    const u64* nc = (const u64*)no_conflict;
-    *nc01 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[1]) * BB_ANCHORS;
-    *nc02 = nc + (size_t)(id[0] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
-    *nc12 = nc + (size_t)(id[1] * BB_NUM_PIECES + id[2]) * BB_ANCHORS;
+// The disjoint tier of one draw on a warp, thread l taking first anchors
+// a0 = l and l + 32: whether pairwise-disjoint valid anchors exist, given
+// the valid-anchor masks v0, v1, v2 and the rows of `bb_disjoint_rows_load`
+// (the (1,2) row in `s_nc12`, visible to the warp).  For a0 valid, some a1
+// in NC01[a0] & v1 whose row NC12[a1] meets NC02[a0] & v2, tested row by
+// row so that a thread stops at its first compatible pair; the warp votes
+// with __any_sync after each half, so a solvable draw whose a0 < 32 skips
+// the second.  The same answer in all 32 threads.
+__device__ __forceinline__ bool bb_disjoint_warp(u64 v0, u64 v1, u64 v2,
+                                                 const bb_disjoint_rows& r, int l,
+                                                 const u64* s_nc12) {
+    for (int h = 0; h < 2; ++h) {
+        int hit = 0;
+        if ((v0 >> (l + 32 * h)) & 1ULL) {
+            const u64 third = r.r02[h] & v2;
+            u64 m01 = third ? r.r01[h] & v1 : 0;
+            while (m01 && !hit) {
+                hit = (s_nc12[BB_LOWEST(m01)] & third) != 0;
+                m01 &= m01 - 1;
+            }
+        }
+        if (__any_sync(BB_FULL_WARP, hit)) return true;
+    }
+    return false;
 }
 
 // The exact search from one first placement: the first piece at anchor

@@ -192,7 +192,9 @@ def solvable_disjoint_bits(bits: torch.Tensor, piece_ids: torch.Tensor,
     Args:
       bits: [K, 2] int64 boards.
       piece_ids: [K, 3] int32.
-      valid3: [K, 3, 64] bool from `valid3_bits`.
+      valid3: [K, 3, 64] bool from `valid3_bits`; on the card 16-byte
+        aligned (the kernel reads it in 16-byte loads; the wrapper raises
+        ValueError otherwise).
     Returns:
       [K] bool.
     """
@@ -208,6 +210,8 @@ def _solvable_disjoint_bits_cuda(bits, piece_ids, valid3) -> torch.Tensor:
                   (k, PIECES_PER_TURN))
     build.require("solvable_disjoint_bits: valid3", valid3, torch.bool,
                   (k, PIECES_PER_TURN, NUM_CELLS))
+    if valid3.data_ptr() % 16:
+        raise ValueError("solvable_disjoint_bits: valid3 must be 16-byte aligned")
     tb = tables(bits.device)
     out = torch.empty(k, dtype=torch.bool, device=bits.device)
     err = build.function("solvable_disjoint")(

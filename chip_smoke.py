@@ -13,7 +13,9 @@ Phases, each of which must pass (exit code 1 otherwise):
    last bit: K5's, and the reward and episode return of K6's
    `bbx_step_finish`; K8's scores and its backward's gradients within the
    tolerances PERF.md states), on
-   reachable mid-game boards made by the port's own engine from a seed: K4
+   reachable mid-game boards made by the port's own engine from a seed: K1
+   at 512 lanes, on one lane and at the engine step's 16,384; K2 at 4,096
+   lanes and on one (with each call's launches counted); K4
    at the rollout's 512 lanes and at the update's 2048, in bf16 and
    float32 (planes, features and overlap); K8 (the evaluator's no-grad
    forward) at run9 widths at 512 and 2048 lanes in bf16 and float32, at
@@ -548,52 +550,36 @@ def kernel_phase(device, report):
     import torch
 
     from bbx_torch.engine import solvability as S
-    from bbx_torch.engine.tables import tables
     from bbx_torch.models import afterstate as A
 
     state, obs, bits, ids = midgame_boards(device)
-    tb = tables(device)
     rows = []
 
-    # K1 at K = 512 lanes x 3 slots.
-    b1, i1 = bits[:K1_LANES].contiguous(), ids[:K1_LANES].contiguous()
-    got, want = S.valid3_bits(b1, i1), S.valid3_bits_plain(b1, i1)
-    k = K1_LANES
+    # K1 at K = 512 lanes x 3 slots (the rows' numbers) and on one lane
+    # (the parity engine's shape); at the engine step's 16,384 below.
+    k1 = k1_case(bits[:K1_LANES].contiguous(), ids[:K1_LANES].contiguous())
+    k1_one = k1_case(bits[:1].contiguous(), ids[:1].contiguous())
     rows.append(dict(
         name="valid3_bits", source="bbx_torch/csrc/valid3.cu",
         replaces="bbx/engine/solvability.py:163 (valid3_bits; piece_fit_words :133)",
-        equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: S.valid3_bits(b1, i1)),
-        device_ms=kernel_device_ms(lambda: S.valid3_bits(b1, i1), "valid3_kernel"),
-        host_us=host_us(lambda: S.valid3_bits(b1, i1)),
-        plain_ms=time_ms(lambda: S.valid3_bits_plain(b1, i1)),
-        nbytes=k1_bytes(k), ops=k1_ops(k),
-        shape=f"bits [{k},2], ids [{k},3] -> [{k},3,64]"))
+        **{key: k1[key] for key in CASE_KEYS}, at_other_shapes={"1": k1_one},
+        shape=f"bits [{K1_LANES},2], ids [{K1_LANES},3] -> [{K1_LANES},3,64]; at one lane: "
+              f"equal={k1_one['equal']}, {k1_one['ms']:.4f} ms (device "
+              f"{k1_one['device_ms']}), bound {k1_one['bound_ms']:.6f} ms"))
 
-    # K2 on all FLEET lanes.
+    # K2 on all FLEET lanes (the rows' numbers) and on one lane.
     v3 = S.valid3_bits_plain(bits, ids)
-    got = S.solvable_disjoint_bits(bits, ids, v3)
-    want = S.solvable_disjoint_bits_plain(bits, ids, v3)
-    pid = ids.long()
-    m01 = S.unpack_cells(tb.NO_CONFLICT_BITS[pid[:, 0], pid[:, 1]]
-                         & S.pack_cells(v3[:, 1])[:, None, :])
-    or_steps = int((m01 & v3[:, 0, :, None]).sum().item())
-    k = FLEET
+    k2 = k2_case(bits, ids, v3)
+    k2_one = k2_case(bits[:1].contiguous(), ids[:1].contiguous(), v3[:1].contiguous())
+    fast = k2.pop("want")
+    k2_one.pop("want")
     rows.append(dict(
         name="solvable_disjoint_bits", source="bbx_torch/csrc/solvable_disjoint.cu",
         replaces="bbx/engine/solvability.py:180 (solvable_disjoint_bits)",
-        equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: S.solvable_disjoint_bits(bits, ids, v3)),
-        device_ms=kernel_device_ms(lambda: S.solvable_disjoint_bits(bits, ids, v3),
-                                   "disjoint_kernel"),
-        host_us=host_us(lambda: S.solvable_disjoint_bits(bits, ids, v3)),
-        plain_ms=time_ms(lambda: S.solvable_disjoint_bits_plain(bits, ids, v3)),
-        # valid3 + ids read, the 700 KB table once, one bool out; an OR step
-        # (OR, lowest bit, clear lowest) per (valid a0, a1) pair.
-        nbytes=k * 192 + k * 12 + 37 * 37 * 64 * 8 + k,
-        ops=or_steps * 8 + k * 64 * 16,
-        shape=f"ids [{k},3], valid3 [{k},3,64] -> [{k}]"))
-    fast = want
+        **{key: k2[key] for key in CASE_KEYS}, at_other_shapes={"1": k2_one},
+        shape=f"ids [{FLEET},3], valid3 [{FLEET},3,64] -> [{FLEET}]; at one lane: "
+              f"equal={k2_one['equal']}, {k2_one['ms']:.4f} ms (device "
+              f"{k2_one['device_ms']}), bound {k2_one['bound_ms']:.6f} ms"))
 
     # K3 on the lanes the disjoint tier leaves (what regen gives it).
     rest = (~fast).nonzero().squeeze(1)
@@ -896,21 +882,15 @@ def kernel_phase(device, report):
 
     # K1 at the engine step's 16,384 lanes.
     k1_ids = ES.regen_pieces(eng["bits"], eng["ids"], eng["seed"], eng["need"])[0]
-    got = S.valid3_bits(eng["bits"], k1_ids)
-    want = S.valid3_bits_plain(eng["bits"], k1_ids)
-    e = rows[0]["at_engine_shape"] = with_bound(dict(
-        lanes=k, equal=torch.equal(got, want), max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: S.valid3_bits(eng["bits"], k1_ids)),
-        device_ms=kernel_device_ms(lambda: S.valid3_bits(eng["bits"], k1_ids),
-                                   "valid3_kernel"),
-        host_us=host_us(lambda: S.valid3_bits(eng["bits"], k1_ids)),
-        plain_ms=time_ms(lambda: S.valid3_bits_plain(eng["bits"], k1_ids)),
-        nbytes=k1_bytes(k), ops=k1_ops(k)))
-    rows[0]["equal"] = rows[0]["equal"] and e["equal"]
-    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e["max_abs_err"])
+    e = rows[0]["at_engine_shape"] = k1_case(eng["bits"], k1_ids)
+    rows[0]["equal"] = rows[0]["equal"] and e["equal"] and k1_one["equal"]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e["max_abs_err"],
+                                 k1_one["max_abs_err"])
     rows[0]["shape"] += (f"; at the engine step's {k} lanes: equal={e['equal']}, "
-                         f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
-                         f"{e['bound_ms']:.6f} ms")
+                         f"{e['ms']:.4f} ms (device {e['device_ms']}), plain "
+                         f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms")
+    rows[1]["equal"] = rows[1]["equal"] and k2_one["equal"]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k2_one["max_abs_err"])
 
     # K9 on the masks of the same engine-path step (16,384 lanes), which the
     # row reports, on their first 512 lanes and on their first
@@ -948,6 +928,10 @@ def kernel_phase(device, report):
 
     report["kernels"] = rows
     bad = [r["name"] for r in rows if not r["equal"]]
+    # K1 and K2: one launch a call at every shape.
+    bad += [f"{name} at {c['lanes']} lanes: {c['launches_a_call']} launches a call"
+            for name, c in (("K1", k1), ("K1", k1_one), ("K1", e), ("K2", k2), ("K2", k2_one))
+            if c["launches_a_call"] != 1]
     if bad:
         raise AssertionError(f"kernel != plain version: {bad}")
 
@@ -1363,9 +1347,76 @@ def k4_ops(b: int) -> int:
     return b * 192 * 120
 
 
-def k1_bytes(k: int) -> int:
-    """K1: bits and ids read, [k,3,64] bool written, the tables once."""
-    return k * 16 + k * 12 + k * 192 + 37 * 9 * 4 + 37 * 8
+# The numbers a kernel's row takes from its main case.
+CASE_KEYS = ("equal", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+             "bound_by", "launches_a_call")
+
+
+def launches_a_call(fn, counter) -> int:
+    """Kernel launches one call of `fn` adds to the wrapper's counter."""
+    before = counter.launches
+    fn()
+    return counter.launches - before
+
+
+def k1_case(bits, ids) -> dict:
+    """K1 and its plain version on one input: bit for bit, times, launches
+    a call, bound."""
+    import torch
+
+    from bbx_torch.engine import solvability as S
+
+    k = bits.shape[0]
+    got, want = S.valid3_bits(bits, ids), S.valid3_bits_plain(bits, ids)
+
+    def fn():
+        return S.valid3_bits(bits, ids)
+
+    return with_bound(dict(
+        lanes=k, equal=bool(torch.equal(got, want)), max_abs_err=max_abs_err(got, want),
+        ms=time_ms(fn), device_ms=kernel_device_ms(fn, "valid3_kernel"), host_us=host_us(fn),
+        plain_ms=time_ms(lambda: S.valid3_bits_plain(bits, ids)),
+        launches_a_call=launches_a_call(fn, S.valid3_bits),
+        nbytes=k1_bytes(k, int(ids.unique().numel())), ops=k1_ops(k)))
+
+
+def k2_case(bits, ids, v3) -> dict:
+    """K2 and its plain version on one input (its `want` kept for K3):
+    bit for bit, times, launches a call, bound (valid3 and ids read, the
+    NO_CONFLICT rows of the input's piece pairs once (all of the 700 KB
+    table at 4,096 lanes), one bool out; an OR step -- OR, lowest bit,
+    clear lowest -- per (valid a0, a1) pair)."""
+    import torch
+
+    from bbx_torch.engine import solvability as S
+    from bbx_torch.engine.tables import tables
+
+    k = bits.shape[0]
+    got = S.solvable_disjoint_bits(bits, ids, v3)
+    want = S.solvable_disjoint_bits_plain(bits, ids, v3)
+    pid = ids.long()
+    m01 = S.unpack_cells(tables(bits.device).NO_CONFLICT_BITS[pid[:, 0], pid[:, 1]]
+                         & S.pack_cells(v3[:, 1])[:, None, :])
+    or_steps = int((m01 & v3[:, 0, :, None]).sum().item())
+    pairs = torch.cat([pid[:, i] * 37 + pid[:, j] for i, j in ((0, 1), (0, 2), (1, 2))])
+
+    def fn():
+        return S.solvable_disjoint_bits(bits, ids, v3)
+
+    return with_bound(dict(
+        lanes=k, want=want, equal=bool(torch.equal(got, want)),
+        max_abs_err=max_abs_err(got, want), ms=time_ms(fn),
+        device_ms=kernel_device_ms(fn, "disjoint_kernel"), host_us=host_us(fn),
+        plain_ms=time_ms(lambda: S.solvable_disjoint_bits_plain(bits, ids, v3)),
+        launches_a_call=launches_a_call(fn, S.solvable_disjoint_bits),
+        nbytes=k * 192 + k * 12 + int(pairs.unique().numel()) * 64 * 8 + k,
+        ops=or_steps * 8 + k * 64 * 16))
+
+
+def k1_bytes(k: int, pieces: int) -> int:
+    """K1: bits and ids read, [k,3,64] bool written, the tables' rows of
+    the `pieces` distinct pieces drawn once."""
+    return k * 16 + k * 12 + k * 192 + pieces * (9 * 4 + 8)
 
 
 def k1_ops(k: int) -> int:
@@ -2591,7 +2642,8 @@ def main() -> int:
             "launches": sum(split.values()), "launches_by_path": split} | {
                 k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "shape")} | {
-                k: r[k] for k in ("device_ms", "host_us", "bound_flops_ms", "bound_bytes_ms",
+                k: r[k] for k in ("device_ms", "host_us", "launches_a_call", "bound_flops_ms",
+                                  "bound_bytes_ms",
                                   "entry_points", "step", "at_update_shape",
                                   "at_engine_shape", "at_other_shapes", "evaluator_layouts",
                                   "device_ms_by_kernel", "whole")

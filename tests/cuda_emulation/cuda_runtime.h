@@ -5,7 +5,7 @@
 // of a grid run one after another, so no block may wait on another;
 // __syncthreads is a std::barrier over the block (a named barrier one over
 // the threads that use it), and the warp intrinsics
-// (__syncwarp, __ballot_sync, __any_sync, __shfl_down_sync) a
+// (__syncwarp, __ballot_sync, __any_sync, __shfl_down_sync, __shfl_sync) a
 // std::barrier over the warp's 32 threads, which must all take part (a
 // full mask).  The emulated card
 // has BBX_EMULATED_SMS multiprocessors that hold one block each (or as
@@ -137,6 +137,16 @@ inline unsigned __shfl_down_sync(unsigned, unsigned v, unsigned delta) {
     w->shuffled[l] = v;
     w->barrier.arrive_and_wait();
     const unsigned got = l + delta < 32 ? w->shuffled[l + delta] : v;
+    w->barrier.arrive_and_wait();
+    return got;
+}
+
+// Every thread gets thread src's value.
+inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
+    bbx_warp* w = bbx_this_warp;
+    w->shuffled[threadIdx.x % 32] = v;
+    w->barrier.arrive_and_wait();
+    const unsigned got = w->shuffled[src & 31];
     w->barrier.arrive_and_wait();
     return got;
 }

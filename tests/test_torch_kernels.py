@@ -65,12 +65,16 @@ def _random_boards(device, n=256, seed=1):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 256, 16384])
 @pytest.mark.parametrize("which", ["random", "reachable"])
-def test_verdict_kernels_match_plain(cuda, which):
+def test_verdict_kernels_match_plain(cuda, which, n):
+    """K1, K2 and K3 equal their plain versions on one lane (the parity
+    engine's shape), 256 and 16,384; K1 and K2 take one launch a call,
+    and nothing else on the card."""
     if which == "random":
-        board, ids = _random_boards(cuda)
+        board, ids = _random_boards(cuda, n=n)
     else:
-        state, _, ids = _midgame(cuda)
+        state, _, ids = _midgame(cuda, n=n)
         board = state.board
     bits = S.board_bits(board)
     v3 = S.valid3_bits(bits, ids)
@@ -79,7 +83,11 @@ def test_verdict_kernels_match_plain(cuda, which):
     assert torch.equal(fast, S.solvable_disjoint_bits_plain(bits, ids, v3))
     exact = S.solvable_exact_bits(bits, ids, v3)
     assert torch.equal(exact, S.solvable_exact_bits_plain(bits, ids, v3))
-    assert fast.any() and (~fast).any() and (~exact).any()
+    if n > 1:
+        assert fast.any() and (~fast).any() and (~exact).any()
+    _assert_one_launch_a_call(lambda: S.valid3_bits(bits, ids), "valid3_kernel")
+    _assert_one_launch_a_call(lambda: S.solvable_disjoint_bits(bits, ids, v3),
+                              "disjoint_kernel")
 
 
 def _assert_k4_equal(board, pieces, dtype):
@@ -125,6 +133,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     v3 = S.valid3_bits(bits, ids)
     with pytest.raises(ValueError, match="contiguous"):
         S.solvable_exact_bits(bits, ids, v3.transpose(0, 1).contiguous().transpose(0, 1))
+    store = torch.zeros(4 * 192 + 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        S.solvable_disjoint_bits(bits, ids, store[4:4 + 4 * 192].view(4, 3, 64))
     board = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda),

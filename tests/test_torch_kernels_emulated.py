@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from bbx.engine import solvability as JS
 from bbx.models.afterstate import AfterstateNetwork as JNet
 from bbx_torch.agent import ppo as P
 from bbx_torch.engine import solvability as S
@@ -39,6 +40,10 @@ from bbx_torch.ops import build
 torch.set_num_threads(1)
 
 EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emulation")
+
+# bbx's K1 and K2, jitted once for the module.
+_j_valid3 = jax.jit(JS.valid3_bits)
+_j_disjoint = jax.jit(JS.solvable_disjoint_bits)
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +138,129 @@ def test_emulated_verdict_kernels_match_plain(kernels, which):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 
+def _k1_k2_case(which, k):
+    """(bits, ids) of k lanes: random boards (10-90% full), reachable ones,
+    or edge boards in turn -- empty, full, rows 0-3 full (every valid
+    anchor at 32 or above), and rows 0-3 full with the rest half full --
+    with random ids in [0, 37)."""
+    rng = np.random.default_rng(100 + k)
+    if which == "random":
+        board, ids = _random(n=k, seed=k)
+    elif which == "reachable":
+        state, _, ids = _reachable(n=k, moves=8, seed=k)
+        board = state.board
+    else:
+        edges = np.zeros((4, 8, 8), np.uint8)
+        edges[1] = 1
+        edges[2:, :4] = 1
+        edges[3, 4:] = rng.random((4, 8)) < 0.5
+        board = torch.from_numpy(edges[np.arange(k) % 4])
+        ids = torch.from_numpy(rng.integers(0, 37, (k, 3)).astype(np.int32))
+    return S.board_bits(board), ids
+
+
+def _single_cell_piece():
+    return int(np.flatnonzero(TTables("cpu").PIECE_NBLOCKS.numpy() == 1)[0])
+
+
+def _high_anchor_draw(k):
+    """k lanes of three one-cell pieces whose masks allow one
+    pairwise-disjoint triple, (40, 41, 5): first anchor 5 is valid too, but
+    every triple from it repeats an anchor."""
+    ids = torch.full((k, 3), _single_cell_piece(), dtype=torch.int32)
+    v3 = torch.zeros((k, 3, 64), dtype=torch.bool)
+    v3[:, 0, [5, 40]] = True
+    v3[:, 1, [5, 41]] = True
+    v3[:, 2, 5] = True
+    return torch.zeros((k, 2), dtype=torch.int64), ids, v3
+
+
+@pytest.mark.parametrize("which", ["random", "reachable", "edges"])
+@pytest.mark.parametrize("k", [1, 7, 33])
+def test_emulated_k1_k2_match_plain(kernels, which, k):
+    """K1 and K2 (emulated) equal their plain versions on k lanes (not
+    whole warps or blocks): random, reachable and edge boards (empty, full,
+    every valid anchor at 32 or above); K2 also on an all-false valid3 and
+    on a draw whose only disjoint triple has its first anchor at 40 (the
+    warp's second half).  One launch a call."""
+    bits, ids = _k1_k2_case(which, k)
+    before = (S.valid3_bits.launches, S.solvable_disjoint_bits.launches)
+    v3 = S._valid3_bits_cuda(bits, ids)
+    assert torch.equal(v3, S.valid3_bits_plain(bits, ids))
+    fast = S._solvable_disjoint_bits_cuda(bits, ids, v3)
+    assert torch.equal(fast, S.solvable_disjoint_bits_plain(bits, ids, v3))
+    none = torch.zeros_like(v3)
+    assert not S._solvable_disjoint_bits_cuda(bits, ids, none).any()
+    assert not S.solvable_disjoint_bits_plain(bits, ids, none).any()
+    hb, hi, hv = _high_anchor_draw(k)
+    assert S._solvable_disjoint_bits_cuda(hb, hi, hv).all()
+    assert S.solvable_disjoint_bits_plain(hb, hi, hv).all()
+    hv[:, 0, 40] = False
+    assert not S._solvable_disjoint_bits_cuda(hb, hi, hv).any()
+    after = (S.valid3_bits.launches, S.solvable_disjoint_bits.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 4]
+    if which == "edges":
+        assert fast[0] and v3[0].any(dim=1).all()
+        if k > 2:
+            assert not v3[1::4].any() and not fast[1::4].any()
+            assert not v3[2::4, :, :32].any() and v3[2::4, :, 32:].any()
+
+
+@pytest.mark.parametrize("k", [1, 7, 33])
+def test_emulated_k1_k2_take_ids_outside_the_table(kernels, k):
+    """An id outside [0, 37) gives K1 an all-false row and K2 false (even
+    on an all-true valid3, so the table is never read at it); the lanes'
+    other rows equal the plain version's."""
+    bits, ids = _k1_k2_case("random", k)
+    bad = ids.clone()
+    rows = torch.arange(k)
+    bad[rows, rows % 3] = torch.tensor([37, -1, 1000, -(2 ** 31)], dtype=torch.int32)[rows % 4]
+    v3 = S._valid3_bits_cuda(bits, bad)
+    want = S.valid3_bits_plain(bits, ids)
+    hit = torch.zeros((k, 3), dtype=torch.bool)
+    hit[rows, rows % 3] = True
+    assert not v3[hit].any() and torch.equal(v3[~hit], want[~hit])
+    assert not S._solvable_disjoint_bits_cuda(bits, bad, v3).any()
+    assert not S._solvable_disjoint_bits_cuda(bits, bad, torch.ones_like(v3)).any()
+
+
+def test_emulated_k1_k2_match_bbx(kernels):
+    """K1 and K2 (emulated) against bbx's `valid3_bits` and
+    `solvable_disjoint_bits` on 33 random and 33 edge lanes and on the
+    high-anchor draw: the same masks and the same verdicts."""
+    for which in ("random", "edges"):
+        bits, ids = _k1_k2_case(which, 33)
+        jb, ji = bits.numpy().astype(np.uint32), ids.numpy()
+        v3 = S._valid3_bits_cuda(bits, ids)
+        jv3 = _j_valid3(jb, ji)
+        np.testing.assert_array_equal(v3.numpy(), np.asarray(jv3))
+        fast = S._solvable_disjoint_bits_cuda(bits, ids, v3)
+        np.testing.assert_array_equal(fast.numpy(), np.asarray(_j_disjoint(jb, ji, jv3)))
+        assert fast.any() and (~fast).any()
+    hb, hi, hv = _high_anchor_draw(2)
+    want = np.asarray(_j_disjoint(hb.numpy().astype(np.uint32), hi.numpy(), hv.numpy()))
+    np.testing.assert_array_equal(S._solvable_disjoint_bits_cuda(hb, hi, hv).numpy(), want)
+    assert want.all()
+
+
+def test_emulated_disjoint_wrapper_refuses_misaligned_valid3(kernels):
+    """K2 reads valid3 in 16-byte loads: its wrapper refuses a view that
+    does not start on 16 bytes, without copying or falling back, and takes
+    one that does."""
+    bits, ids = _k1_k2_case("random", 7)
+    v3 = S.valid3_bits_plain(bits, ids)
+    store = torch.zeros(7 * 192 + 32, dtype=torch.bool)
+    for offset in (4, 8, 1):
+        view = store[offset:offset + 7 * 192].view(7, 3, 64)
+        view.copy_(v3)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            S._solvable_disjoint_bits_cuda(bits, ids, view)
+    view = store[16:16 + 7 * 192].view(7, 3, 64)
+    view.copy_(v3)
+    assert torch.equal(S._solvable_disjoint_bits_cuda(bits, ids, view),
+                       S.solvable_disjoint_bits_plain(bits, ids, v3))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_emulated_afterstate_kernel_matches_plain(kernels, dtype):
     """K4 at both output dtypes: planes, features and overlap equal to the
@@ -165,6 +293,7 @@ def test_emulated_kernels_take_empty_batches(kernels):
     ids = torch.zeros((0, 3), dtype=torch.int32)
     v3 = S._valid3_bits_cuda(bits, ids)
     assert v3.shape == (0, 3, 64)
+    assert S._solvable_disjoint_bits_cuda(bits, ids, v3).shape == (0,)
     assert S._solvable_exact_bits_cuda(bits, ids, v3).shape == (0,)
     for dtype in (torch.float32, torch.bfloat16):
         planes, feats, overlap = A._afterstate_buffer_cuda(
