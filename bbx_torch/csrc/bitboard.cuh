@@ -50,6 +50,16 @@ __host__ __device__ __forceinline__ u64 bb_clear_lines(u64 b) {
     return b & ~(rows | cols);
 }
 
+// The board's transpose: cell (r, c) to (c, r) (three block swaps).
+__host__ __device__ __forceinline__ u64 bb_transpose(u64 x) {
+    u64 t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAULL;
+    x ^= t ^ (t << 7);
+    t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCULL;
+    x ^= t ^ (t << 14);
+    t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ULL;
+    return x ^ t ^ (t << 28);
+}
+
 // Valid-anchor mask of one piece on board b: anchor a collides iff some
 // piece cell a + shift is occupied, so the mask is
 // anchor_ok & ~OR_o(b >> shift_o) (shifts <= 36; out-of-bounds anchors read

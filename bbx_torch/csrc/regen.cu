@@ -36,10 +36,13 @@
 //     such draw, compacted into one list, in passes of the block width; a
 //     draw's items stop as soon as one of them has found a solution (a flag
 //     per warp).  One hard draw thus gets the whole block, and several get
-//     it side by side.
+//     it side by side.  Each item is K3's body, `bb_exact_search`
+//     (verdict.cuh): where the third piece fits nowhere after the first,
+//     only the second placements that might complete a line are walked.
 //   * PLACE_U64, PIECE_SHIFTS and ANCHOR_OK (20.5 KB) are staged once per
-//     block in static shared memory; NO_CONFLICT_U64 (700 KB)
-//     stays in L2 and is read through the read-only path.
+//     block in static shared memory, with each piece's span
+//     (`bb_piece_span`); NO_CONFLICT_U64 (700 KB) stays in L2 and is read
+//     through the read-only path by the disjoint tier.
 // Draw j of lane i is the counter-based hash `regen_draw(seed, i, j)` that
 // the plain version computes too, so ids and attempts agree bit for bit.
 // Bound: the bytes are 45 per lane plus the tables; the work is integer ALU
@@ -67,43 +70,23 @@ __host__ __device__ __forceinline__ int regen_shape(uint32_t k, int s) {
     return (int)(((uint64_t)w * BB_NUM_PIECES) >> 32);
 }
 
-// Position of the k-th set bit (k from 0) of m, which has more than k.
-__host__ __device__ __forceinline__ int regen_nth_bit(u64 m, int k) {
-    int pos = 0;
-    for (int w = 32; w >= 1; w >>= 1) {
-        const u64 low = m & ((1ULL << w) - 1);
-        const int c = BB_POPC(low);
-        if (k >= c) {
-            k -= c;
-            m >>= w;
-            pos += w;
-        } else {
-            m = low;
-        }
-    }
-    return pos;
-}
-
-// Item u of a draw's exact tier: its valid first placements, 2 * |v_i|
-// items (orders 2i and 2i + 1) for each first piece i in turn.  1 iff it
-// found a solution (and then sets *found).
+// Item u of a draw's exact tier (numbered by `bb_exact_item`, as K3 numbers
+// them), searched by `bb_exact_search`; it stops early once *found is set.
+// 1 iff it found a solution (and then sets *found).
 __device__ __forceinline__ int regen_exact_item(int u, u64 board, const int* id,
                                                 const u64* v, const u64* s_place,
                                                 const int* s_shift, const u64* s_aok,
-                                                volatile int* found) {
-    int i = 0, c = BB_POPC(v[0]);
-    while (u >= 2 * c) {
-        u -= 2 * c;
-        c = BB_POPC(v[++i]);
-    }
-    const int second = u >= c ? 1 : 0;
-    const int a1 = regen_nth_bit(v[i], u - second * c);
-    int first, j, h;
-    bb_exact_order(2 * i + second, &first, &j, &h);
-    return bb_exact_hit_at(a1, board, s_place + BB_ANCHORS * id[i],
-                           s_shift + BB_SHIFTS * id[j], s_aok[id[j]],
-                           s_place + BB_ANCHORS * id[j], s_shift + BB_SHIFTS * id[h],
-                           s_aok[id[h]], found);
+                                                const int* s_span, volatile int* found) {
+    int o, a1, i, j, h;
+    bb_exact_item(u, v[0], v[1], v[2], &o, &a1);
+    bb_exact_order(o, &i, &j, &h);
+    if (!bb_exact_search(a1, board, s_place + BB_ANCHORS * id[i], s_shift + BB_SHIFTS * id[j],
+                         s_aok[id[j]], s_span[id[j]], s_place + BB_ANCHORS * id[j],
+                         s_shift + BB_SHIFTS * id[h], s_aok[id[h]],
+                         [found] { return *found != 0; }))
+        return 0;
+    *found = 1;
+    return 1;
 }
 
 __global__ void __launch_bounds__(REGEN_THREADS)
@@ -120,6 +103,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
     __shared__ u64 s_place[BB_NUM_PIECES * BB_ANCHORS];
     __shared__ int s_shift[BB_NUM_PIECES * BB_SHIFTS];
     __shared__ u64 s_aok[BB_NUM_PIECES];
+    __shared__ int s_span[BB_NUM_PIECES];
     // Per warp: its (1,2) row, its (lane, attempt) this round, the draw's
     // ids and masks, the disjoint tier's verdict, the draw's exact-tier
     // items (0 if none) and the exact tier's found flag.
@@ -137,7 +121,10 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
     const int l = t % 32;
     for (int i = t; i < BB_NUM_PIECES * BB_ANCHORS; i += W) s_place[i] = (u64)place[i];
     for (int i = t; i < BB_NUM_PIECES * BB_SHIFTS; i += W) s_shift[i] = shifts[i];
-    for (int i = t; i < BB_NUM_PIECES; i += W) s_aok[i] = (u64)anchor_ok[i];
+    for (int i = t; i < BB_NUM_PIECES; i += W) {
+        s_aok[i] = (u64)anchor_ok[i];
+        s_span[i] = bb_piece_span((u64)place[i * BB_ANCHORS]);
+    }
     const uint32_t seed_key = bbx_mix32((uint32_t)seed[0]);
     const u64* nc = (const u64*)no_conflict;
 
@@ -257,7 +244,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
                 while (off >= s_items[q]) off -= s_items[q++];
                 if (!found[q])
                     regen_exact_item(off, s_board[s_lane[q]], s_id[q], s_valid[q],
-                                     s_place, s_shift, s_aok, &s_found[q]);
+                                     s_place, s_shift, s_aok, s_span, &s_found[q]);
             }
             __syncthreads();
         }

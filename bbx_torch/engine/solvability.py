@@ -152,7 +152,8 @@ def _valid3_bits_cuda(bits: torch.Tensor, piece_ids: torch.Tensor) -> torch.Tens
                       device=bits.device)
     err = build.function("valid3")(
         bits.data_ptr(), piece_ids.data_ptr(), tb.PIECE_SHIFTS_I32.data_ptr(),
-        tb.ANCHOR_OK_U64.data_ptr(), out.data_ptr(), k, build.stream_of(bits))
+        tb.ANCHOR_OK_U64.data_ptr(), out.data_ptr(), k,
+        build.stream_of(bits))
     build.check("valid3", err)
     valid3_bits.launches += 1
     return out
@@ -266,7 +267,10 @@ def solvable_exact_bits(bits: torch.Tensor, piece_ids: torch.Tensor,
     Args:
       bits: [K, 2] int64 boards.
       piece_ids: [K, 3] int32.
-      valid3: [K, 3, 64] bool from `valid3_bits`.
+      valid3: [K, 3, 64] bool from `valid3_bits` (stage 1's masks; stages
+        2 and 3 come from the board); on the card 16-byte aligned (the
+        kernel reads it in 16-byte loads; the wrapper raises ValueError
+        otherwise).
     Returns:
       [K] bool.
     """
@@ -282,6 +286,8 @@ def _solvable_exact_bits_cuda(bits, piece_ids, valid3) -> torch.Tensor:
                   (k, PIECES_PER_TURN))
     build.require("solvable_exact_bits: valid3", valid3, torch.bool,
                   (k, PIECES_PER_TURN, NUM_CELLS))
+    if valid3.data_ptr() % 16:
+        raise ValueError("solvable_exact_bits: valid3 must be 16-byte aligned")
     tb = tables(bits.device)
     out = torch.empty(k, dtype=torch.bool, device=bits.device)
     err = build.function("solvable_exact")(

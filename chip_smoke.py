@@ -15,7 +15,8 @@ Phases, each of which must pass (exit code 1 otherwise):
    tolerances PERF.md states), on
    reachable mid-game boards made by the port's own engine from a seed: K1
    at 512 lanes, on one lane and at the engine step's 16,384; K2 at 4,096
-   lanes and on one (with each call's launches counted); K4
+   lanes and on one; K3 at the lanes of those 4,096 the disjoint tier
+   leaves, on one and at all 4,096 (with each call's launches counted); K4
    at the rollout's 512 lanes and at the update's 2048, in bf16 and
    float32 (planes, features and overlap); K8 (the evaluator's no-grad
    forward) at run9 widths at 512 and 2048 lanes in bf16 and float32, at
@@ -581,27 +582,24 @@ def kernel_phase(device, report):
               f"equal={k2_one['equal']}, {k2_one['ms']:.4f} ms (device "
               f"{k2_one['device_ms']}), bound {k2_one['bound_ms']:.6f} ms"))
 
-    # K3 on the lanes the disjoint tier leaves (what regen gives it).
+    # K3 on the lanes the disjoint tier leaves (what regen gives it; the
+    # row's numbers), on one lane and on all FLEET lanes.
     rest = (~fast).nonzero().squeeze(1)
-    rb, ri, rv = bits[rest].contiguous(), ids[rest].contiguous(), v3[rest].contiguous()
-    got = S.solvable_exact_bits(rb, ri, rv)
-    want = S.solvable_exact_bits_plain(rb, ri, rv)
-    got_all = S.solvable_exact_bits(bits, ids, v3)
-    want_all = S.solvable_exact_bits_plain(bits, ids, v3)
+    k3 = k3_case(bits[rest].contiguous(), ids[rest].contiguous(), v3[rest].contiguous())
+    k3_one = k3_case(bits[:1].contiguous(), ids[:1].contiguous(), v3[:1].contiguous())
+    k3_all = k3_case(bits, ids, v3)
     k = rest.numel()
     rows.append(dict(
         name="solvable_exact_bits", source="bbx_torch/csrc/solvable_exact.cu",
         replaces="bbx/engine/solvability.py:235 (solvable_exact_bits; _clear_lines_words :214)",
-        equal=torch.equal(got, want) and torch.equal(got_all, want_all),
-        max_abs_err=max(max_abs_err(got, want), max_abs_err(got_all, want_all)),
-        ms=time_ms(lambda: S.solvable_exact_bits(rb, ri, rv)),
-        device_ms=kernel_device_ms(lambda: S.solvable_exact_bits(rb, ri, rv), "exact_kernel"),
-        host_us=host_us(lambda: S.solvable_exact_bits(rb, ri, rv)),
-        plain_ms=time_ms(lambda: S.solvable_exact_bits_plain(rb, ri, rv), reps=5, inner=2),
-        nbytes=k * (16 + 12 + 192 + 1) + 37 * 64 * 8 + 37 * 9 * 4 + 37 * 8,
-        ops=exact_ops(rb, ri, rv, want),
+        **{key: k3[key] for key in CASE_KEYS},
+        at_other_shapes={"1": k3_one, str(FLEET): k3_all},
         shape=f"bits [{k},2], ids [{k},3], valid3 [{k},3,64] -> [{k}] "
-              f"(the {k} of {FLEET} draws the disjoint tier leaves)"))
+              f"(the {k} of {FLEET} draws the disjoint tier leaves); at one lane: "
+              f"equal={k3_one['equal']}, device {k3_one['device_ms']}; at {FLEET}: "
+              f"equal={k3_all['equal']}, device {k3_all['device_ms']}"))
+    k3_cases = (k3, k3_one, k3_all)
+    rows[-1]["equal"] = all(c["equal"] for c in k3_cases)
 
     # K4 at the rollout's and the eval's B = 512 (observations) and at the
     # update's B = 2048 (planes rebuilt from the compact buffer by the
@@ -928,9 +926,10 @@ def kernel_phase(device, report):
 
     report["kernels"] = rows
     bad = [r["name"] for r in rows if not r["equal"]]
-    # K1 and K2: one launch a call at every shape.
+    # K1, K2 and K3: one launch a call at every shape.
     bad += [f"{name} at {c['lanes']} lanes: {c['launches_a_call']} launches a call"
-            for name, c in (("K1", k1), ("K1", k1_one), ("K1", e), ("K2", k2), ("K2", k2_one))
+            for name, c in (("K1", k1), ("K1", k1_one), ("K1", e), ("K2", k2), ("K2", k2_one),
+                            *(("K3", c) for c in k3_cases))
             if c["launches_a_call"] != 1]
     if bad:
         raise AssertionError(f"kernel != plain version: {bad}")
@@ -1411,6 +1410,31 @@ def k2_case(bits, ids, v3) -> dict:
         launches_a_call=launches_a_call(fn, S.solvable_disjoint_bits),
         nbytes=k * 192 + k * 12 + int(pairs.unique().numel()) * 64 * 8 + k,
         ops=or_steps * 8 + k * 64 * 16))
+
+
+def k3_case(bits, ids, v3) -> dict:
+    """K3 and its plain version on one input: bit for bit, times, launches
+    a call, bound (bits, ids and valid3 read, one bool out, the PLACE rows,
+    shifts and anchor masks of the input's pieces once; the search's
+    operations as `exact_ops` counts them, whatever the kernel skips)."""
+    import torch
+
+    from bbx_torch.engine import solvability as S
+
+    k = bits.shape[0]
+    got = S.solvable_exact_bits(bits, ids, v3)
+    want = S.solvable_exact_bits_plain(bits, ids, v3)
+
+    def fn():
+        return S.solvable_exact_bits(bits, ids, v3)
+
+    return with_bound(dict(
+        lanes=k, equal=bool(torch.equal(got, want)), max_abs_err=max_abs_err(got, want),
+        ms=time_ms(fn), device_ms=kernel_device_ms(fn, "exact_kernel"), host_us=host_us(fn),
+        plain_ms=time_ms(lambda: S.solvable_exact_bits_plain(bits, ids, v3), reps=5, inner=2),
+        launches_a_call=launches_a_call(fn, S.solvable_exact_bits),
+        nbytes=k * (16 + 12 + 192 + 1) + int(ids.unique().numel()) * (64 * 8 + 9 * 4 + 8),
+        ops=exact_ops(bits, ids, v3, want)))
 
 
 def k1_bytes(k: int, pieces: int) -> int:

@@ -69,8 +69,8 @@ def _random_boards(device, n=256, seed=1):
 @pytest.mark.parametrize("which", ["random", "reachable"])
 def test_verdict_kernels_match_plain(cuda, which, n):
     """K1, K2 and K3 equal their plain versions on one lane (the parity
-    engine's shape), 256 and 16,384; K1 and K2 take one launch a call,
-    and nothing else on the card."""
+    engine's shape), 256 and 16,384; each takes one launch a call, and
+    nothing else on the card."""
     if which == "random":
         board, ids = _random_boards(cuda, n=n)
     else:
@@ -88,6 +88,48 @@ def test_verdict_kernels_match_plain(cuda, which, n):
     _assert_one_launch_a_call(lambda: S.valid3_bits(bits, ids), "valid3_kernel")
     _assert_one_launch_a_call(lambda: S.solvable_disjoint_bits(bits, ids, v3),
                               "disjoint_kernel")
+    _assert_one_launch_a_call(lambda: S.solvable_exact_bits(bits, ids, v3), "exact_kernel")
+
+
+def _one_gap_boards(n, device):
+    """n boards with no full line: row r = lane % 8 free at columns c and
+    c + 1 (c = lane // 8 % 7), each other row free at one cell, one in each
+    column but c and c + 1 and a second in column c + 4 (mod 8).  The only
+    two free cells side by side are the gap's, and the columns beside it
+    (c - 1, c + 2) have one free cell each, so no 3x3 square comes free
+    beside the gap's columns when they clear."""
+    lane = torch.arange(n, device=device)
+    row, col = lane % 8, (lane // 8) % 7
+    board = torch.ones((n, 8, 8), dtype=torch.uint8, device=device)
+    board[lane, row, col] = 0
+    board[lane, row, col + 1] = 0
+    for k in range(1, 8):
+        other = (col + 2 + (k - 1 if k < 7 else 2)) % 8  # never c or c + 1
+        board[lane, (row + k) % 8, other] = 0
+    return board
+
+
+@pytest.mark.gpu
+def test_exact_kernel_where_line_clears_decide(cuda):
+    """K3 at 4,096 lanes of `_one_gap_boards`: three horizontal dominoes
+    are solvable only through the gap's row, which the first completes
+    (exact true, disjoint false); with the 3x3 square third, never (the
+    first clears one row and two columns).  Bit for bit with the plain
+    version, one launch a call."""
+    tb = TTables(cuda)
+    flat = tb.PLACEMENT[:, 0].reshape(-1, 8, 8)
+    domino = int((tb.PIECE_NBLOCKS == 2).logical_and(flat[:, 0, 1]).nonzero()[0])
+    square = int((tb.PIECE_NBLOCKS == 9).nonzero()[0])
+    n = 4096
+    bits = S.board_bits(_one_gap_boards(n, cuda))
+    ids = torch.full((n, 3), domino, dtype=torch.int32, device=cuda)
+    ids[1::2, 2] = square
+    v3 = S.valid3_bits(bits, ids)
+    got = S.solvable_exact_bits(bits, ids, v3)
+    assert torch.equal(got, S.solvable_exact_bits_plain(bits, ids, v3))
+    assert got[0::2].all() and not got[1::2].any()
+    assert not S.solvable_disjoint_bits(bits, ids, v3).any()
+    _assert_one_launch_a_call(lambda: S.solvable_exact_bits(bits, ids, v3), "exact_kernel")
 
 
 def _assert_k4_equal(board, pieces, dtype):
@@ -136,6 +178,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     store = torch.zeros(4 * 192 + 16, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         S.solvable_disjoint_bits(bits, ids, store[4:4 + 4 * 192].view(4, 3, 64))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        S.solvable_exact_bits(bits, ids, store[4:4 + 4 * 192].view(4, 3, 64))
     board = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         A.afterstate_buffer(board.half(), torch.zeros((2, 3, 8, 8), device=cuda),

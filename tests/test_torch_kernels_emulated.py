@@ -41,9 +41,10 @@ torch.set_num_threads(1)
 
 EMULATION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emulation")
 
-# bbx's K1 and K2, jitted once for the module.
+# bbx's K1, K2 and K3, jitted once for the module.
 _j_valid3 = jax.jit(JS.valid3_bits)
 _j_disjoint = jax.jit(JS.solvable_disjoint_bits)
+_j_exact = jax.jit(JS.solvable_exact_bits)
 
 
 @pytest.fixture(scope="module")
@@ -259,6 +260,119 @@ def test_emulated_disjoint_wrapper_refuses_misaligned_valid3(kernels):
     view.copy_(v3)
     assert torch.equal(S._solvable_disjoint_bits_cuda(bits, ids, view),
                        S.solvable_disjoint_bits_plain(bits, ids, v3))
+
+
+def _k3_special_lanes():
+    """Seven lanes for K3, each with its verdict: (bits, ids, exact):
+      * clears decide: no line full, row 0 free at columns 0 and 1 only,
+        rows 1-7 each at one cell (columns 2-7, then 4), three horizontal
+        dominoes -- the gap is the only place for the first, which
+        completes row 0 (and columns 0 and 1), so the others fit there;
+      * unsolvable: a checkerboard, two one-cell pieces and the 3x3
+        square -- every order with a one-cell piece first has 32 x 31
+        candidates (a2), none completes a line and the square never fits;
+      * late: solvable, but of its 62 items (numbered as the kernel numbers
+        them) only two find a solution, the first of them item 33, so a warp
+        finds it in its second round of 32 items (taken from a search of
+        random boards);
+      * one fit: solvable, but in every solution the second piece's
+        anchor is outside `bb_line_anchors` (so it completes no line) and
+        leaves the third exactly one anchor (from the same search);
+      * column, row: solvable only where the first placement leaves the
+        third piece no room and the second completes a column (a row),
+        so only through `bb_line_anchors`; the column has as many free
+        cells as the second piece puts in one (from the same search);
+      * a bad id: random cells and a triple whose third id is 37."""
+    gap = np.ones((8, 8), np.uint8)
+    gap[0, :2] = 0
+    gap[np.arange(1, 8), [2, 3, 4, 5, 6, 7, 4]] = 0
+    checker = (np.add.outer(np.arange(8), np.arange(8)) % 2).astype(np.uint8)
+    noise = (np.random.default_rng(3).random((8, 8)) < 0.4).astype(np.uint8)
+    one = _single_cell_piece()
+    square = int(np.flatnonzero(TTables("cpu").PIECE_NBLOCKS.numpy() == 9)[0])
+    late, single, column, row = (0x6CABE3985D06EDDC, 0xB4F72964D3263C44,
+                                 0x577DF3675C3B6E11, 0xAE3A4EB07746E5BE)
+    domino = 1  # cells (0, 0) and (0, 1)
+    assert TTables("cpu").PLACEMENT[domino, 0].nonzero().flatten().tolist() == [0, 1]
+    bits = S.board_bits(torch.from_numpy(np.stack([gap, checker, noise])))
+    words = torch.tensor([[w & 0xFFFFFFFF, w >> 32] for w in (late, single, column, row)])
+    bits = torch.cat([bits[:2], words, bits[2:]])
+    ids = torch.tensor([[domino] * 3, [one, square, one], [19, 0, 32], [4, 23, 27],
+                        [3, 13, 8], [32, 8, 22], [5, 12, 37]], dtype=torch.int32)
+    return bits, ids, torch.tensor([True, False, True, True, True, True, False])
+
+
+def _k3_case(which, k):
+    """(bits, ids) of `_k1_k2_case` on k lanes, the seven special lanes
+    after them, and valid3 of the board (an id outside the table gets
+    another's row: the kernel must not read it)."""
+    bits, ids = _k1_k2_case(which, k)
+    sb, si, _ = _k3_special_lanes()
+    bits, ids = torch.cat([bits, sb]), torch.cat([ids, si])
+    v3 = S.valid3_bits_plain(bits, ids.clamp(0, 36))
+    return bits, ids, v3
+
+
+@pytest.mark.parametrize("which", ["random", "reachable", "edges"])
+@pytest.mark.parametrize("k", [1, 7, 33])
+def test_emulated_k3_matches_plain(kernels, which, k):
+    """K3 (emulated) equals its plain version bit for bit on k lanes of
+    random, reachable or edge boards and seven special lanes: one where
+    only line clears make the draw solvable (exact true, disjoint false),
+    an unsolvable one, one solved only in the warp's second round of
+    items, one whose solutions each leave the third piece one anchor, two
+    solved only through the pruned walk (a column, a row), and one with an
+    id outside [0, 37) (false).  At one lane each special lane also runs
+    alone.  One launch a call."""
+    bits, ids, v3 = _k3_case(which, k)
+    before = S.solvable_exact_bits.launches
+    got = S._solvable_exact_bits_cuda(bits, ids, v3)
+    assert S.solvable_exact_bits.launches == before + 1
+    _, _, want = _k3_special_lanes()
+    assert torch.equal(got[k:], want)
+    n = k + 6  # the lanes whose ids are all in the table
+    assert torch.equal(got[:n], S.solvable_exact_bits_plain(bits[:n], ids[:n], v3[:n]))
+    fast = S.solvable_disjoint_bits_plain(bits[:n], ids[:n], v3[:n])
+    assert not fast[k] and not fast[k + 2]
+    if k == 1:
+        for lane in range(1, 8):
+            one = [t[lane:lane + 1].contiguous() for t in (bits, ids, v3)]
+            assert S._solvable_exact_bits_cuda(*one).item() == bool(got[lane])
+
+
+def test_emulated_k3_matches_bbx(kernels):
+    """K3 (emulated) against bbx's `solvable_exact_bits` on 33 random and
+    33 edge lanes with the special lanes (the bad id's lane left out: bbx
+    takes no id outside the table), on the board's own valid3 and on one of
+    all ones, which is not the board's: the pruning by `bb_line_anchors`
+    must be exact on any stage-1 mask."""
+    for which in ("random", "edges"):
+        bits, ids, v3 = _k3_case(which, 33)
+        bits, ids, v3 = bits[:-1].contiguous(), ids[:-1].contiguous(), v3[:-1].contiguous()
+        jb, ji = bits.numpy().astype(np.uint32), ids.numpy()
+        for mask in (v3, torch.ones_like(v3)):
+            got = S._solvable_exact_bits_cuda(bits, ids, mask)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(_j_exact(jb, ji, mask.numpy())))
+            if mask is v3:
+                assert got.any() and (~got).any()
+
+
+def test_emulated_exact_wrapper_refuses_misaligned_valid3(kernels):
+    """K3 reads valid3 in 16-byte loads: its wrapper refuses a view that
+    does not start on 16 bytes, without copying or falling back, and takes
+    one that does."""
+    bits, ids = _k1_k2_case("random", 7)
+    v3 = S.valid3_bits_plain(bits, ids)
+    store = torch.zeros(7 * 192 + 32, dtype=torch.bool)
+    for offset in (4, 8, 1):
+        view = store[offset:offset + 7 * 192].view(7, 3, 64)
+        view.copy_(v3)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            S._solvable_exact_bits_cuda(bits, ids, view)
+    view = store[16:16 + 7 * 192].view(7, 3, 64)
+    view.copy_(v3)
+    assert torch.equal(S._solvable_exact_bits_cuda(bits, ids, view),
+                       S.solvable_exact_bits_plain(bits, ids, v3))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
