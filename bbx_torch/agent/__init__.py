@@ -1,8 +1,9 @@
-"""Agent layer: plain PPO with GAE and the single-device trainer.
+"""Agent layer: PPO with GAE, the one-ply lookahead and search
+distillation, and the single-device trainer.
 
-Counterpart of `bbx.agent` (the plain-PPO subset; lookahead, distillation
-and the policy agents are still to port).
+Counterpart of `bbx.agent` (the policy agents are still to port).
 """
+from .lookahead import lookahead_actions
 from .ppo import (
     PPOConfig,
     TrainState,
@@ -19,6 +20,7 @@ __all__ = [
     "PPOTrainer",
     "TrainState",
     "compute_gae",
+    "lookahead_actions",
     "make_optimizer",
     "rollout",
     "train",

@@ -1,6 +1,6 @@
 """PPO: rollout -> GAE -> epochs of shuffled-minibatch clipped updates.
 
-Counterpart of the plain-PPO subset of `bbx/agent/ppo.py`.  `bbx` runs one
+Counterpart of `bbx/agent/ppo.py`.  `bbx` runs one
 jitted XLA program per iteration; here the rollout and the update are
 plain Python loops over eager PyTorch calls, and GAE is the CUDA kernel K5
 (`csrc/gae.cu`) on the card.  Semantics kept from `bbx`:
@@ -19,12 +19,20 @@ plain Python loops over eager PyTorch calls, and GAE is the CUDA kernel K5
     coefficient counts PPO iterations and reads the iteration index before
     its increment.
 
-The search / behaviour-cloning knobs of `bbx`'s `PPOConfig` (lookahead
-rollouts, distillation) and `adam_mu_dtype` are fields here so that every
-config maps onto the class, but any non-default value raises
-NotImplementedError: they are still to port (ROADMAP.md, Queue 1).
+Search distillation, as `bbx`: with `uses_search` the rollout runs the
+one-ply lookahead (`agent/lookahead.py`) on every step while the annealed
+search fraction or BC coefficient is above 0 (a Python branch where bbx
+has `lax.cond`), takes the search's action on a `search_frac` share of the
+lanes (its network in eval mode; the rollout's logits pick the top-k),
+floors the stored logp at -15 and
+records the search's action (and, for ``bc_target: q_soft``, its
+candidates and their Q in bf16); the update adds the dual clip at 3 x adv
+for negative advantages and the behaviour-cloning term.  ``adam_mu_dtype``
+(Adam's first moment in bf16) is not ported: no config of the repo sets it,
+and any value but None is refused.
 Random draws come from explicit `torch.Generator`s: one for the actions,
-one for the minibatch shuffle and one for the dropout masks.
+one for the minibatch shuffle, one for the dropout masks and one for the
+search (its simulated regen draws and the search/policy mix).
 
 The flat CNN (`BlockBlastNetwork`) has BatchNorm and dropout, so the mode
 matters, as in `bbx`: with ``rollout_train_mode`` the rollout runs it in
@@ -48,23 +56,13 @@ from ..engine.tables import tables
 from ..models import distributions as D
 from ..models.utils import clip_by_global_norm_
 from ..ops import build
+from .lookahead import lookahead_actions, search_width
 
-# Default values of the fields this port does not implement yet.
-_NOT_PORTED = {
-    "rollout_search_frac": 0.0,
-    "final_rollout_search_frac": None,
-    "bc_coef": 0.0,
-    "final_bc_coef": None,
-    "bc_filter": "all",
-    "bc_target": "argmax",
-    "bc_q_temp": 1.0,
-    "search_topk": 0,
-    "search_anneal_frac": 1.0,
-    "adam_mu_dtype": None,
-}
 ADV_EPS = 1e-8        # ppo.py:399
 ADAM_EPS = 1e-5       # ppo.py:150
 KL_LOGRATIO_CLIP = 20.0  # metric-only clamp of approx_kl (ppo.py:480)
+SEARCH_LOGP_FLOOR = -15.0  # the stored logp's floor with search (ppo.py:289)
+DUAL_CLIP = 3.0       # the negative-advantage bound with search (ppo.py:434)
 
 
 @dataclass(frozen=True)
@@ -86,6 +84,13 @@ class PPOConfig:
     # statistics and live dropout, as torch's default mode does in the
     # reference); changes nothing for the AfterstateNetwork.
     rollout_train_mode: bool = True
+    # Search distillation (bbx/agent/ppo.py:60-111): the share of rollout
+    # actions the one-ply search takes and the behaviour-cloning
+    # coefficient, each annealable to a final value over
+    # search_anneal_frac x schedule_updates iterations; the BC filter
+    # ("all" | "adv_pos": executed search actions with positive advantage)
+    # and target ("argmax" | "q_soft": CE against softmax(q / bc_q_temp)
+    # over the candidates); the search's top-k (0 = all 192 actions).
     rollout_search_frac: float = 0.0
     final_rollout_search_frac: Optional[float] = None
     bc_coef: float = 0.0
@@ -98,20 +103,29 @@ class PPOConfig:
     final_learning_rate: Optional[float] = None
     final_entropy_coef: Optional[float] = None
     schedule_updates: int = 0
+    # Not ported (no config of the repo sets it): None only.
     adam_mu_dtype: Optional[str] = None
 
     def __post_init__(self):
-        bad = {k: getattr(self, k) for k, v in _NOT_PORTED.items()
-               if getattr(self, k) != v}
-        if bad:
-            raise NotImplementedError(
-                f"PPOConfig {bad}: lookahead/distillation rollouts, "
-                "behaviour cloning and adam_mu_dtype are not ported yet "
-                "(ROADMAP.md, Queue 1: lookahead and distillation)")
+        for name, allowed in (("bc_filter", ("all", "adv_pos")),
+                              ("bc_target", ("argmax", "q_soft")),
+                              ("adam_mu_dtype", (None,))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"PPOConfig.{name} = {getattr(self, name)!r}; "
+                                 f"one of {allowed}")
 
     @property
     def batch_size(self) -> int:
         return self.rollout_steps * self.num_envs
+
+    @property
+    def uses_search(self) -> bool:
+        """Does any iteration of this run search in its rollouts (the
+        stored-logp floor, the dual clip and the search fields follow)?"""
+        return (self.rollout_search_frac > 0.0
+                or (self.final_rollout_search_frac or 0.0) > 0.0
+                or self.bc_coef > 0.0
+                or (self.final_bc_coef or 0.0) > 0.0)
 
     @property
     def num_minibatches(self) -> int:
@@ -177,6 +191,20 @@ def entropy_coef_at(config: PPOConfig, update_step: int) -> float:
                       config.schedule_updates, update_step)
 
 
+def search_frac_at(config: PPOConfig, update_step: int) -> float:
+    """The search's share of rollout actions in PPO iteration `update_step`."""
+    return _linear_at(config.rollout_search_frac, config.final_rollout_search_frac,
+                      int(config.schedule_updates * config.search_anneal_frac),
+                      update_step)
+
+
+def bc_coef_at(config: PPOConfig, update_step: int) -> float:
+    """The behaviour-cloning coefficient of PPO iteration `update_step`."""
+    return _linear_at(config.bc_coef, config.final_bc_coef,
+                      int(config.schedule_updates * config.search_anneal_frac),
+                      update_step)
+
+
 # ---------------------------------------------------------------------------
 # Rollout.
 # ---------------------------------------------------------------------------
@@ -204,25 +232,53 @@ _FINAL = {
 }
 
 
+def _search_fields(config: PPOConfig) -> Dict[str, tuple]:
+    """The search's per-transition fields of the buffer: name -> (trailing
+    shape, dtype); the candidates and their Q only for ``q_soft``, Q in
+    bf16 as bbx stores it."""
+    if not config.uses_search:
+        return {}
+    fields = {"search_a": ((), torch.uint8), "search_used": ((), torch.bool)}
+    if config.bc_target == "q_soft":
+        w = search_width(config.search_topk)
+        fields.update(search_cand=((w,), torch.uint8), search_q=((w,), torch.bfloat16))
+    return fields
+
+
 def rollout(network: torch.nn.Module, config: PPOConfig,
             reward_config: RewardConfig, env_state: EnvState,
             generator: torch.Generator,
-            dropout_rng: Optional[torch.Generator] = None):
+            dropout_rng: Optional[torch.Generator] = None,
+            update_step: int = 0,
+            search_rng: Optional[torch.Generator] = None):
     """Collect `rollout_steps` transitions for every env (auto-reset on).
 
     `generator` samples the actions and `dropout_rng` draws the dropout
     masks of a train-mode rollout (needed when the network has dropout).
+    With `config.uses_search`, `search_rng` (on the fleet's device) draws
+    the search's simulated regen and the search/policy mix, and
+    `update_step` sets the annealed search fraction and BC coefficient:
+    while either is above 0 the one-ply search runs on every step (else
+    the search fields hold bbx's dummies: action 0, Q 0).
     Returns (env_state, traj, last_value, ep_stats): `traj` is a dict of
-    [T, N, ...] tensors (the compact buffer of `bbx/agent/ppo.py:297-307`),
+    [T, N, ...] tensors (the compact buffer of `bbx/agent/ppo.py:297-314`),
     `last_value` [N] the bootstrap value of the final observation (eval
     mode), and `ep_stats` 0-dim tensors over the episodes that ended in the
     rollout.  Nothing here synchronises with the host.
     """
     t_len, n, dev = config.rollout_steps, env_state.num_envs, env_state.device
+    fields = {**_TRAJ, **_search_fields(config)}
     traj = {k: torch.empty((t_len, n, *shape), dtype=dt, device=dev)
-            for k, (shape, dt) in _TRAJ.items()}
+            for k, (shape, dt) in fields.items()}
     final = {k: torch.empty((t_len, n), dtype=dt, device=dev)
              for k, dt in _FINAL.items()}
+    frac = search_frac_at(config, update_step)
+    searching = config.uses_search and (frac > 0.0 or bc_coef_at(config, update_step) > 0.0)
+    if searching and search_rng is None:
+        raise ValueError("a search rollout needs search_rng")
+    if not searching:
+        for k in _search_fields(config):
+            traj[k].zero_()
     obs = observe(env_state)
     network.train(config.rollout_train_mode)
     with torch.no_grad():
@@ -230,13 +286,30 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
             logits, value = network(obs["board"], obs["pieces"],
                                     obs["action_mask"], generator=dropout_rng)
             action = D.sample(generator, logits)
+            if searching:
+                search_a, cand, q = lookahead_actions(
+                    network, env_state, search_rng, reward_config,
+                    gamma=config.gamma, topk=config.search_topk,
+                    policy_logits=logits, return_q=True, obs=obs)
+                use = torch.rand(n, generator=search_rng, device=dev) < frac
+                action = torch.where(use, search_a, action)
+                traj["search_a"][t] = search_a
+                traj["search_used"][t] = use
+                if "search_q" in traj:
+                    traj["search_cand"][t] = cand
+                    traj["search_q"][t] = q
+            logp = D.log_prob(logits, action)
+            if config.uses_search:
+                # A search action the policy gives ~zero mass would store a
+                # logp near -1e9 and overflow the update's ratio.
+                logp = torch.clamp(logp, min=SEARCH_LOGP_FLOOR)
             out = step(env_state, action, reward_config, auto_reset=True)
             traj["board"][t] = env_state.board
             traj["piece_ids"][t] = env_state.piece_ids
             traj["used"][t] = env_state.used
             traj["mask"][t] = obs["action_mask"]
             traj["action"][t] = action
-            traj["logp"][t] = D.log_prob(logits, action)
+            traj["logp"][t] = logp
             traj["value"][t] = value
             traj["reward"][t] = out.reward
             traj["done"][t] = out.done
@@ -344,8 +417,28 @@ def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
     return (adv - adv.mean()) / (adv.std(correction=0) + ADV_EPS)
 
 
-def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float):
-    """The clipped-surrogate loss and its metrics (0-dim tensors)."""
+def bc_loss_of(config: PPOConfig, logits, batch) -> torch.Tensor:
+    """The behaviour-cloning loss (`bbx/agent/ppo.py:444-476`): CE against
+    softmax(q / bc_q_temp) over the search's candidates for ``q_soft``,
+    else the search action's negative log-probability, over every state
+    (``all``) or the executed search actions with a positive advantage
+    (``adv_pos``)."""
+    if config.bc_target == "q_soft":
+        tgt = torch.softmax(batch["search_q"].to(torch.float32) / config.bc_q_temp, dim=-1)
+        logp_cand = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                 batch["search_cand"].long())
+        return -torch.mean(torch.sum(tgt * logp_cand, dim=-1))
+    bc_logp = D.log_prob(logits, batch["search_a"].to(torch.int32))
+    if config.bc_filter == "adv_pos":
+        w = (batch["search_used"] & (batch["adv"] > 0.0)).to(torch.float32)
+        return -(torch.sum(bc_logp * w) / torch.clamp(torch.sum(w), min=1.0))
+    return -torch.mean(bc_logp)
+
+
+def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
+             bc_coef: float = 0.0):
+    """The clipped-surrogate loss and its metrics (0-dim tensors); with
+    search, the dual clip and, where `bc_coef` > 0, the BC term."""
     new_logp = D.log_prob(logits, batch["action"])
     entropy = D.masked_entropy(logits, batch["mask"])
     logratio = new_logp - batch["logp"]
@@ -354,11 +447,25 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float):
     surr1 = ratio * adv
     surr2 = torch.clamp(ratio, 1 - config.clip_epsilon,
                         1 + config.clip_epsilon) * adv
-    policy_loss = -torch.mean(torch.minimum(surr1, surr2))
+    per_sample = torch.minimum(surr1, surr2)
+    if config.uses_search:
+        # Stored logps are floored at -15, so ratios reach e^15: bound the
+        # negative-advantage samples (Ye et al. 2020).
+        per_sample = torch.where(adv < 0.0,
+                                 torch.maximum(per_sample, DUAL_CLIP * adv),
+                                 per_sample)
+    policy_loss = -torch.mean(per_sample)
     value_loss = torch.mean((value - batch["ret"]) ** 2)
     entropy_mean = torch.mean(entropy)
     loss = (policy_loss + config.value_coef * value_loss
             - ent_coef * entropy_mean)
+    # A Python branch, not `where`: the untaken branch's NaN would reach
+    # the gradient (the search fields hold dummies once BC has annealed).
+    if config.uses_search and bc_coef > 0.0:
+        bc_loss = bc_loss_of(config, logits, batch)
+        loss = loss + bc_coef * bc_loss
+    else:
+        bc_loss = torch.zeros((), device=value.device)
     with torch.no_grad():
         kl_lr = torch.clamp(logratio, -KL_LOGRATIO_CLIP, KL_LOGRATIO_CLIP)
         approx_kl = torch.mean(torch.exp(kl_lr) - 1.0 - kl_lr)
@@ -371,8 +478,7 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float):
         "total_loss": loss,
         "approx_kl": approx_kl,
         "clip_fraction": clip_frac,
-        # bbx reports its behaviour-cloning loss, 0 without search.
-        "bc_loss": torch.zeros((), device=value.device),
+        "bc_loss": bc_loss.detach(),
     }
 
 
@@ -394,10 +500,12 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
     if total % mb:
         raise ValueError(f"rollout batch {total} not divisible by minibatch {mb}")
     num_mb = total // mb
-    flat = {k: traj[k].reshape(total, *traj[k].shape[2:]) for k in _BATCH_KEYS}
+    keys = _BATCH_KEYS + tuple(_search_fields(config))
+    flat = {k: traj[k].reshape(total, *traj[k].shape[2:]) for k in keys}
     adv = normalize_advantages(advantages.reshape(total))
     ret = returns.reshape(total)
     ent_coef = entropy_coef_at(config, ts.update_step)
+    bc_coef = bc_coef_at(config, ts.update_step)
     params = [p for p in ts.network.parameters()]
     ts.network.train()
     sums: Dict[str, torch.Tensor] = {}
@@ -410,7 +518,7 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
             obs = _minibatch_obs(batch)
             logits, value = ts.network(obs["board"], obs["pieces"],
                                        obs["action_mask"], generator=dropout_rng)
-            loss, aux = ppo_loss(config, logits, value, batch, ent_coef)
+            loss, aux = ppo_loss(config, logits, value, batch, ent_coef, bc_coef)
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             clip_by_global_norm_([p.grad for p in params], config.max_grad_norm)
@@ -429,17 +537,25 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
 def train_iteration(config: PPOConfig, reward_config: RewardConfig,
                     ts: TrainState, env_state: EnvState,
                     action_rng: torch.Generator, shuffle_rng: torch.Generator,
-                    dropout_rng: Optional[torch.Generator] = None):
+                    dropout_rng: Optional[torch.Generator] = None,
+                    search_rng: Optional[torch.Generator] = None):
     """One PPO iteration: rollout + GAE + update (`bbx/agent/ppo.py:533`).
 
     `ts` is trained in place and returned.  Returns (ts, env_state,
-    metrics), the metrics as 0-dim tensors on the device.
+    metrics), the metrics as 0-dim tensors on the device; with search,
+    also the iteration's `search_frac` and `bc_coef`.
     """
+    it = ts.update_step
     env_state, traj, last_value, ep_stats = rollout(
-        ts.network, config, reward_config, env_state, action_rng, dropout_rng)
+        ts.network, config, reward_config, env_state, action_rng, dropout_rng,
+        update_step=it, search_rng=search_rng)
     advantages, returns = compute_gae(config, traj["reward"], traj["done"],
                                       traj["value"], last_value)
     metrics = update(config, ts, traj, advantages, returns, shuffle_rng,
                      dropout_rng)
     metrics.update(ep_stats)
+    if config.uses_search:
+        dev = last_value.device
+        metrics["search_frac"] = torch.tensor(search_frac_at(config, it), device=dev)
+        metrics["bc_coef"] = torch.tensor(bc_coef_at(config, it), device=dev)
     return ts, env_state, metrics

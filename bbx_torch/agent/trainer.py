@@ -6,8 +6,10 @@ port has no mesh yet (`parallel/` is ROADMAP.md Queue 1), so a config's
 ``mesh:`` section is ignored.  A checkpoint is one `torch.save` file
 holding the params, the Adam state, both step counters, the env fleet and
 the state of every generator (the fleet's, the action sampler's, the
-minibatch shuffler's and the dropout masks'), so a resumed run continues
-the exact trajectory of an uninterrupted one on the CPU.  The params entry
+minibatch shuffler's, the dropout masks' and the search's), so a resumed
+run continues the exact trajectory of an uninterrupted one on the CPU.  (A
+checkpoint saved before the search generator existed loads with that
+generator freshly seeded.)  The params entry
 is the network's state dict, so the flat CNN's BatchNorm running
 statistics travel with it.  (On the card, cuDNN's convolution
 backward sums with atomics, so two runs need not agree bit for bit.)
@@ -33,7 +35,7 @@ from .ppo import PPOConfig, TrainState, make_optimizer, train_iteration
 
 
 # The trainer's generators, seeded seed + their index.
-RNG_NAMES = ("fleet", "action", "shuffle", "dropout")
+RNG_NAMES = ("fleet", "action", "shuffle", "dropout", "search")
 
 
 def ppo_config_from(config: Dict[str, Any],
@@ -87,8 +89,10 @@ class PPOTrainer:
 
     Generators, all on the trainer's device: the fleet's (piece draws,
     seeded `seed`), the action sampler's (`seed + 1`), the minibatch
-    shuffler's (`seed + 2`) and the dropout masks' (`seed + 3`); the
-    initial weights come from a CPU generator seeded `seed`.
+    shuffler's (`seed + 2`), the dropout masks' (`seed + 3`) and the
+    search's (`seed + 4`: the simulated fleet's regen draws and the
+    search/policy mix); the initial weights come from a CPU generator
+    seeded `seed`.
     """
 
     def __init__(self, config: Dict[str, Any], seed: int = 42,
@@ -113,15 +117,19 @@ class PPOTrainer:
 
     def evaluate(self, num_episodes: int = 100, seed: int = 10_000,
                  max_steps: int = 8192, chunk: int = 128,
-                 stochastic: bool = False) -> Dict[str, float]:
+                 stochastic: bool = False,
+                 lookahead: bool = False) -> Dict[str, float]:
         """Evaluate the current policy (greedy by default) through
-        `bbx_torch.cli.evaluate.evaluate_policy`."""
+        `bbx_torch.cli.evaluate.evaluate_policy`; `lookahead` plays
+        policy+1-ply search at the run's gamma and `search_topk` (search
+        results, not the raw policy's)."""
         from ..cli.evaluate import evaluate_policy
 
         r = evaluate_policy(
             self.network, num_episodes=num_episodes,
             deterministic=not stochastic, seed=seed, max_steps=max_steps,
-            chunk=chunk, reward_config=self.rewards,
+            chunk=chunk, lookahead=lookahead, gamma=self.ppo.gamma,
+            reward_config=self.rewards, topk=self.ppo.search_topk,
             device=self.device,
         )
         return {
@@ -142,7 +150,8 @@ class PPOTrainer:
         0-dim tensors on the device."""
         _, self.env_state, metrics = train_iteration(
             self.ppo, self.rewards, self.train_state, self.env_state,
-            self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"])
+            self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"],
+            self.rngs["search"])
         self.global_step += self.ppo.batch_size
         return metrics
 
@@ -180,7 +189,8 @@ class PPOTrainer:
         ts.update_step = int(payload["update_step"])
         self.global_step = int(payload["global_step"])
         for name, g in self.rngs.items():
-            g.set_state(payload["rng_states"][name])
+            if name in payload["rng_states"]:
+                g.set_state(payload["rng_states"][name])
         env = payload["env_state"]
         if env["board"].shape[0] == self.ppo.num_envs:
             self.env_state = EnvState(
@@ -312,6 +322,9 @@ def train(
                     "invalid_frac": metrics["invalid_frac"],
                     "bc_loss": metrics["bc_loss"],
                 }
+                for key in ("search_frac", "bc_coef"):
+                    if key in metrics:
+                        row[key] = metrics[key]
                 logger.log(row, step=trainer.global_step)
                 for k, v in row.items():
                     tag = ("performance/" if k in

@@ -4,6 +4,8 @@ Counterpart of `bbx/cli/evaluate.py`: all N episodes run as parallel lanes
 on one device with ``auto_reset=False``; the host polls ``done`` every
 `chunk` steps until every lane has finished, and the statistics cover
 completed episodes only.  Runs on the CUDA card unless ``--device cpu``.
+``--lookahead`` plays policy+1-ply value search (`agent/lookahead.py`):
+its results are search results, never the raw policy's.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..agent.lookahead import lookahead_actions
 from ..device import resolve_device
 from ..engine.state import make_generator, reset
 from ..engine.step import RewardConfig, observe, step
@@ -33,32 +36,39 @@ def evaluate_policy(
     chunk: int = 64,
     progress: bool = False,
     lookahead: bool = False,
+    gamma: float = 0.99,
     reward_config: Optional[RewardConfig] = None,
+    topk: int = 0,
     device="cuda",
 ) -> Dict[str, Any]:
     """Run `num_episodes` full episodes in parallel lanes; return statistics.
 
     Piece draws come from a generator seeded with `seed`, stochastic
-    actions from one seeded with ``seed + 1``, both on `device`.
+    actions from one seeded with ``seed + 1`` and the search's simulated
+    draws from one seeded with ``seed + 2``, all on `device`.
+    `lookahead` switches from the raw policy to policy+1-ply value search
+    (`topk` bounds its candidates, 0 simulates all 192 actions; `gamma`
+    discounts its bootstrap): label its results as search results.
     """
-    if lookahead:
-        raise NotImplementedError(
-            "lookahead eval (bbx.agent.lookahead) is not ported yet; see "
-            "ROADMAP.md, Queue 1")
     dev = resolve_device(device)
     rc = reward_config or RewardConfig()
     network = network.to(dev).eval()
     state = reset(num_episodes, make_generator(seed, dev), dev)
     act_rng = make_generator(seed + 1, dev)
+    search_rng = make_generator(seed + 2, dev)
     steps_done = 0
     with torch.inference_mode():
         obs = observe(state)
         while steps_done < max_steps:
             for _ in range(chunk):
-                logits, _ = network(obs["board"], obs["pieces"],
-                                    obs["action_mask"])
-                action = (D.mode(logits) if deterministic
-                          else D.sample(act_rng, logits))
+                if lookahead:
+                    action = lookahead_actions(network, state, search_rng, rc,
+                                               gamma=gamma, topk=topk, obs=obs)
+                else:
+                    logits, _ = network(obs["board"], obs["pieces"],
+                                        obs["action_mask"])
+                    action = (D.mode(logits) if deterministic
+                              else D.sample(act_rng, logits))
                 out = step(state, action, rc, auto_reset=False)
                 state, obs = out.state, out.obs
             steps_done += chunk
@@ -133,7 +143,11 @@ def main(argv=None) -> int:
     ap.add_argument("--episodes", type=int, default=100)
     ap.add_argument("--deterministic", action="store_true")
     ap.add_argument("--lookahead", action="store_true",
-                    help="policy+1-ply value search (not ported yet)")
+                    help="policy+1-ply value search (report as "
+                         "search-assisted, not raw policy)")
+    ap.add_argument("--topk", type=int, default=0,
+                    help="with --lookahead, simulate only the policy's top-k "
+                         "actions (default 0: all 192)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--output", default=None, help="JSON results path")
     ap.add_argument("--device", default="cuda",
@@ -147,7 +161,7 @@ def main(argv=None) -> int:
     results = evaluate_policy(
         network, num_episodes=args.episodes,
         deterministic=args.deterministic, seed=args.seed, progress=True,
-        lookahead=args.lookahead, device=device,
+        lookahead=args.lookahead, topk=args.topk, device=device,
     )
     print_results(results)
     if args.output:

@@ -607,9 +607,10 @@ class AfterstateNetwork(nn.Module):
     """Policy = learned evaluation of each action's deterministic afterstate.
 
     ``forward(board [B,8,8], pieces [B,3,8,8], action_mask [B,192] | None)
-    -> (logits [B,192] f32, value [B] f32)``.  The network has no dropout
-    and no BatchNorm, so train and eval mode are the same function and the
-    ``generator`` argument that `BlockBlastNetwork` takes is unused.
+    -> (logits [B,192] f32, value [B] f32)``; ``value(board, pieces)`` is
+    the value alone (what the one-ply search reads).  The network has no
+    dropout and no BatchNorm, so train and eval mode are the same function
+    and the ``generator`` argument that `BlockBlastNetwork` takes is unused.
     """
 
     def __init__(self, eval_channels: Sequence[int] = (24, 24),
@@ -654,6 +655,19 @@ class AfterstateNetwork(nn.Module):
         e = _dense(pieces.reshape(board.shape[0], NUM_SLOTS, BOARD * BOARD), self.ctx, dt)
         return planes, feats, e.sum(dim=1, keepdim=True) - e
 
+    def value(self, board: torch.Tensor, pieces: torch.Tensor) -> torch.Tensor:
+        """The value head alone on the current state: [B] float32, with no
+        afterstate expansion (K4) and no evaluator (K8).  `forward`'s value
+        is this function's."""
+        dt = self.compute_dtype
+        b = board.shape[0]
+        x = torch.cat([board.to(torch.float32)[:, None],
+                       pieces.to(torch.float32)], dim=1)            # [B, 4, 8, 8]
+        for conv in self.value_convs:
+            x = F.relu(_conv(x, conv, dt))
+        x = F.relu(_dense(x.reshape(b, -1), self.value_dense0, dt))
+        return _dense(x, self.value_dense1, dt)[:, 0].to(torch.float32)
+
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
@@ -666,14 +680,7 @@ class AfterstateNetwork(nn.Module):
         planes, feats, ctx = self.afterstates(board, pieces)
         scores = evaluator_scores_autograd(self.evaluator, planes, feats, ctx, dt)
         logits = scores.reshape(b, NUM_ACTIONS).to(torch.float32)
-
-        # Value head on the current state.
-        x = torch.cat([board[:, None], pieces], dim=1)              # [B, 4, 8, 8]
-        for conv in self.value_convs:
-            x = F.relu(_conv(x, conv, dt))
-        x = F.relu(_dense(x.reshape(b, -1), self.value_dense0, dt))
-        value = _dense(x, self.value_dense1, dt)[:, 0].to(torch.float32)
-
+        value = self.value(board, pieces)
         if action_mask is not None:
             logits = mask_logits(logits, action_mask)
         return logits, value

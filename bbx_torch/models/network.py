@@ -163,10 +163,7 @@ class BlockBlastNetwork(nn.Module):
                     m.weight.copy_(w)
                     m.bias.zero_()
 
-    def forward(self, board: torch.Tensor, pieces: torch.Tensor,
-                action_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _trunk(self, board, pieces, generator) -> torch.Tensor:
         dt = self.compute_dtype
         x = _planes(board, pieces, dt)
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
@@ -178,10 +175,26 @@ class BlockBlastNetwork(nn.Module):
             x = F.relu(_dense(x, layer, dt))
             if self.training and self.dropout_rate > 0.0:
                 x = _dropout(x, self.dropout_rate, generator)
+        return x
+
+    def _value_head(self, x: torch.Tensor) -> torch.Tensor:
+        v = F.relu(_dense(x, self.value_hidden, self.compute_dtype))
+        return _dense(v, self.value_out, self.compute_dtype)[:, 0].to(torch.float32)
+
+    def value(self, board: torch.Tensor, pieces: torch.Tensor) -> torch.Tensor:
+        """`forward`'s value [B] float32, without the policy head (what the
+        one-ply search reads, in eval mode)."""
+        return self._value_head(self._trunk(board, pieces, None))
+
+    def forward(self, board: torch.Tensor, pieces: torch.Tensor,
+                action_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = self.compute_dtype
+        x = self._trunk(board, pieces, generator)
         p = F.relu(_dense(x, self.policy_hidden, dt))
         logits = _dense(p, self.policy_out, dt).to(torch.float32)
-        v = F.relu(_dense(x, self.value_hidden, dt))
-        value = _dense(v, self.value_out, dt)[:, 0].to(torch.float32)
+        value = self._value_head(x)
         if action_mask is not None:
             logits = mask_logits(logits, action_mask)
         return logits, value

@@ -90,7 +90,26 @@ Phases, each of which must pass (exit code 1 otherwise):
    lanes);
 11. the flat CNN: the float32 forward at default widths, card against CPU
    in train mode (dropout off) and eval mode, then `bench_network` and
-   `bench_train` at bbx's defaults (2 timed iterations, losses finite).
+   `bench_train` at bbx's defaults (2 timed iterations, losses finite);
+12. the search eval: `bbx_torch.cli.evaluate.main --lookahead` on phase
+   5's network, 512 episodes at top-k 0 (all 192 actions: 98,304
+   simulated lanes a step) and 512 at top-16, with the launch counters
+   set to 0 before and read after each (K8 0 times a step at top-k 0 and
+   once at top-16: the simulated states take the value head only; K6 twice
+   a step), finite statistics; K6 (`auto_reset` off) and K7 against their
+   plain versions on the simulated fleet's inputs at 8,192 and 98,304
+   lanes, timed as in phase 3; one float32 lookahead call at 512 lanes,
+   card against CPU (candidates, rewards, dones and simulated states
+   equal, the CPU stepping the card's tiled fleet with its regen seed; Q
+   within SEARCH_F32_ATOL with V(s') computed on the CPU from the card's
+   simulated states; the action where the top two Q are apart);
+13. distillation: config/run8.yaml (the flat CNN at its widths, Q-soft,
+   top-16, 512 x 128, minibatch 2048, 4 epochs, bf16) for 2 iterations
+   through `bbx_torch.cli.train.main` with the launch counters set to 0
+   before and read after, each iteration's rollout and update timed,
+   losses finite and the first iteration's `bc_loss` above 0; then
+   `latest` is loaded and one more iteration run; then the search's share
+   of a 16-step rollout.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels' numbers, and
@@ -157,6 +176,50 @@ RUN9_TRAINING = {
     "seed": 7,
     "max_hours": 2.4,
 }
+# config/run8.yaml's `ppo:`, `training:` and `network:` sections (the
+# from-scratch Q-soft distillation run on the flat CNN); run8 sets no
+# `rewards:`.
+RUN8_PPO = {
+    "learning_rate": 0.0003,
+    "final_learning_rate": 0.00002,
+    "gamma": 0.99,
+    "gae_lambda": 0.95,
+    "clip_epsilon": 0.2,
+    "entropy_coef": 0.01,
+    "final_entropy_coef": 0.0005,
+    "value_coef": 0.5,
+    "max_grad_norm": 0.5,
+    "num_epochs": 4,
+    "rollout_search_frac": 0.85,
+    "final_rollout_search_frac": 0.0,
+    "bc_coef": 1.2,
+    "final_bc_coef": 0.0,
+    "bc_target": "q_soft",
+    "bc_q_temp": 0.25,
+    "search_topk": 16,
+    "search_anneal_frac": 0.55,
+}
+RUN8_TRAINING = {
+    "num_envs": 512,
+    "batch_size": 2048,
+    "total_timesteps": 250000000,
+    "rollout_steps": 128,
+    "seed": 7,
+    "max_hours": 2.5,
+}
+RUN8_NETWORK = {
+    "conv_channels": [64, 128, 128],
+    "fc_hidden": [512, 256],
+    "use_batch_norm": True,
+    "use_residual": True,
+    "compute_dtype": "bfloat16",
+}
+DISTILL_TIMESTEPS = 131_072  # 2 iterations of 512 envs x 128 steps
+# The eval CLI's search at run8's top-k (and at its default 0: all 192).
+SEARCH_TOPK = RUN8_PPO["search_topk"]
+# The float32 lookahead's Q, card against CPU (TF32 off; the value head's
+# convolutions and dense layers in cuDNN / cuBLAS against the CPU's).
+SEARCH_F32_ATOL = 1e-4
 RUN9_REWARDS = {
     "line_clear_base": 1.0,
     "block_placed": 0.01,
@@ -182,6 +245,12 @@ PATH_KERNELS = {
                "sample_valid_actions_device"),
     "parity": ("valid3_bits", "solvable_disjoint_bits", "solvable_exact_bits",
                "_move_core"),
+    # Phase 12 (top-k 0 and top-16 together; K4 and K8 only at top-16) and
+    # phase 13 (the flat CNN: no K4 or K8; K1 in `observe` every search).
+    "search_eval": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
+                    "regen_pieces", "evaluator_scores"),
+    "distill": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
+                "regen_pieces"),
 }
 # The kernels line's rows (one a kernel) and the launch counters each
 # sums: K6 has two entry points, `bbx_move` and `bbx_step_finish`.
@@ -1511,7 +1580,7 @@ def compare(got, want):
     return equal, err
 
 
-def k6_case(state, actions, rng_state) -> dict:
+def k6_case(state, actions, rng_state, auto_reset: bool = True) -> dict:
     """K6's two entry points and the whole step on one engine-path input,
     each against its plain version on the card, from the generator state
     `rng_state` (regen's seed, then the fresh draw, as `step` draws them):
@@ -1522,7 +1591,9 @@ def k6_case(state, actions, rng_state) -> dict:
     the state checked once, `bbx_move`'s blocks handed on by pointer): its
     time (CUDA events around calls), device time (profiler), host time a
     call, plain time and bound's bytes and operations; the step's time,
-    host time, plain time, and device time and launches a step."""
+    host time, plain time, and device time and launches a step.  With
+    `auto_reset` False (the search's simulated step) no fresh triple is
+    drawn."""
     import torch
 
     from bbx_torch.engine import state as ES
@@ -1538,15 +1609,17 @@ def k6_case(state, actions, rng_state) -> dict:
     moved = blocks.moved()
     seed = ES.regen_seed(gen, device)
     ids, _ = ES.regen_pieces(moved.bits, state.piece_ids, seed, moved.need)
-    fresh = ES.fresh_pieces(n, gen, device)
-    finished = ST._step_finish_cuda(state, blocks, ids, fresh, rc, True, stream, tb)
+    fresh = ES.fresh_pieces(n, gen, device) if auto_reset else None
+    ar = auto_reset
+    fin_bytes = k6_finish_bytes(n) - (0 if ar else 12 * n)  # no fresh triple
+    finished = ST._step_finish_cuda(state, blocks, ids, fresh, rc, ar, stream, tb)
     gen.set_state(rng_state)
-    whole = ST.step(state, actions)
+    whole = ST.step(state, actions, rc, ar)
     gen.set_state(rng_state)
-    whole_plain = ST._step_plain(state, actions, rc, True)
+    whole_plain = ST._step_plain(state, actions, rc, ar)
     checks = {"bbx_move": compare(moved, ST._move_core_plain(state, actions)),
               "bbx_step_finish": compare(finished, ST._step_finish_plain(
-                  state, moved, ids, fresh, rc, True)),
+                  state, moved, ids, fresh, rc, ar)),
               "step": compare(whole, whole_plain),
               "step_is_its_parts": compare(tuple(whole)[:5], finished)}
 
@@ -1560,21 +1633,21 @@ def k6_case(state, actions, rng_state) -> dict:
                           lambda: ST._move_core_plain(state, actions), "move_kernel",
                           k6_move_bytes(n), k6_move_ops(n)),
         "bbx_step_finish": entry(
-            lambda: ST._step_finish_cuda(state, blocks, ids, fresh, rc, True, stream, tb),
-            lambda: ST._step_finish_plain(state, moved, ids, fresh, rc, True),
-            "step_finish_kernel", k6_finish_bytes(n), k6_finish_ops(n))}
+            lambda: ST._step_finish_cuda(state, blocks, ids, fresh, rc, ar, stream, tb),
+            lambda: ST._step_finish_plain(state, moved, ids, fresh, rc, ar),
+            "step_finish_kernel", fin_bytes, k6_finish_ops(n))}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     reps = 20
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            ST.step(state, actions)
+            ST.step(state, actions, rc, ar)
         torch.cuda.synchronize()
     by_name = device_ms_by_kernel(prof)
     whole_step = {
-        "ms": time_ms(lambda: ST.step(state, actions)),
-        "host_us": host_us(lambda: ST.step(state, actions)),
-        "plain_ms": time_ms(lambda: ST._step_plain(state, actions, rc, True), reps=3, inner=1),
+        "ms": time_ms(lambda: ST.step(state, actions, rc, ar)),
+        "host_us": host_us(lambda: ST.step(state, actions, rc, ar)),
+        "plain_ms": time_ms(lambda: ST._step_plain(state, actions, rc, ar), reps=3, inner=1),
         "device_ms": sum(t for t, _ in by_name.values()) / reps if by_name else "not measured",
         "launches": sum(c for _, c in by_name.values()) / reps if by_name else "not measured",
         "kernels": {k[:90]: c / reps for k, (_, c) in by_name.items()}}
@@ -1588,7 +1661,7 @@ def k6_case(state, actions, rng_state) -> dict:
         ms=sum(e["ms"] for e in ep), plain_ms=sum(e["plain_ms"] for e in ep),
         device_ms=sum(dev_ms) if all(isinstance(d, float) for d in dev_ms) else "not measured",
         host_us=sum(e["host_us"] for e in ep),
-        nbytes=k6_move_bytes(n) + k6_finish_bytes(n),
+        nbytes=k6_move_bytes(n) + fin_bytes,
         ops=k6_move_ops(n) + k6_finish_ops(n),
         entry_points=entry_points, step=whole_step)
 
@@ -2035,11 +2108,11 @@ def train_phase(device, report):
                          metrics={k: float(v) for k, v in metrics.items()})
         return metrics
 
-    def watched_loss(config, logits, value, batch, ent_coef):
+    def watched_loss(config, logits, value, batch, *coefs):
         # The update's first minibatch, before any optimizer step: its
         # forward (K8 under `EvaluatorFunction`, with gradients) against the
         # logp the rollout stored (K8, no gradient).
-        out = loss0(config, logits, value, batch, ent_coef)
+        out = loss0(config, logits, value, batch, *coefs)
         if not first_minibatch:
             with torch.no_grad():
                 gap = (D.log_prob(logits, batch["action"]) - batch["logp"]).abs().max()
@@ -2585,6 +2658,362 @@ def flat_cnn_phase(device, report):
         raise AssertionError("a flat-CNN training metric is not finite")
 
 
+def search_step(net, state, gen, **kwargs):
+    """One `lookahead_actions` call (its keyword arguments `kwargs`) with
+    its simulated step recorded: (the call's result, the tiled state, the
+    actions, the step's output, the search generator's state before it)."""
+    from bbx_torch.agent import lookahead as L
+
+    seen, step0 = [], L.step
+
+    def recording_step(s, a, rc, auto_reset):
+        out = step0(s, a, rc, auto_reset=auto_reset)
+        seen.append((s, a, out))
+        return out
+
+    rng_state = gen.get_state()
+    L.step = recording_step
+    try:
+        result = L.lookahead_actions(net, state, gen, **kwargs)
+    finally:
+        L.step = step0
+    return (result, *seen[0], rng_state)
+
+
+def search_eval_phase(device, report):
+    """Phase 12: policy+1-ply search through the eval entry point, at run9
+    widths (bf16, random weights from SEED), at top-k 0 (all 192 actions:
+    98,304 simulated lanes a step) and SEARCH_TOPK (8,192), each with the
+    launch counters set to 0 before and read after; K6 and K7 against
+    their plain versions on the simulated fleet's inputs at both sizes;
+    one float32 lookahead call at 512 lanes, card against CPU."""
+    import torch
+
+    from bbx_torch.agent import lookahead as L
+    from bbx_torch.cli import evaluate
+    from bbx_torch.device import float32_exact
+    from bbx_torch.engine import state as ES
+    from bbx_torch.engine import step as ST
+    from bbx_torch.engine.state import EnvState
+    from bbx_torch.models import network_from_config
+    from bbx_torch.utils.checkpoints import save_checkpoint
+
+    counters = kernel_counters()
+    net = network_from_config(RUN9_NETWORK, generator=torch.Generator().manual_seed(SEED))
+    look0, calls = evaluate.lookahead_actions, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return look0(*args, **kwargs)
+
+    runs, total = {}, {}
+    evaluate.lookahead_actions = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = save_checkpoint(tmp, "run9_seeded.pt", {"params": net.state_dict()},
+                                   config={"network": RUN9_NETWORK})
+            for topk in (0, SEARCH_TOPK):
+                out_json = os.path.join(tmp, f"search_{topk}.json")
+                calls[0] = 0
+                for fn in counters.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = evaluate.main(["--checkpoint", ckpt, "--episodes", str(EVAL_EPISODES),
+                                    "--lookahead", "--topk", str(topk), "--seed", str(SEED),
+                                    "--output", out_json])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {name: fn.launches for name, fn in counters.items()}
+                with open(out_json) as f:
+                    results = json.load(f)
+                moves = results["length_mean"] * results["completed"]
+                runs[str(topk)] = dict(
+                    rc=rc, results=results, seconds=seconds, steps=calls[0],
+                    simulated_lanes=EVAL_EPISODES * (topk or 192), env_steps=moves,
+                    env_steps_per_s=moves / seconds, launches=launches,
+                    evaluator_launches_a_step=launches["evaluator_scores"] / max(calls[0], 1))
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                log(f"  search eval top-k {topk}: rc {rc}, {results['completed']}/"
+                    f"{EVAL_EPISODES} episodes, {calls[0]} steps, {seconds:.3f} s, "
+                    f"{moves / seconds:.1f} env-steps/s, score mean "
+                    f"{results['score_mean']:.1f}; launches {launches}")
+    finally:
+        evaluate.lookahead_actions = look0
+    report["search_eval"] = {"runs": runs, "launches": total}
+
+    bad = []
+    for topk, r in runs.items():
+        res, steps, lc = r["results"], r["steps"], r["launches"]
+        nums = [v for v in res.values() if isinstance(v, float)] + list(
+            res["percentiles"].values())
+        if r["rc"] != 0 or res["completed"] != EVAL_EPISODES or not res["lookahead"]:
+            bad.append(f"top-k {topk}: rc {r['rc']}, {res['completed']} completed")
+        if not all(math.isfinite(v) for v in nums) or res["score_min"] < 0:
+            bad.append(f"top-k {topk}: bad statistics {res}")
+        # The value-only path: no evaluator at full width, the policy's
+        # forward once a step for the top-k; a real and a simulated step.
+        want_k8 = steps if topk != "0" else 0
+        if lc["evaluator_scores"] != want_k8 or lc["_move_core"] != 2 * steps:
+            bad.append(f"top-k {topk}: K8 {lc['evaluator_scores']} (want {want_k8}), "
+                       f"K6 {lc['_move_core']} (want {2 * steps}) in {steps} steps")
+    check_launches("search_eval", total)
+
+    # K6 and K7 on the simulated fleet's inputs: SEARCH_TOPK and all 192
+    # candidates of 512 mid-game lanes.
+    state = midgame_boards(device)[0]
+    state = state.replace(**{f: getattr(state, f)[:EVAL_EPISODES].contiguous()
+                             for f in STATE_FIELDS})
+    net = net.to(device).eval()
+    gen = ES.make_generator(SEED + 2, device)
+    cases = {}
+    for topk in (SEARCH_TOPK, 0):
+        _, tiled, actions, _, rng_state = search_step(net, state, gen, topk=topk)
+        # Where a lookahead call's time goes: 8 calls under the profiler.
+        reps = 8
+        _, wall, prof = profiled_calls(
+            lambda: L.lookahead_actions(net, state, gen, topk=topk), reps)
+        by_name = device_ms_by_kernel(prof)
+        dev_ms = sum(t for t, _ in by_name.values()) / reps
+        call = {"wall_ms": 1e3 * wall / reps, "device_ms": dev_ms,
+                "busy_share": dev_ms / (1e3 * wall / reps),
+                "launches": sum(c for _, c in by_name.values()) / reps,
+                "kernels": {k[:90]: [t / reps, c / reps] for k, (t, c) in sorted(
+                    by_name.items(), key=lambda kv: -kv[1][0])[:10]}}
+        k6 = with_bound(k6_case(tiled, actions, rng_state, auto_reset=False))
+        moved = ST._move_core(tiled, actions)
+        gen.set_state(rng_state)
+        seed = ES.regen_seed(gen, device)
+        k7 = k7_case(moved.bits, tiled.piece_ids, seed, moved.need)
+        gen.set_state(rng_state)
+        step_attempts = ST.step(tiled, actions, ST.RewardConfig(), False).regen_attempts
+        k7["matches_the_step"] = torch.equal(k7.pop("attempts"), step_attempts)
+        k7["equal"] = k7["equal"] and k7["matches_the_step"]
+        with_bound(k7)
+        cases[tiled.num_envs] = (k6, k7)
+        report["search_eval"].setdefault("lookahead_call", {})[str(tiled.num_envs)] = call
+        log(f"  one lookahead call, {tiled.num_envs} simulated lanes: {call}")
+        log(f"  simulated fleet of {tiled.num_envs} lanes: K6 equal={k6['equal']}, "
+            f"{k6['ms']:.4f} ms (device {k6['device_ms']}), plain {k6['plain_ms']:.4f} "
+            f"ms, bound {k6['bound_ms']:.6f} ms; K7 equal={k7['equal']} ({k7['needy']} "
+            f"in need, {k7['attempts_mean']:.3f} draws on average), {k7['ms']:.4f} ms "
+            f"(device {k7['device_ms']}), plain {k7['plain_ms']:.4f} ms, bound "
+            f"{k7['bound_ms']:.6f} ms")
+        if not (k6["equal"] and k7["equal"]):
+            bad.append(f"K6 or K7 != plain at {tiled.num_envs} simulated lanes")
+    rows = {r["name"]: r for r in report.get("kernels", [])}
+    for name, i in (("_move_core/_step_finish_cuda", 0), ("regen_pieces", 1)):
+        if name in rows:
+            rows[name]["at_search_shapes"] = {str(n): c[i] for n, c in cases.items()}
+
+    # One float32 lookahead call at 512 lanes, card against CPU, on the same
+    # policy logits (the card's): the CPU steps the card's tiled fleet with
+    # the card's regen seed (its plain step), and computes V(s') on the
+    # card's simulated states.
+    f32 = dict(RUN9_NETWORK, compute_dtype="float32")
+    card = network_from_config(f32, generator=torch.Generator().manual_seed(SEED)).to(device)
+    cpu = network_from_config(f32, generator=torch.Generator().manual_seed(SEED))
+    gen = ES.make_generator(SEED + 3, device)
+    rc = ST.RewardConfig()
+    with float32_exact(), torch.no_grad():
+        obs = ST.observe(state)
+        logits, _ = card(obs["board"], obs["pieces"], obs["action_mask"])
+        (action, cand, q), tiled, actions, out, rng_state = search_step(
+            card, state, gen, reward_config=rc, topk=SEARCH_TOPK, policy_logits=logits,
+            return_q=True)
+        gen.set_state(rng_state)
+        seed = ES.regen_seed(gen, device).cpu()
+        t_cpu = EnvState(**{f: getattr(tiled, f).cpu() for f in STATE_FIELDS}, rng=None)
+        moved = ST._move_core_plain(t_cpu, actions.cpu())
+        ids, _ = ES.regen_pieces_plain(moved.bits, t_cpu.piece_ids, seed, moved.need)
+        s2, _, reward, done, _ = ST._step_finish_plain(t_cpu, moved, ids, None, rc, False)
+        s_cpu = EnvState(**{f: getattr(state, f).cpu() for f in STATE_FIELDS}, rng=None)
+        cand_cpu = torch.sort(logits.cpu(), dim=1, descending=True,
+                              stable=True).indices[:, :SEARCH_TOPK].to(torch.int32)
+        v2 = cpu.value(out.obs["board"].cpu(), out.obs["pieces"].cpu())
+        n = state.num_envs
+        q_cpu = reward + 0.99 * v2 * (1.0 - done.to(torch.float32))
+        cand_mask = torch.gather(ST.observe(s_cpu)["action_mask"], 1, cand_cpu.long())
+        q_cpu = torch.where(cand_mask, q_cpu.reshape(n, SEARCH_TOPK), -torch.inf)
+    q_card = q.cpu()
+    finite = cand_mask
+    err = float((q_card[finite] - q_cpu[finite]).abs().max())
+    top2 = q_cpu.sort(dim=1, descending=True).values[:, :2]
+    clear = cand_mask.any(dim=1) & ((top2[:, 0] - top2[:, 1]) > SEARCH_F32_ATOL)
+    best = torch.gather(cand_cpu, 1, q_cpu.argmax(dim=1, keepdim=True))[:, 0]
+    parity = {
+        "candidates_equal": torch.equal(cand.cpu(), cand_cpu),
+        "reward_equal": torch.equal(out.reward.cpu(), reward),
+        "done_equal": torch.equal(out.done.cpu(), done),
+        "states_equal": compare(EnvState(**{f: getattr(out.state, f).cpu()
+                                            for f in STATE_FIELDS}, rng=None), s2)[0],
+        "invalid_equal": torch.equal(torch.isinf(q_card), ~cand_mask),
+        "max_abs_q_err": err, "tolerance": SEARCH_F32_ATOL,
+        "actions_compared": int(clear.sum()),
+        "actions_equal": torch.equal(action.cpu()[clear], best[clear]),
+    }
+    report["search_eval"]["card_vs_cpu"] = parity
+    log(f"  float32 lookahead at {n} lanes, top-k {SEARCH_TOPK}, card vs CPU: {parity}")
+    if not (all(v for k, v in parity.items() if k.endswith("_equal"))
+            and err <= SEARCH_F32_ATOL):
+        bad.append(f"card vs CPU lookahead: {parity}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def distill_config(work: str) -> dict:
+    """config/run8.yaml as phase 13 runs it: its `ppo:`, `training:` and
+    `network:` sections as written, no `rewards:` (run8 sets none, so the
+    defaults), and logging and paths under `work`."""
+    return {"ppo": RUN8_PPO, "training": RUN8_TRAINING, "network": RUN8_NETWORK,
+            "logging": {"log_interval": 1, "save_interval": 2, "eval_interval": 0},
+            "paths": {"checkpoint_dir": os.path.join(work, "checkpoints"),
+                      "log_dir": os.path.join(work, "logs")}}
+
+
+def distill_phase(device, report):
+    """Phase 13: config/run8.yaml (from-scratch Q-soft distillation on the
+    flat CNN) through `bbx_torch.cli.train.main` at its widths and shape,
+    cut to DISTILL_TIMESTEPS (2 iterations, so the anneal, 55% of that
+    horizon, ends after the first: iteration 1 searches, iteration 2 is
+    pure-policy PPO), each iteration's rollout and update timed, with the
+    launch counters set to 0 before and read after; then `latest` is
+    loaded and one more iteration run.  Then a 16-step search rollout of
+    a fresh run8 trainer with each search call timed (a synchronise on
+    each side): the search's share of a rollout step."""
+    import dataclasses
+
+    import torch
+
+    from bbx_torch.agent import ppo as P
+    from bbx_torch.agent import trainer as TR
+    from bbx_torch.cli import train as cli_train
+    from bbx_torch.utils.config import load_config
+
+    work = os.path.join(ROOT, "build", "chip_smoke_distill")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = distill_config(work)
+    cfg_path = os.path.join(work, "run8.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+
+    counters = kernel_counters()
+    iters, stats = [], {}
+    rollout0, update0, train0 = P.rollout, P.update, cli_train.train
+    it0 = TR.train_iteration
+
+    def timed_rollout(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout0(*args, **kwargs)
+        torch.cuda.synchronize()
+        iters.append({"rollout_s": time.perf_counter() - t0})
+        return out
+
+    def timed_update(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = update0(*args, **kwargs)
+        torch.cuda.synchronize()
+        iters[-1]["update_s"] = time.perf_counter() - t0
+        return metrics
+
+    def watched_iteration(*args, **kwargs):
+        out = it0(*args, **kwargs)
+        iters[-1]["metrics"] = {k: float(v) for k, v in out[2].items()}
+        return out
+
+    def captured_train(*args, **kwargs):
+        out = train0(*args, **kwargs)
+        stats.update({k: v for k, v in out.items() if k != "trainer"})
+        return out
+
+    P.rollout, P.update, cli_train.train = timed_rollout, timed_update, captured_train
+    TR.train_iteration = watched_iteration
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_train.main(["--config", cfg_path, "--total-timesteps",
+                             str(DISTILL_TIMESTEPS), "--seed", str(TRAIN_SEED)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        P.rollout, P.update, cli_train.train = rollout0, update0, train0
+        TR.train_iteration = it0
+    trainer = TR.PPOTrainer(load_config(cfg_path), seed=TRAIN_SEED,
+                            total_timesteps=DISTILL_TIMESTEPS, device=device)
+    trainer.load(os.path.join(cfg["paths"]["checkpoint_dir"], "latest"))
+    resumed_from = trainer.global_step
+    resumed = {k: float(v) for k, v in trainer.iterate().items()}
+    for i, r in enumerate(iters):
+        log(f"  iteration {i + 1}: rollout {r['rollout_s']:.3f} s, update "
+            f"{r.get('update_s', 0.0):.3f} s; "
+            + ", ".join(f"{k} {v:.6g}" for k, v in r.get("metrics", {}).items()))
+    log(f"  distill train: rc {rc}, {stats.get('global_step')} env-steps in "
+        f"{stats.get('elapsed_sec', 0.0):.3f} s of the loop ({wall:.3f} s with set-up) "
+        f"= {stats.get('steps_per_sec', 0.0):.1f} train env-steps/s; launches {launches}")
+
+    # The search's share of a rollout step: 16 steps of a fresh trainer's
+    # first (searching) rollout.
+    short = TR.PPOTrainer(load_config(cfg_path), seed=TRAIN_SEED + 1,
+                       total_timesteps=DISTILL_TIMESTEPS, device=device)
+    cfg16 = dataclasses.replace(short.ppo, rollout_steps=16)
+    look0, search_s = P.lookahead_actions, []
+
+    def timed_search(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = look0(*args, **kwargs)
+        torch.cuda.synchronize()
+        search_s.append(time.perf_counter() - t0)
+        return out
+
+    for timed in (False, True):  # a warm-up, then the measurement
+        P.lookahead_actions = timed_search if timed else look0
+        try:
+            search_s.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rollout0(short.network, cfg16, short.rewards, short.env_state,
+                     short.rngs["action"], short.rngs["dropout"], update_step=0,
+                     search_rng=short.rngs["search"])
+            torch.cuda.synchronize()
+            short_s = time.perf_counter() - t0
+        finally:
+            P.lookahead_actions = look0
+    profile = {"rollout_steps": 16, "rollout_s": short_s, "search_s": sum(search_s),
+               "search_calls": len(search_s), "search_share": sum(search_s) / short_s,
+               "search_ms_a_step": 1e3 * sum(search_s) / max(len(search_s), 1),
+               "step_ms": 1e3 * short_s / 16}
+    log(f"  search share of a rollout step (16 steps, 512 envs, top-k "
+        f"{RUN8_PPO['search_topk']}): {profile}")
+    report["distill"] = {"iterations": iters, "launches": launches, "wall_seconds": wall,
+                         "stats": stats, "resumed_from": resumed_from,
+                         "resumed_metrics": resumed, "search_profile": profile,
+                         "train_env_steps_per_s": stats.get("steps_per_sec", 0.0)}
+
+    if rc != 0:
+        raise AssertionError(f"train.main returned {rc}")
+    if len(iters) != 2 or stats.get("global_step") != DISTILL_TIMESTEPS:
+        raise AssertionError(f"{len(iters)} iterations, {stats.get('global_step')} steps")
+    values = [v for r in iters for v in r["metrics"].values()] + list(resumed.values())
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("a training metric is not finite")
+    first = iters[0]["metrics"]
+    if not (first["bc_loss"] > 0.0 and first["search_frac"] > 0.0):
+        raise AssertionError(f"the first iteration did not search and clone: {first}")
+    if resumed_from != DISTILL_TIMESTEPS:
+        raise AssertionError(f"latest holds step {resumed_from}")
+    check_launches("distill", launches)
+    if profile["search_calls"] != 16:
+        raise AssertionError(f"{profile['search_calls']} search calls in 16 steps")
+
+
 def main() -> int:
     import torch
 
@@ -2647,6 +3076,10 @@ def main() -> int:
               lambda: train_profile_phase(device, report))
         phase("11. flat CNN: forward card vs CPU, network and train benchmarks",
               lambda: flat_cnn_phase(device, report))
+        phase("12. search eval: policy+1-ply search at run9 width",
+              lambda: search_eval_phase(device, report))
+        phase("13. distillation: run8 at full width",
+              lambda: distill_phase(device, report))
 
     # `launches` sums the paths' runs; `launches_by_path` splits them.
     kernels = []
@@ -2669,7 +3102,8 @@ def main() -> int:
                 k: r[k] for k in ("device_ms", "host_us", "launches_a_call", "bound_flops_ms",
                                   "bound_bytes_ms",
                                   "entry_points", "step", "at_update_shape",
-                                  "at_engine_shape", "at_other_shapes", "evaluator_layouts",
+                                  "at_engine_shape", "at_other_shapes", "at_search_shapes",
+                                  "evaluator_layouts",
                                   "device_ms_by_kernel", "whole")
                 if k in r})
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -75,17 +75,30 @@ def test_evaluate_main_without_device_raises_without_cuda(tiny_checkpoint,
     """The entry point runs on the card by default and never falls back to
     the CPU when there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        TE.main(["--checkpoint", tiny_checkpoint, "--episodes", "2"])
+    for search in ([], ["--lookahead"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            TE.main(["--checkpoint", tiny_checkpoint, "--episodes", "2", *search])
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_lookahead_not_ported(tiny_checkpoint):
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        TE.main(["--checkpoint", tiny_checkpoint, "--episodes", "2",
-                 "--lookahead", "--device", "cpu"])
+@pytest.mark.parametrize("topk", [0, 8])
+def test_lookahead_eval_main_on_cpu(tiny_checkpoint, tmp_path, topk):
+    """`--lookahead` plays policy+1-ply search (all actions, or the top-k)
+    and labels its results; the search's draws come from their own
+    generator, so two runs agree."""
+    outs = []
+    for i in range(2):
+        out = str(tmp_path / f"r{i}.json")
+        assert TE.main(["--checkpoint", tiny_checkpoint, "--episodes", "2",
+                        "--lookahead", "--topk", str(topk), "--seed", "4",
+                        "--device", "cpu", "--output", out]) == 0
+        with open(out) as f:
+            outs.append(json.load(f))
+    r = outs[0]
+    assert r == outs[1] and r["lookahead"] and r["completed"] == 2
+    assert set(r) == _bbx_result_keys() and r["score_min"] > 0
 
 
 def test_config_for_checkpoint_reads_the_sidecar(tiny_checkpoint, tmp_path):
@@ -219,6 +232,52 @@ def test_smoke_run_uses_run9_recipe():
     assert chip_smoke.RUN9_REWARDS == run9["rewards"] == DEFAULT_CONFIG["rewards"]
     n, t = run9["training"]["num_envs"], run9["training"]["rollout_steps"]
     assert chip_smoke.TRAIN_TIMESTEPS == 3 * n * t
+
+
+def test_smoke_run_uses_run8_recipe():
+    """`chip_smoke.py`'s distillation phase runs config/run8.yaml's
+    `ppo:`, `training:` and `network:` sections as written, and no
+    `rewards:` (run8 sets none); the search eval's top-k is run8's."""
+    import chip_smoke
+    import yaml
+
+    with open(os.path.join(ROOT, "config", "run8.yaml")) as f:
+        run8 = yaml.safe_load(f)
+    assert chip_smoke.RUN8_PPO == run8["ppo"]
+    assert chip_smoke.RUN8_TRAINING == run8["training"]
+    assert chip_smoke.RUN8_NETWORK == run8["network"]
+    assert chip_smoke.SEARCH_TOPK == run8["ppo"]["search_topk"]
+    n, t = run8["training"]["num_envs"], run8["training"]["rollout_steps"]
+    assert chip_smoke.DISTILL_TIMESTEPS == 2 * n * t
+    written = chip_smoke.distill_config("work")
+    assert "rewards" not in run8 and "rewards" not in written
+    assert {k: written[k] for k in ("ppo", "training", "network")} == {
+        k: run8[k] for k in ("ppo", "training", "network")}
+
+
+def test_run9_curve_script_runs_run9_unchanged():
+    """`scripts_dev/torch_run9_curve.py` trains config/run9.yaml as written
+    but for `total_timesteps` (125 iterations, 5 in-run evals) and the
+    paths."""
+    import importlib.util
+
+    import yaml
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_run9_curve", os.path.join(ROOT, "scripts_dev", "torch_run9_curve.py"))
+    curve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(curve)
+    with open(os.path.join(ROOT, "config", "run9.yaml")) as f:
+        run9 = yaml.safe_load(f)
+    cfg = curve.run9_config("work")
+    assert cfg["training"] == dict(run9["training"], total_timesteps=8_192_000)
+    assert cfg["ppo"] == run9["ppo"] and cfg["logging"] == run9["logging"]
+    assert cfg["network"] == dict(run9["network"], ctx_dim=32)  # its default
+    assert cfg["paths"] == {"checkpoint_dir": os.path.join("work", "checkpoints"),
+                            "log_dir": os.path.join("work", "logs")}
+    iters = curve.TOTAL_TIMESTEPS // (512 * 128)
+    assert iters == 125 and iters // run9["logging"]["eval_interval"] == 5
+    assert all(s % (512 * 128 * 25) == 0 for s in curve.BAND_STEPS)
 
 
 def test_flat_cnn_checkpoint_evaluates_in_eval_mode(tmp_path):

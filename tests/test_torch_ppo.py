@@ -412,11 +412,13 @@ _j_cnn_update = jax.jit(partial(JPPO.update, _J_CNN, J_CFG, _J_TX))
 _j_cnn_apply = jax.jit(partial(JPPO._apply, _J_CNN), static_argnames=("train", "mutable"))
 
 
-def _cnn_variables(seed):
+def _cnn_variables(seed, init=_J_CNN.init):
     """Flax variables of the small CNN with every bias, norm scale and
-    running statistic redrawn with numpy (no layer is the identity)."""
-    v = _J_CNN.init({"params": jax.random.key(seed), "dropout": jax.random.key(seed)},
-                    jnp.zeros((2, 8, 8)), jnp.zeros((2, 3, 8, 8)), train=False)
+    running statistic redrawn with numpy (no layer is the identity).
+    `init` may be a jitted `_J_CNN.init` (eager, it compiles op by op: about
+    8 s; jitted, its weights may differ in the last bits)."""
+    v = init({"params": jax.random.key(seed), "dropout": jax.random.key(seed)},
+             jnp.zeros((2, 8, 8)), jnp.zeros((2, 3, 8, 8)), train=False)
     rng = np.random.default_rng(seed)
 
     def redraw(tree, draws):

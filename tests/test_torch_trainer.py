@@ -4,8 +4,8 @@ Counterparts of `tests/test_resume.py` and `tests/test_preemption.py` for
 `bbx_torch`: a checkpoint holds params, Adam state, counters, the env
 fleet and every generator's state, so (train k, save, train k) equals
 (train 2k) exactly, and a SIGTERM mid-run saves a checkpoint that resumes
-exactly.  Also: the CLI end to end, the config loaders, and the PPO knobs
-the port refuses.
+exactly.  Also: the CLI end to end, and the config loaders, which map
+every config of config/ onto the port's PPOConfig.
 """
 import dataclasses
 import json
@@ -22,7 +22,6 @@ import yaml
 
 from bbx.agent.trainer import ppo_config_from as j_ppo_config_from
 from bbx.agent.trainer import reward_config_from as j_reward_config_from
-from bbx_torch.agent import ppo as TP
 from bbx_torch.agent.trainer import PPOTrainer, ppo_config_from, reward_config_from, train
 from bbx_torch.cli import train as cli_train
 from bbx_torch.engine.state import EnvState
@@ -244,28 +243,16 @@ def test_json_config_loads_like_its_yaml_twin(tmp_path):
 
 @pytest.mark.parametrize("name", _YAMLS)
 def test_every_config_maps_onto_ppo_config(name):
-    """Each YAML of config/ gives the same PPOConfig fields and reward
-    coefficients as bbx, or, where it sets a search / behaviour-cloning
-    knob or adam_mu_dtype, raises NotImplementedError naming the roadmap."""
+    """Each YAML of config/, the search-distillation runs among them, gives
+    the same PPOConfig fields and reward coefficients as bbx."""
     cfg = load_config(os.path.join(ROOT, "config", name))
     want = j_ppo_config_from(cfg)
     assert dataclasses.asdict(reward_config_from(cfg)) == {
         k: getattr(j_reward_config_from(cfg), k)
         for k in dataclasses.asdict(reward_config_from(cfg))}
-    refused = want.uses_search or want.adam_mu_dtype is not None or any(
-        getattr(want, k) != v for k, v in TP._NOT_PORTED.items())
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ppo_config_from(cfg)
-    else:
-        assert dataclasses.asdict(ppo_config_from(cfg)) == dataclasses.asdict(want)
-
-
-def test_search_and_bc_knobs_raise():
-    for knob in ({"bc_coef": 0.1}, {"rollout_search_frac": 0.5},
-                 {"search_topk": 8}, {"adam_mu_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            TP.PPOConfig(**knob)
+    got = ppo_config_from(cfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.uses_search == want.uses_search
 
 
 def test_latest_step_checkpoint_ignores_sidecars(tmp_path):
