@@ -1,9 +1,11 @@
 """Agent layer: PPO with GAE, the one-ply lookahead and search
-distillation, and the single-device trainer.
+distillation, the single-device trainer, and the object-style agents.
 
-Counterpart of `bbx.agent` (the policy agents are still to port).
+Counterpart of `bbx.agent`.
 """
+from .base import BaseAgent
 from .lookahead import lookahead_actions
+from .policy_agent import PolicyAgent
 from .ppo import (
     PPOConfig,
     TrainState,
@@ -16,8 +18,10 @@ from .ppo import (
 from .trainer import PPOTrainer, train
 
 __all__ = [
+    "BaseAgent",
     "PPOConfig",
     "PPOTrainer",
+    "PolicyAgent",
     "TrainState",
     "compute_gae",
     "lookahead_actions",

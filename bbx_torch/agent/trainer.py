@@ -25,17 +25,29 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..device import resolve_device
+from ..device import device_name, resolve_device
 from ..engine.state import EnvState, make_generator, reset
 from ..engine.step import RewardConfig
 from ..models import network_from_config
+from ..models.flops import network_flops
 from ..utils.checkpoints import load_checkpoint, save_checkpoint
 from ..utils.logging import Logger, MetricsTracker, TensorBoardLogger
+from ..utils.profiling import PhaseTimer, trace
 from .ppo import PPOConfig, TrainState, make_optimizer, train_iteration
 
 
 # The trainer's generators, seeded seed + their index.
 RNG_NAMES = ("fleet", "action", "shuffle", "dropout", "search")
+
+# Dense peak FLOP/s of the cards whose name `torch.cuda.get_device_name`
+# gives, by compute dtype (NVIDIA's H100 datasheet, the SXM5 part: the
+# tensor cores' bf16 rate, the CUDA cores' float32 rate).  Another card or
+# dtype has no `mfu` row.
+PEAK_FLOPS = {
+    "NVIDIA H100 80GB HBM3": {torch.bfloat16: 989.4e12, torch.float32: 66.9e12},
+}
+# `train(profile=True)` writes one trace of the iteration after this one.
+TRACE_AT_UPDATE = 20
 
 
 def ppo_config_from(config: Dict[str, Any],
@@ -82,6 +94,24 @@ def reward_config_from(config: Dict[str, Any]) -> RewardConfig:
     rewards = config.get("rewards", {})
     return dataclasses.replace(
         rc, **{k: v for k, v in rewards.items() if hasattr(rc, k)})
+
+
+def iteration_flops(config: PPOConfig, network: torch.nn.Module) -> int:
+    """Matmul and convolution FLOPs of one train iteration, counted as
+    `bbx/agent/trainer.py:_iteration_flops` counts them: the rollout's
+    forward on `num_envs` observations times `rollout_steps`, plus the
+    minibatch gradient step (forward, the evaluator's recompute, backward;
+    `bbx_torch.models.flops`) times epochs times minibatches.  The last
+    value, the search, GAE, the engine and Adam are left out."""
+    return (network_flops(network, config.num_envs) * config.rollout_steps
+            + network_flops(network, config.minibatch_size, grad=True)
+            * config.num_epochs * config.num_minibatches)
+
+
+def device_peak_flops(device: torch.device, dtype: torch.dtype) -> Optional[float]:
+    """`PEAK_FLOPS` of the card `device` names, in `dtype`; None for the
+    CPU or a card or dtype the table does not hold."""
+    return PEAK_FLOPS.get(device_name(device), {}).get(dtype)
 
 
 class PPOTrainer:
@@ -218,12 +248,13 @@ def train(
     checkpoint), a wall-clock budget (`training.max_hours`), exact resume,
     and a SIGTERM that stops the loop at the next iteration boundary and
     saves `final` + `latest`.  (bbx's `progress_callback` serves its GUI,
-    which is not ported yet.)
+    which is not ported yet.)  `profile=True` times the phases (each
+    iteration up to its metrics on the device), adds an `mfu` row
+    (`iteration_flops` over an iteration's wall time and the card's
+    `PEAK_FLOPS`) to each log line, writes one `torch.profiler` trace of
+    the iteration after update `TRACE_AT_UPDATE` into ``<log_dir>/trace``
+    and prints the phase report at the end.
     """
-    if profile:
-        raise NotImplementedError(
-            "profile=True needs utils/profiling.py, which is not ported yet "
-            "(ROADMAP.md, Queue 1)")
     tr_cfg = config.get("training", {})
     log_cfg = config.get("logging", {})
     paths = config.get("paths", {})
@@ -239,6 +270,7 @@ def train(
     logger = Logger(log_dir, "ppo")
     tb = TensorBoardLogger(log_dir, "ppo")
     tracker = MetricsTracker(window_size=100)
+    timer = PhaseTimer()
 
     trainer = PPOTrainer(config, seed=seed, total_timesteps=total_timesteps,
                          device=device)
@@ -268,6 +300,21 @@ def train(
     eval_interval = log_cfg.get("eval_interval", 0)  # 0 disables in-run eval
     eval_episodes = log_cfg.get("eval_episodes", 100)
 
+    flops_per_iter = iteration_flops(trainer.ppo, trainer.network) if profile else None
+    dtype = trainer.network.compute_dtype
+    dtype_name = str(dtype).removeprefix("torch.")
+    peak_flops = device_peak_flops(trainer.device, dtype) if profile else None
+    if profile and not peak_flops:
+        print(f"mfu: no peak known for the {device_name(trainer.device)} in "
+              f"{dtype_name}: no mfu row")
+
+    def _iterate():
+        """One iteration, timed to its metrics on the device."""
+        out = []
+        with timer.phase("train_iter", block_on=out if profile else None):
+            out.append(trainer.iterate())
+        return out[0]
+
     def _extra():
         return {"best_score": best_score, "best_eval": best_eval,
                 "tracker_scores": tracker.values("score"),
@@ -285,14 +332,26 @@ def train(
     t_start = time.time()
     t_window = t_start
     steps_window = 0
+    iter_window = 0
+    peak_shown = False
     stop = False
     deadline = t_start + max_hours * 3600 if max_hours else None
 
     try:
         while trainer.global_step < total_timesteps and not stop:
-            metrics = trainer.iterate()
+            metrics = _iterate()
             update_idx += 1
             steps_window += trainer.ppo.batch_size
+            iter_window += 1
+
+            if profile and update_idx == TRACE_AT_UPDATE:
+                trace_dir = os.path.join(log_dir, "trace")
+                with trace(trace_dir):
+                    metrics = _iterate()
+                update_idx += 1
+                steps_window += trainer.ppo.batch_size
+                iter_window += 1
+                print(f"profiler trace written to {trace_dir}")
 
             if deadline and time.time() > deadline:
                 print(f"wall-clock budget ({max_hours}h) reached — stopping")
@@ -305,7 +364,8 @@ def train(
                 metrics = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
                 fps = steps_window / max(now - t_window, 1e-9)
-                t_window, steps_window = now, 0
+                sec_per_iter = (now - t_window) / max(iter_window, 1)
+                t_window, steps_window, iter_window = now, 0, 0
                 tracker.update({"score": metrics["mean_score"],
                                 "length": metrics["mean_length"]})
                 row = {
@@ -325,10 +385,18 @@ def train(
                 for key in ("search_frac", "bc_coef"):
                     if key in metrics:
                         row[key] = metrics[key]
+                if flops_per_iter and peak_flops:
+                    row["mfu"] = flops_per_iter / sec_per_iter / peak_flops
+                    if not peak_shown:
+                        peak_shown = True
+                        print(f"mfu: {flops_per_iter:,} matmul and convolution "
+                              f"FLOPs an iteration (recompute included) against "
+                              f"{peak_flops:.4g} FLOP/s, the dense {dtype_name} peak of "
+                              f"the {device_name(trainer.device)}")
                 logger.log(row, step=trainer.global_step)
                 for k, v in row.items():
                     tag = ("performance/" if k in
-                           ("fps", "avg_score", "max_score", "avg_length")
+                           ("fps", "avg_score", "max_score", "avg_length", "mfu")
                            else "training/")
                     tb.log_scalar(tag + k, v, trainer.global_step)
 
@@ -340,7 +408,8 @@ def train(
                     trainer.save(ckpt_dir, "best", extra=_extra())
 
             if eval_interval and (update_idx % eval_interval == 0 or stop):
-                ev = trainer.evaluate(eval_episodes)
+                with timer.phase("eval"):
+                    ev = trainer.evaluate(eval_episodes)
                 logger.log(ev, step=trainer.global_step)
                 for k, v in ev.items():
                     tb.log_scalar("eval/" + k, v, trainer.global_step)
@@ -353,9 +422,10 @@ def train(
                     trainer.save(ckpt_dir, "best", extra=_extra())
 
             if save_interval and update_idx % save_interval == 0:
-                trainer.save(ckpt_dir, f"checkpoint_{trainer.global_step}",
-                             extra=_extra())
-                trainer.save(ckpt_dir, "latest", extra=_extra())
+                with timer.phase("checkpoint"):
+                    trainer.save(ckpt_dir, f"checkpoint_{trainer.global_step}",
+                                 extra=_extra())
+                    trainer.save(ckpt_dir, "latest", extra=_extra())
     except KeyboardInterrupt:
         print("interrupted — saving final checkpoint")
     finally:
@@ -368,6 +438,8 @@ def train(
             signal.signal(signal.SIGTERM, prev_sigterm)
         logger.save_summary()
         tb.close()
+        if profile:
+            print(timer.report())
 
     elapsed = time.time() - t_start
     return {

@@ -4,7 +4,7 @@
   * --vec-env  the same fleet at the vectorised-env defaults (the headline)
   * --network  policy forward latency / throughput across batch sizes
   * --train    PPO train-iteration throughput
-  * --env      single-env host-API stepping (the gym env is not ported yet)
+  * --env      single-env host-API stepping (`BlockBlastEnv`, one lane)
 
 The fleet benchmarks keep `bench.py`'s methodology: the carry is (state,
 action mask), every chunk of steps ends by fetching its reward sum to the
@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..device import resolve_device
+from ..device import device_name, resolve_device
 from ..engine.state import make_generator
 from ..engine.step import observe
 from ..env.vector import VectorEnv, sample_valid_actions_device
@@ -80,10 +80,6 @@ def robust_rates(time_window, steps_per_window, num_windows=5, max_extra=5,
             info["outlier_windows"] += len(rates) - len(keep)
             rates = keep
     return rates, info
-
-
-def device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def _sync(device: torch.device) -> None:
@@ -177,6 +173,35 @@ def bench_engine(num_envs: int = 1024, steps: int = 512, iters: int = 4,
     return fleet_rate(num_envs, steps, iters, device)
 
 
+def bench_single_env(steps: int = 2000, device="cuda") -> Dict[str, Any]:
+    """The host-API single env's round trip (`bbx/cli/benchmark.py:61`):
+    random valid actions from the env's own mask, a reset at each game's
+    end, three warm-up steps.  Reports env-steps/s, wall µs a step and the
+    thread's CPU µs a step (the host's own work; the rest is waiting for
+    the device)."""
+    import numpy as np
+
+    from ..env.single import BlockBlastEnv
+
+    dev = resolve_device(device)
+    env = BlockBlastEnv(seed=0, device=dev)
+    env.reset(seed=0)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        env.step(env.sample_valid_action())
+    t0, c0 = time.perf_counter(), time.thread_time()
+    for _ in range(steps):
+        valid = np.nonzero(env.get_action_mask())[0]
+        a = int(rng.choice(valid)) if len(valid) else 0
+        _, _, done, _, _ = env.step(a)
+        if done:
+            env.reset()
+    dt, cpu = time.perf_counter() - t0, time.thread_time() - c0
+    return {"name": "single_env", "steps": steps, "env_steps_per_sec": steps / dt,
+            "us_per_step": dt / steps * 1e6, "host_cpu_us_per_step": cpu / steps * 1e6,
+            "device": device_name(dev)}
+
+
 def bench_vec_env(num_envs: int = 4096, steps: int = 64, iters: int = 10,
                   device="cuda") -> Dict[str, Any]:
     """The vectorised fleet at `bbx`'s vec-env defaults (`:83`)."""
@@ -263,8 +288,7 @@ def main(argv=None) -> int:
     ap.add_argument("--vec-env", action="store_true")
     ap.add_argument("--network", action="store_true")
     ap.add_argument("--train", action="store_true")
-    ap.add_argument("--all", action="store_true",
-                    help="every ported benchmark (all but --env)")
+    ap.add_argument("--all", action="store_true")
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=64,
                     help="steps per chunk for the vectorised benchmark")
@@ -273,15 +297,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.env:
-        raise NotImplementedError(
-            "--env needs the gym single env (bbx/env/single.py), which is not "
-            "ported yet: ROADMAP.md, Queue 1, item 13")
     run_all = args.all or not any(
-        (args.engine, args.vec_env, args.network, args.train))
+        (args.engine, args.env, args.vec_env, args.network, args.train))
     results = []
     if args.engine or run_all:
         results.append(bench_engine(device=device))
+    if args.env or run_all:
+        results.append(bench_single_env(device=device))
     if args.vec_env or run_all:
         results.append(bench_vec_env(num_envs=args.num_envs, steps=args.steps,
                                      device=device))

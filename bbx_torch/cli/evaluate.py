@@ -5,7 +5,9 @@ on one device with ``auto_reset=False``; the host polls ``done`` every
 `chunk` steps until every lane has finished, and the statistics cover
 completed episodes only.  Runs on the CUDA card unless ``--device cpu``.
 ``--lookahead`` plays policy+1-ply value search (`agent/lookahead.py`):
-its results are search results, never the raw policy's.
+its results are search results, never the raw policy's.  ``--render``
+then replays ``--render-games`` episodes of the raw policy through the
+single env with ASCII rendering (`cli/play.py:watch`).
 """
 from __future__ import annotations
 
@@ -150,6 +152,12 @@ def main(argv=None) -> int:
                          "actions (default 0: all 192)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--output", default=None, help="JSON results path")
+    ap.add_argument("--render", action="store_true",
+                    help="after the stats, replay a few episodes with ASCII "
+                         "rendering (the parallel eval lanes themselves can't "
+                         "render)")
+    ap.add_argument("--render-games", type=int, default=2,
+                    help="episodes to render with --render")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
@@ -168,6 +176,12 @@ def main(argv=None) -> int:
         with open(args.output, "w") as f:
             json.dump(results, f, indent=2)
         print(f"results written to {args.output}")
+    if args.render:
+        from .play import watch
+
+        watch(args.checkpoint, args.config, games=args.render_games,
+              delay=0.0, deterministic=args.deterministic, seed=args.seed,
+              device=device)
     return 0
 
 

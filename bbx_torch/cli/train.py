@@ -20,7 +20,8 @@ def main(argv=None) -> int:
                     help="overrides training.seed from the config (default 42)")
     ap.add_argument("--total-timesteps", type=int, default=None)
     ap.add_argument("--profile", action="store_true",
-                    help="per-phase timing and a trace (not ported yet)")
+                    help="per-phase timing, an mfu row and one profiler "
+                         "trace (into <log_dir>/trace)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)

@@ -23,6 +23,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name (`torch.cuda.get_device_name`), or "cpu"."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
 @contextlib.contextmanager
 def float32_exact():
     """Run the block with float32 convolutions and matmuls in full float32

@@ -1,8 +1,16 @@
-"""Environment layer: the vectorised on-device env and its wrappers.
+"""Environment layer: the gym-style single env and the vectorised
+on-device env, with their wrappers.
 
-Counterpart of `bbx.env` (the vectorised part; the gym single env waits,
-ROADMAP.md Queue 1).
+Counterpart of `bbx.env`.
 """
+from .single import (
+    BlockBlastEnv,
+    BlockBlastEnvFlat,
+    FrameStackWrapper,
+    NormalizedRewardWrapper,
+    make_env,
+    register_gym_envs,
+)
 from .vector import (
     FrameStackVecEnv,
     NormalizedRewardVecEnv,
@@ -13,10 +21,16 @@ from .vector import (
 )
 
 __all__ = [
+    "BlockBlastEnv",
+    "BlockBlastEnvFlat",
+    "FrameStackWrapper",
+    "NormalizedRewardWrapper",
+    "make_env",
     "FrameStackVecEnv",
     "NormalizedRewardVecEnv",
     "RunningMeanStd",
     "VectorEnv",
     "make_vec_env",
+    "register_gym_envs",
     "sample_valid_actions_device",
 ]

@@ -31,6 +31,7 @@ from torch import nn
 
 from .afterstate import _conv, _dense, _kaiming_uniform_
 from .distributions import mask_logits
+from .flops import conv_layer, linear_layer
 
 BOARD = 8
 NUM_ACTIONS = 192
@@ -177,6 +178,19 @@ class BlockBlastNetwork(nn.Module):
                 x = _dropout(x, self.dropout_rate, generator)
         return x
 
+    def flop_layers(self, batch: int) -> list:
+        """The layers' matmul and convolution FLOPs on `batch`
+        observations (`bbx_torch.models.flops`), in forward order."""
+        layers = []
+        for i, conv in enumerate(self.convs):
+            layers.append(conv_layer(batch, conv, i > 0))
+            if i > 0 and self.blocks:
+                blk = self.blocks[i - 1]
+                layers += [conv_layer(batch, blk.conv0), conv_layer(batch, blk.conv1)]
+        return layers + [linear_layer(batch, m) for m in (
+            *self.fc, self.policy_hidden, self.policy_out, self.value_hidden,
+            self.value_out)]
+
     def _value_head(self, x: torch.Tensor) -> torch.Tensor:
         v = F.relu(_dense(x, self.value_hidden, self.compute_dtype))
         return _dense(v, self.value_out, self.compute_dtype)[:, 0].to(torch.float32)
@@ -227,6 +241,13 @@ class ActorCritic(nn.Module):
                 with torch.no_grad():
                     nn.init.orthogonal_(m.weight, gain=math.sqrt(2.0), generator=g)
                     m.bias.zero_()
+
+    def flop_layers(self, batch: int) -> list:
+        """The layers' matmul and convolution FLOPs on `batch`
+        observations (`bbx_torch.models.flops`), in forward order."""
+        return [*(conv_layer(batch, c, i > 0) for i, c in enumerate(self.convs)),
+                *(linear_layer(batch, m) for m in (*self.actor, self.actor_out,
+                                                   *self.critic, self.critic_out))]
 
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,

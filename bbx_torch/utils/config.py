@@ -1,9 +1,9 @@
 """Configuration: the same schema and defaults as `bbx/utils/config.py`.
 
-YAML is read only when a ``.yaml`` config file is given, with `yaml`
-imported inside `load_config`: the port does not need PyYAML otherwise.  A
-``.json`` config is read with `json`; JSON is YAML, so the same file means
-the same thing to `bbx`.
+YAML is read and written only for a ``.yaml`` path, with `yaml` imported
+inside `load_config` and `save_config`: the port does not need PyYAML
+otherwise.  A ``.json`` config is read and written with `json`; JSON is
+YAML, so the same file means the same thing to `bbx`.
 """
 from __future__ import annotations
 
@@ -98,3 +98,16 @@ def load_config(path: Optional[str] = None) -> Dict[str, Any]:
 def merge_config(cfg: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     """`override` merged over `cfg`, section by section."""
     return _deep_update(cfg, override)
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    """Write `cfg` to `path`: JSON for a ``.json`` path, else YAML (PyYAML
+    imported here, as `load_config` reads it)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        if path.endswith(".json"):
+            json.dump(cfg, f, indent=2)
+        else:
+            import yaml
+
+            yaml.safe_dump(cfg, f, sort_keys=False)

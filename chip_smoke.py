@@ -109,7 +109,21 @@ Phases, each of which must pass (exit code 1 otherwise):
    before and read after, each iteration's rollout and update timed,
    losses finite and the first iteration's `bc_loss` above 0; then
    `latest` is loaded and one more iteration run; then the search's share
-   of a 16-step rollout.
+   of a 16-step rollout;
+14. the host API: a `BlockBlastEnv` game on the card under
+   `sample_valid_action` (`np.random.seed`), each transition held against
+   the engine's plain step from the same state and generator state (the
+   state, observation and info equal, the reward bit for bit), replayed
+   identically from the same seeds; the flat env's 178 values;
+   `bbx_torch.cli.play` in random mode; `watch` of phase 5's seeded run9
+   network from a checkpoint (K1, K4, K6, K7 and K8 launched; ms a move);
+   K4 and K8 at one lane against their plain versions (into the kernels
+   line's `at_other_shapes`); `bbx_torch.cli.benchmark --env` (env-steps/s
+   and µs a step); `bbx_torch.cli.evaluate --render`; and
+   `bbx_torch.cli.train --profile` for 21 iterations at a small fleet
+   (run9's network and recipe at 64 x 32, minibatch 512): the `mfu` rows
+   finite and in (0, 1], the phase report, the trace after update 20, the
+   train kernels launched; and run9's mfu over phase 8's iterations.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels' numbers, and
@@ -251,6 +265,15 @@ PATH_KERNELS = {
                     "regen_pieces", "evaluator_scores"),
     "distill": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
                 "regen_pieces"),
+    # Phase 14: the single env's game (K1 at its reset), `watch` (K4 and K8
+    # at one lane) and the train CLI's profile at a small fleet.
+    "single_env": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces"),
+    "watch": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
+              "regen_pieces", "evaluator_scores"),
+    "train_profile": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
+                      "_step_finish_cuda", "regen_pieces", "evaluator_scores",
+                      "_evaluator_grad_tiles", "_evaluator_grad_dense0",
+                      "_evaluator_grad_reduce"),
 }
 # The kernels line's rows (one a kernel) and the launch counters each
 # sums: K6 has two entry points, `bbx_move` and `bbx_step_finish`.
@@ -620,7 +643,6 @@ def kernel_phase(device, report):
     import torch
 
     from bbx_torch.engine import solvability as S
-    from bbx_torch.models import afterstate as A
 
     state, obs, bits, ids = midgame_boards(device)
     rows = []
@@ -677,18 +699,6 @@ def kernel_phase(device, report):
     # version, dtypes included.  The row's times are bf16 at B = 512; the
     # evaluator's layout timings join it from phase 10.
     from bbx_torch.agent import ppo as P
-
-    def k4_case(bd, pc, dtype):
-        def fn():
-            return A.afterstate_buffer(bd, pc, dtype)
-
-        equal, err = compare(fn(), A.afterstate_buffer_plain(bd, pc, dtype))
-        b = bd.shape[0]
-        return dict(lanes=b, dtype=str(dtype), equal=equal, max_abs_err=err,
-                    ms=time_ms(fn), device_ms=kernel_device_ms(fn, "afterstate_kernel"),
-                    host_us=host_us(fn),
-                    plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc, dtype)),
-                    nbytes=k4_bytes(b, dtype.itemsize), ops=k4_ops(b))
 
     b, b2 = K4_LANES, RUN9_TRAINING["batch_size"]
     mb = P._minibatch_obs({"board": state.board[:b2], "mask": obs["action_mask"][:b2],
@@ -1013,13 +1023,13 @@ def with_bound(d: dict) -> dict:
 
 
 def k8_flops(b: int, widths) -> int:
-    """K8's operations on b lanes: per afterstate conv1 (64 x 18 x C1
-    multiply-adds), conv2 (64 x 9 C1 x C2), dense0's conv and feature
-    columns ((64 C2 + 3) x H) and dense1 (H); per (lane, slot) the
-    context's part of dense0 (D x H); two operations a multiply-add."""
-    (c1, c2), h, d = widths
-    per_afterstate = 64 * 18 * c1 + 64 * 9 * c1 * c2 + (64 * c2 + 3) * h + h
-    return 2 * (b * 192 * per_afterstate + b * 3 * d * h)
+    """K8's operations on b lanes (`bbx_torch.models.flops.k8_flops`): per
+    afterstate conv1, conv2, dense0's conv and feature columns and dense1;
+    per (lane, slot) the context's part of dense0; two operations a
+    multiply-add."""
+    from bbx_torch.models import flops
+
+    return flops.k8_flops(b, widths)
 
 
 def k8_bytes(b: int, widths, elem: int) -> int:
@@ -1117,18 +1127,19 @@ def k8_net(device, widths, dtype):
 
 
 def k8b_flops(b: int, widths) -> int:
-    """K8's backward on b lanes: the forward's recompute (`k8_flops`) and,
-    per afterstate, da2 (64 C2 x H multiply-adds), dW2 and da1 (64 x 9 C1
-    x C2 each), dW1 (64 x 18 C1) and dense1's gradient (H)."""
-    (c1, c2), h, d = widths
-    per_afterstate = 64 * c2 * h + 2 * 64 * 9 * c1 * c2 + 64 * 18 * c1 + h
-    return k8_flops(b, widths) + 2 * b * 192 * per_afterstate
+    """K8's backward on b lanes (`bbx_torch.models.flops.k8b_flops`): the
+    forward's recompute and, per afterstate, da2, dW2, da1, dW1 and
+    dense1's gradient."""
+    from bbx_torch.models import flops
+
+    return flops.k8b_flops(b, widths)
 
 
 def k8w_flops(b: int, widths) -> int:
-    """K8w: dW0 = dz0^T x0, H x (64 C2 + 3 + D) multiply-adds an afterstate."""
-    (c1, c2), h, d = widths
-    return 2 * b * 192 * h * (64 * c2 + 3 + d)
+    """K8w: dW0 = dz0^T x0 (`bbx_torch.models.flops.k8w_flops`)."""
+    from bbx_torch.models import flops
+
+    return flops.k8w_flops(b, widths)
 
 
 def rel_l2(x, y) -> float:
@@ -1413,6 +1424,24 @@ def k4_bytes(b: int, elem: int) -> int:
 def k4_ops(b: int) -> int:
     """K4: about 60 64-bit operations an action for the move (120 32-bit)."""
     return b * 192 * 120
+
+
+def k4_case(bd, pc, dtype) -> dict:
+    """K4 against its plain version on boards `bd` and pieces `pc` in
+    `dtype`: every output exactly equal, times and the bound's bytes and
+    operations."""
+    from bbx_torch.models import afterstate as A
+
+    def fn():
+        return A.afterstate_buffer(bd, pc, dtype)
+
+    equal, err = compare(fn(), A.afterstate_buffer_plain(bd, pc, dtype))
+    b = bd.shape[0]
+    return dict(lanes=b, dtype=str(dtype), equal=equal, max_abs_err=err,
+                ms=time_ms(fn), device_ms=kernel_device_ms(fn, "afterstate_kernel"),
+                host_us=host_us(fn),
+                plain_ms=time_ms(lambda: A.afterstate_buffer_plain(bd, pc, dtype)),
+                nbytes=k4_bytes(b, dtype.itemsize), ops=k4_ops(b))
 
 
 # The numbers a kernel's row takes from its main case.
@@ -3014,6 +3043,327 @@ def distill_phase(device, report):
         raise AssertionError(f"{profile['search_calls']} search calls in 16 steps")
 
 
+# Phase 14: the train CLI's profile at a small fleet (run9's network and
+# PPO recipe), long enough to reach the trace after update 20.
+PROFILE_TRAINING = {"num_envs": 64, "rollout_steps": 32, "batch_size": 512}
+PROFILE_ITERATIONS = 21
+# Phase 14's single-env game: the env's seed and the `np.random.seed` of
+# its `sample_valid_action` draws.
+HOST_GAME_SEED, HOST_NP_SEED = SEED, 0
+
+
+def captured(fn, *args, **kwargs):
+    """(fn's result, what it printed to standard output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def single_env_transition(env, before, rng_state, action, result) -> dict:
+    """The single env's transition from `before` (its generator at
+    `rng_state`) by `action`, which gave `result` (obs, reward,
+    terminated, truncated, info), against the engine's plain step on the
+    card from the same state and generator state: the new state (every
+    field, the episode return too) and the observation exactly, the reward
+    bit for bit, the info's counters and flags equal."""
+    import numpy as np
+    import torch
+
+    from bbx_torch.engine import step as ST
+
+    obs, reward, terminated, _, info = result
+    g = torch.Generator(device=before.device)
+    g.set_state(rng_state)
+    acts = torch.tensor([action], dtype=torch.int32, device=before.device)
+    plain = ST._step_plain(before.replace(rng=g), acts, env.reward_config, False)
+    state_equal, err = compare(env.state, plain.state)
+    pi = {k: v[0].item() for k, v in plain.info.items()}
+    want_info = {"score": pi["score"], "moves": pi["moves"],
+                 "lines_cleared": pi["lines_cleared"], "max_combo": pi["max_combo"],
+                 "blocks_placed": pi["blocks_placed"], "holes": pi["holes"],
+                 "board_fill": float(plain.state.board.sum().item() / 64.0),
+                 "invalid_action": pi["invalid_action"],
+                 "last_move": {"blocks_placed": pi["last_blocks_placed"],
+                               "lines_cleared": pi["last_lines_cleared"],
+                               "combo_multiplier": pi["last_combo_multiplier"],
+                               "score_gained": pi["last_score_gained"]}}
+    checks = {
+        "state": state_equal,
+        "obs": all(np.array_equal(obs[k], plain.obs[k][0].cpu().numpy().astype(obs[k].dtype))
+                   for k in ("board", "pieces", "action_mask")),
+        "reward": np.float32(reward).tobytes() == plain.reward[0].cpu().numpy().tobytes(),
+        "terminated": terminated == bool(plain.done[0]),
+        "info": info == want_info,
+    }
+    return {"equal": all(checks.values()), "checks": checks, "max_abs_err": err}
+
+
+def single_env_parts(env, steps: int = 300) -> dict:
+    """Host µs a step of the single env's parts on the card, over `steps`
+    random valid moves (a reset at each game's end), the body of
+    `BlockBlastEnv.step` timed part by part: the action's copy to the
+    card, the engine's step (its enqueue), the wait for the device, the
+    one host copy of what the step returns (`_fetch`), and the rest (the
+    observation and info dicts from that copy, and the draw of the next
+    action)."""
+    import numpy as np
+    import torch
+
+    from bbx_torch.engine import step as ST
+
+    parts = dict.fromkeys(("action_copy", "engine_step", "device_wait", "fetch", "rest"), 0.0)
+    np.random.seed(HOST_NP_SEED)
+    env.reset(seed=HOST_GAME_SEED)
+    a = env.sample_valid_action()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        acts = torch.tensor([a], dtype=torch.int32, device=env.device)
+        t1 = time.perf_counter()
+        out = ST.step(env.state, acts, env.reward_config, auto_reset=False)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        env.state = out.state
+        env._fetch(out.obs, out.info["holes"], out)
+        t4 = time.perf_counter()
+        env._get_observation(), env._get_info(last_move=True)
+        if env._host["terminated"]:
+            env.reset()
+        a = env.sample_valid_action()
+        t5 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            parts[k] += dt
+    return {k: v / steps * 1e6 for k, v in parts.items()}
+
+
+def host_api_phase(device, report):
+    """Phase 14: the host API on the card.  A `BlockBlastEnv` game under
+    `sample_valid_action` (`np.random.seed`), each transition held against
+    the engine's plain step, then replayed from the same seeds; the flat
+    env's observation; the play CLI's random mode; `watch` of a seeded,
+    freshly initialised run9 AfterstateNetwork (bf16) from a checkpoint,
+    with the launch counters set to 0 before and read after; K4 and K8 at
+    one lane against their plain versions; the benchmark CLI's `--env`;
+    the eval CLI's `--render`; the train CLI's `--profile` for
+    PROFILE_ITERATIONS iterations at a small fleet (mfu rows, the phase
+    report, the trace), with the launch counters read; and run9's mfu from
+    phase 8's iterations."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from bbx_torch.agent.policy_agent import PolicyAgent
+    from bbx_torch.agent.trainer import PEAK_FLOPS, iteration_flops, ppo_config_from
+    from bbx_torch.cli import benchmark as BM
+    from bbx_torch.cli import evaluate
+    from bbx_torch.cli import play
+    from bbx_torch.cli import train as cli_train
+    from bbx_torch.engine.step import observe
+    from bbx_torch.env.single import BlockBlastEnv, BlockBlastEnvFlat
+    from bbx_torch.models import network_from_config
+    from bbx_torch.utils.checkpoints import save_checkpoint
+
+    out = report.setdefault("host_api", {})
+    counters = kernel_counters()
+
+    def zero_counters():
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # The single env: a game to its end, each transition held to the plain
+    # step; then the same seeds replay it.
+    env = BlockBlastEnv(seed=HOST_GAME_SEED, device=device)
+
+    def game(check: bool):
+        np.random.seed(HOST_NP_SEED)
+        env.reset(seed=HOST_GAME_SEED)
+        trail, cases, mid = [], [], None
+        while True:
+            before, rng_state = env.state, env.state.rng.get_state()
+            a = env.sample_valid_action()
+            result = env.step(a)
+            trail.append((a, result[1], result[4]["score"], result[2]))
+            if check:
+                cases.append(single_env_transition(env, before, rng_state, a, result))
+            if mid is None and len(trail) == 5:
+                mid = env.state
+            if result[2] or len(trail) > 10_000:
+                return trail, cases, mid
+
+    zero_counters()
+    t0 = time.perf_counter()
+    trail, cases, mid_state = game(check=True)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    out["single_env"] = {"launches": launches()}
+    replay, _, _ = game(check=False)
+    bad = [i for i, c in enumerate(cases) if not c["equal"]]
+    out["game"] = {"moves": len(trail), "score": trail[-1][2], "checked_seconds": checked_s,
+                   "transitions_equal": len(cases) - len(bad),
+                   "first_mismatch": cases[bad[0]] if bad else None,
+                   "replayed_identically": replay == trail}
+    log(f"  single env: a {len(trail)}-move game (score {trail[-1][2]}), "
+        f"{len(cases) - len(bad)}/{len(cases)} transitions equal to the plain step, "
+        f"replayed identically={replay == trail}; launches {out['single_env']['launches']}")
+    flat = BlockBlastEnvFlat(seed=HOST_GAME_SEED, device=device)
+    flat_shape = flat.reset(seed=HOST_GAME_SEED)[0]["obs"].shape
+
+    # The play CLI's random mode.
+    rc_random, text = captured(play.main, ["--mode", "random", "--games", "3"])
+    out["play_random"] = {"rc": rc_random, "summary": text.strip().splitlines()[-1]}
+    log(f"  play --mode random --games 3: rc {rc_random}; {out['play_random']['summary']}")
+
+    # watch, eval --render and K4 / K8 at one lane on a seeded run9 network.
+    work = os.path.join(ROOT, "build", "chip_smoke_host_api")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    net = network_from_config(RUN9_NETWORK, generator=torch.Generator().manual_seed(SEED))
+    ckpt = save_checkpoint(work, "run9_seeded.pt", {"params": net.state_dict()},
+                           config={"network": RUN9_NETWORK})
+    zero_counters()
+    t0 = time.perf_counter()
+    watched, text = captured(play.watch, ckpt, games=1, delay=0.0, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moves = watched["moves"][0]
+    watch_launches = launches()
+    # Again, warm (the first call selects the value head's cuDNN plans).
+    t0 = time.perf_counter()
+    captured(play.watch, ckpt, games=1, delay=0.0, seed=SEED)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    agent = PolicyAgent.from_checkpoint(ckpt, device=device)
+    mid_obs = {k: v[0].cpu().numpy() for k, v in observe(mid_state).items()}
+    t0 = time.perf_counter()
+    for _ in range(50):
+        agent.select_action(mid_obs, deterministic=True)
+    act_ms = (time.perf_counter() - t0) / 50 * 1e3
+    out["watch"] = {"launches": watch_launches, "moves": moves, "score": watched["scores"][0],
+                    "seconds": seconds, "ms_per_move": seconds / max(moves, 1) * 1e3,
+                    "warm_ms_per_move": warm / max(moves, 1) * 1e3,
+                    "select_action_ms": act_ms}
+    log(f"  watch: {moves} moves (score {watched['scores'][0]}) in {seconds:.3f} s = "
+        f"{out['watch']['ms_per_move']:.3f} ms a move, rendering included (warm "
+        f"{out['watch']['warm_ms_per_move']:.3f}; `select_action` alone {act_ms:.3f} ms); "
+        f"launches {watch_launches}")
+
+    one = observe(mid_state)
+    bd, pc = one["board"].contiguous(), one["pieces"].contiguous()
+    bf16, f32 = torch.bfloat16, torch.float32
+    out["one_lane"] = {
+        "afterstate_buffer": {f"1_{str(dt)[6:]}": with_bound(k4_case(bd, pc, dt))
+                              for dt in (bf16, f32)},
+        "evaluator_scores": {f"1_{str(dt)[6:]}": k8_case(device, RUN9_EVAL_WIDTHS, bd, pc, dt)
+                             for dt in (bf16, f32)}}
+    for name, cs in out["one_lane"].items():
+        for key, c in cs.items():
+            log(f"  {name} at one lane, {key}: equal={c['equal']} (err {c['max_abs_err']:.4g}), "
+                f"{c['ms']:.4f} ms (device {c['device_ms']}; host {c['host_us']:.1f} us), "
+                f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms ({c['bound_by']})")
+
+    rc_bench, text = captured(BM.main, ["--env"])
+    line = next(l for l in text.splitlines() if l.startswith("single_env:"))
+    out["bench_single_env"] = {"rc": rc_bench, **{
+        k: float(v.replace(",", "")) for k, v in re.findall(r"(\w+)=([\d,.]+)", line)}}
+    log(f"  benchmark --env: rc {rc_bench}; {line}")
+    out["single_env_parts_us"] = single_env_parts(env)
+    log(f"  single env, host µs a step by part: {out['single_env_parts_us']}")
+
+    rc_eval, text = captured(evaluate.main, [
+        "--checkpoint", ckpt, "--episodes", "16", "--deterministic", "--seed", str(SEED),
+        "--render", "--render-games", "1"])
+    out["eval_render"] = {"rc": rc_eval, "rendered": "game 1: score=" in text
+                          and "Available pieces" in text}
+    log(f"  evaluate --render --render-games 1: rc {rc_eval}, rendered "
+        f"{out['eval_render']['rendered']}")
+
+    # The train CLI's profile.
+    cfg = {"ppo": RUN9_PPO, "network": RUN9_NETWORK, "rewards": RUN9_REWARDS,
+           "training": dict(RUN9_TRAINING, **PROFILE_TRAINING),
+           "logging": {"log_interval": 1, "save_interval": 0, "eval_interval": 0},
+           "paths": {"checkpoint_dir": os.path.join(work, "checkpoints"),
+                     "log_dir": os.path.join(work, "logs")}}
+    cfg_path = os.path.join(work, "profile.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    per_iter = PROFILE_TRAINING["num_envs"] * PROFILE_TRAINING["rollout_steps"]
+    zero_counters()
+    rc_train, text = captured(cli_train.main, [
+        "--config", cfg_path, "--profile", "--seed", str(TRAIN_SEED),
+        "--total-timesteps", str(PROFILE_ITERATIONS * per_iter)])
+    out["train_profile"] = {"launches": launches()}
+    logs = os.path.join(work, "logs")
+    rows = [json.loads(l) for n in sorted(os.listdir(logs)) if n.endswith(".jsonl")
+            for l in open(os.path.join(logs, n))]
+    trace_dir = os.path.join(logs, "trace")
+    traces = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+    mfu = [r.get("mfu") for r in rows]
+    lines = text.splitlines()
+    at = next((i for i, l in enumerate(lines) if l.startswith("phase timing:")), len(lines))
+    report_text = "\n".join([lines[at], *(l for l in lines[at + 1:] if l.startswith("  "))]
+                             if at < len(lines) else [])
+    peak_line = next((l for l in text.splitlines() if l.startswith("mfu:")), "")
+    flops = iteration_flops(ppo_config_from(cfg), net)
+    out["train_profile"].update(
+        rc=rc_train, rows=len(rows), mfu=mfu, peak_line=peak_line, traces=traces,
+        phase_report=report_text.strip(), flops_per_iteration=flops,
+        env_steps_per_s=[r["fps"] for r in rows])
+    log(f"  train --profile: rc {rc_train}, {len(rows)} rows, mfu {mfu}; {peak_line}")
+    for l in report_text.strip().splitlines():
+        log(f"    {l}")
+    log(f"  trace files in {trace_dir}: {traces}")
+
+    # Run9's mfu: phase 8's rollout + update seconds an iteration.
+    peak = PEAK_FLOPS.get(torch.cuda.get_device_name(device), {}).get(bf16)
+    run9_flops = iteration_flops(ppo_config_from(
+        {"ppo": RUN9_PPO, "training": RUN9_TRAINING}), net)
+    run9 = [run9_flops / (it["rollout_s"] + it["update_s"]) / peak
+            for it in report.get("train", {}).get("iterations", [])] if peak else []
+    out["run9_mfu"] = {"flops_per_iteration": run9_flops, "peak_flops": peak,
+                       "from_phase8_rollout_plus_update": run9}
+    log(f"  run9 iteration: {run9_flops:,} FLOPs; mfu over phase 8's rollout + update "
+        f"seconds {run9} (peak {peak})")
+
+    failures = []
+    if bad or not cases:
+        failures.append(f"transitions {bad} differ from the plain step")
+    if replay != trail:
+        failures.append("the seeded game did not replay identically")
+    if flat_shape != (178,):
+        failures.append(f"flat observation of shape {flat_shape}")
+    if rc_random or rc_bench or rc_eval or rc_train:
+        failures.append(f"a CLI returned non-zero: random {rc_random}, bench {rc_bench}, "
+                        f"eval {rc_eval}, train {rc_train}")
+    if not out["eval_render"]["rendered"]:
+        failures.append("eval --render rendered no game")
+    if not all(c["equal"] for cs in out["one_lane"].values() for c in cs.values()):
+        failures.append("K4 or K8 at one lane differs from its plain version")
+    if out["bench_single_env"].get("env_steps_per_sec", 0.0) <= 0:
+        failures.append("benchmark --env reported no rate")
+    if (len(rows) != PROFILE_ITERATIONS - 1
+            or not all(isinstance(m, float) and math.isfinite(m) and 0.0 < m <= 1.0
+                       for m in mfu)):
+        failures.append(f"mfu rows {mfu}")
+    if not report_text or not traces or not peak_line:
+        failures.append("no phase report, trace or peak line")
+    for path in ("single_env", "watch", "train_profile"):
+        try:
+            check_launches(path, out[path]["launches"])
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -3080,10 +3430,13 @@ def main() -> int:
               lambda: search_eval_phase(device, report))
         phase("13. distillation: run8 at full width",
               lambda: distill_phase(device, report))
+        phase("14. the host API: single env, play, watch, --env, --render, --profile",
+              lambda: host_api_phase(device, report))
 
     # `launches` sums the paths' runs; `launches_by_path` splits them.
     kernels = []
-    by_path = {p: report.get(p, {}).get("launches", {}) for p in PATH_KERNELS}
+    by_path = {p: report.get(p, report.get("host_api", {}).get(p, {})).get("launches", {})
+               for p in PATH_KERNELS}
     for r in report.get("kernels", []):
         if r["name"] == "evaluator_scores" and "evaluator_layouts" in report:
             # K8's library time: cuDNN's channels-last evaluator forward at
@@ -3092,6 +3445,9 @@ def main() -> int:
             r["library_ms"] = report["evaluator_layouts"]["channels_last"]["forward_ms"]
             r["at_update_shape"]["library_ms"] = (
                 report["evaluator_layouts"]["channels_last"]["forward_2048_ms"])
+        # K4 and K8 at one lane (phase 14: the single env's and watch's shape).
+        r.get("at_other_shapes", {}).update(
+            report.get("host_api", {}).get("one_lane", {}).get(r["name"], {}))
         split = {p: sum(c.get(name, 0) for name in ROW_COUNTERS[r["name"]])
                  for p, c in by_path.items()}
         kernels.append({k: r[k] for k in (

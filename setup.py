@@ -26,6 +26,10 @@ setup(
             "bbx-evaluate=bbx.cli.evaluate:main",
             "bbx-play=bbx.cli.play:main",
             "bbx-benchmark=bbx.cli.benchmark:main",
+            "bbx-torch-train=bbx_torch.cli.train:main",
+            "bbx-torch-evaluate=bbx_torch.cli.evaluate:main",
+            "bbx-torch-play=bbx_torch.cli.play:main",
+            "bbx-torch-benchmark=bbx_torch.cli.benchmark:main",
         ],
     },
 )

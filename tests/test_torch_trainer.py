@@ -125,9 +125,36 @@ def test_train_main_without_device_raises_without_cuda(tmp_path, monkeypatch):
         PPOTrainer(CFG)
 
 
-def test_profile_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="profiling"):
-        train(_with_paths(CFG, tmp_path), profile=True, device="cpu")
+def test_profile_is_not_ported(tmp_path, monkeypatch, capsys):
+    """(Named while `profile=True` raised.)  21 iterations with
+    `profile=True`: the trace of the one after update 20 in
+    ``<log_dir>/trace``, an `mfu` row in every log line (the CPU has no
+    peak, so one is patched in: `iteration_flops` over the iteration's
+    seconds over it), the peak printed beside the first, and the phase
+    report at the end."""
+    from bbx_torch.agent import trainer as T
+
+    assert T.device_peak_flops(torch.device("cpu"), torch.float32) is None
+    monkeypatch.setattr(T, "device_peak_flops", lambda device, dtype: 1e12)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    steps = 4 * 4  # 4 envs x 4 steps, one minibatch, one epoch
+    cfg = _with_paths(dict(CFG, training={"num_envs": 4, "rollout_steps": 4,
+                                          "batch_size": steps,
+                                          "total_timesteps": 21 * steps},
+                           ppo={"num_epochs": 1}), tmp_path, log_interval=5)
+    stats = train(cfg, profile=True, device="cpu")
+    assert stats["global_step"] == 21 * steps
+    out = capsys.readouterr().out
+    assert out.count("against 1e+12 FLOP/s") == 1
+    assert f"profiler trace written to {tmp_path / 'logs' / 'trace'}" in out
+    assert "phase timing:" in out and "train_iter" in out and "(21x, " in out
+    assert any(n.endswith(".json") for n in os.listdir(tmp_path / "logs" / "trace"))
+    rows = [json.loads(line) for name in os.listdir(tmp_path / "logs")
+            if name.endswith(".jsonl")
+            for line in open(tmp_path / "logs" / name)]
+    # Updates 5, 10 and 15: the traced iteration moves 20 to 21, as in bbx.
+    assert [r["step"] for r in rows] == [5 * steps, 10 * steps, 15 * steps]
+    assert all(0.0 < r["mfu"] <= 1.0 for r in rows), rows
 
 
 def test_exact_resume(tmp_path):

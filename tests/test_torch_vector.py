@@ -234,9 +234,16 @@ def test_card_fleet_timing_pins_its_thread_and_restores_it():
         assert os.sched_getaffinity(0) == allowed
 
 
-def test_env_benchmark_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 13"):
-        TB.main(["--env", "--device", "cpu"])
+def test_env_benchmark_is_not_ported(monkeypatch, capsys):
+    """(Named while `--env` raised, before the single env was ported.)
+    `--env` runs `bench_single_env` and prints its rate and device; 5
+    timed steps here."""
+    real = TB.bench_single_env
+    monkeypatch.setattr(TB, "bench_single_env",
+                        lambda device: real(steps=5, device=device))
+    assert TB.main(["--env", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "single_env:" in out and "steps=5" in out and "device=cpu" in out
 
 
 def test_bench_network_and_train_on_cpu():
