@@ -34,6 +34,19 @@ Random draws come from explicit `torch.Generator`s: one for the actions,
 one for the minibatch shuffle, one for the dropout masks and one for the
 search (its simulated regen draws and the search/policy mix).
 
+Data parallelism (`bbx_torch.parallel`), as bbx's GSPMD program computes
+it: with a distributed `Mesh` each rank holds a contiguous shard of the
+fleet's lanes (`EnvState.lane_base`), every rank draws the actions, the
+minibatch permutation and the dropout masks at the global batch's shape
+from generators in lockstep and keeps its rows, and the update runs over
+the global minibatches: rank r takes the entries of each that fall in its
+env columns (the buffer is flattened t * N_global + n), each loss term is
+its sum over those rows divided by the global minibatch size, and the
+gradients are summed over ranks before the global-norm clip.  Advantage
+normalisation, the loss metrics and the episode statistics are reduced
+across ranks as sums, counts and maxima, and the flat CNN's BatchNorm
+takes global batch statistics.  In one process none of this runs.
+
 The flat CNN (`BlockBlastNetwork`) has BatchNorm and dropout, so the mode
 matters, as in `bbx`: with ``rollout_train_mode`` the rollout runs it in
 train mode (batch statistics, its running statistics moving step to step,
@@ -56,6 +69,8 @@ from ..engine.tables import tables
 from ..models import distributions as D
 from ..models.utils import clip_by_global_norm_
 from ..ops import build
+from ..parallel.collectives import all_reduce_max, all_reduce_sum, reduce_gradients
+from ..parallel.mesh import BatchShard, Mesh
 from .lookahead import lookahead_actions, search_width
 
 ADV_EPS = 1e-8        # ppo.py:399
@@ -250,7 +265,8 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
             generator: torch.Generator,
             dropout_rng: Optional[torch.Generator] = None,
             update_step: int = 0,
-            search_rng: Optional[torch.Generator] = None):
+            search_rng: Optional[torch.Generator] = None,
+            mesh: Optional[Mesh] = None):
     """Collect `rollout_steps` transitions for every env (auto-reset on).
 
     `generator` samples the actions and `dropout_rng` draws the dropout
@@ -264,8 +280,13 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     [T, N, ...] tensors (the compact buffer of `bbx/agent/ppo.py:297-314`),
     `last_value` [N] the bootstrap value of the final observation (eval
     mode), and `ep_stats` 0-dim tensors over the episodes that ended in the
-    rollout.  Nothing here synchronises with the host.
+    rollout.  Nothing here synchronises with the host.  With a distributed
+    `mesh`, `env_state` is this rank's shard of the fleet: the action noise
+    and dropout masks are drawn for the whole fleet, BatchNorm reduces over
+    it, and `ep_stats` cover every rank's episodes.
     """
+    shard = lane_shard(env_state) if mesh is not None and mesh.distributed else None
+    kw = {} if shard is None else {"shard": shard}
     t_len, n, dev = config.rollout_steps, env_state.num_envs, env_state.device
     fields = {**_TRAJ, **_search_fields(config)}
     traj = {k: torch.empty((t_len, n, *shape), dtype=dt, device=dev)
@@ -284,8 +305,8 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     with torch.no_grad():
         for t in range(t_len):
             logits, value = network(obs["board"], obs["pieces"],
-                                    obs["action_mask"], generator=dropout_rng)
-            action = D.sample(generator, logits)
+                                    obs["action_mask"], generator=dropout_rng, **kw)
+            action = D.sample(generator, logits, shard)
             if searching:
                 search_a, cand, q = lookahead_actions(
                     network, env_state, search_rng, reward_config,
@@ -320,26 +341,40 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
         _, last_value = network(obs["board"], obs["pieces"],
                                 obs["action_mask"])
 
-    done = traj["done"]
+    return env_state, traj, last_value, _episode_stats(traj["done"], final,
+                                                        shard is not None)
+
+
+def lane_shard(env_state: EnvState) -> BatchShard:
+    """The fleet's lanes as rows of the global fleet."""
+    base = env_state.lane_base
+    return BatchShard(env_state.global_lanes, slice(base, base + env_state.num_envs))
+
+
+_MEAN_FINALS = {"mean_score": "final_score", "mean_length": "final_length",
+                "mean_return": "final_return", "mean_lines": "final_lines",
+                "mean_max_combo": "final_max_combo"}
+
+
+def _episode_stats(done: torch.Tensor, final: Dict[str, torch.Tensor],
+                   sharded: bool) -> Dict[str, torch.Tensor]:
+    """The rollout's episode statistics: sums and counts (all-reduced in one
+    vector over every rank's lanes when `sharded`), the largest score as a
+    maximum."""
     dones_f = done.to(torch.float32)
-    episodes = dones_f.sum()
+    sums = torch.stack([dones_f.sum(),
+                        final["invalid_action"].to(torch.float32).sum(),
+                        torch.tensor(float(done.numel()), device=done.device),
+                        *((final[k] * dones_f).sum() for k in _MEAN_FINALS.values())])
+    max_score = torch.where(done, final["final_score"], 0).max()
+    if sharded:
+        sums, max_score = all_reduce_sum(sums), all_reduce_max(max_score)
+    episodes, invalid, count, *finals = sums.unbind()
     n_done = torch.clamp(episodes, min=1.0)
-
-    def mean_final(k):
-        return (final[k] * dones_f).sum() / n_done
-
-    ep_stats = {
-        "episodes": episodes,
-        "mean_score": mean_final("final_score"),
-        "max_score": torch.where(done, final["final_score"], 0).max()
-        .to(torch.float32),
-        "mean_length": mean_final("final_length"),
-        "mean_return": mean_final("final_return"),
-        "mean_lines": mean_final("final_lines"),
-        "mean_max_combo": mean_final("final_max_combo"),
-        "invalid_frac": final["invalid_action"].to(torch.float32).mean(),
-    }
-    return env_state, traj, last_value, ep_stats
+    return {"episodes": episodes,
+            **{k: v / n_done for k, v in zip(_MEAN_FINALS, finals)},
+            "max_score": max_score.to(torch.float32),
+            "invalid_frac": invalid / count}
 
 
 # ---------------------------------------------------------------------------
@@ -411,10 +446,17 @@ def _minibatch_obs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
-def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
+def normalize_advantages(adv: torch.Tensor, total: Optional[int] = None
+                         ) -> torch.Tensor:
     """Whole-buffer normalisation with the population std, as ``jnp.std``
-    (`torch.std` would default to the unbiased one)."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + ADV_EPS)
+    (`torch.std` would default to the unbiased one).  With `total`, `adv`
+    is this rank's part of a buffer of `total` entries: the mean and then
+    the variance are sums over ranks, in the same two passes."""
+    if total is None:
+        return (adv - adv.mean()) / (adv.std(correction=0) + ADV_EPS)
+    mean = all_reduce_sum(adv.sum()) / total
+    var = all_reduce_sum(((adv - mean) ** 2).sum()) / total
+    return (adv - mean) / (torch.sqrt(var) + ADV_EPS)
 
 
 def bc_loss_of(config: PPOConfig, logits, batch) -> torch.Tensor:
@@ -436,9 +478,16 @@ def bc_loss_of(config: PPOConfig, logits, batch) -> torch.Tensor:
 
 
 def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
-             bc_coef: float = 0.0):
+             bc_coef: float = 0.0, total: Optional[int] = None):
     """The clipped-surrogate loss and its metrics (0-dim tensors); with
-    search, the dual clip and, where `bc_coef` > 0, the BC term."""
+    search, the dual clip and, where `bc_coef` > 0, the BC term.  With
+    `total`, the batch is this rank's rows of a global minibatch of `total`
+    rows, and each mean is the rank's sum over `total` (the ranks' losses
+    and metrics then sum to the global ones)."""
+
+    def mean(x):
+        return torch.mean(x) if total is None else torch.sum(x) / total
+
     new_logp = D.log_prob(logits, batch["action"])
     entropy = D.masked_entropy(logits, batch["mask"])
     logratio = new_logp - batch["logp"]
@@ -454,9 +503,9 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
         per_sample = torch.where(adv < 0.0,
                                  torch.maximum(per_sample, DUAL_CLIP * adv),
                                  per_sample)
-    policy_loss = -torch.mean(per_sample)
-    value_loss = torch.mean((value - batch["ret"]) ** 2)
-    entropy_mean = torch.mean(entropy)
+    policy_loss = -mean(per_sample)
+    value_loss = mean((value - batch["ret"]) ** 2)
+    entropy_mean = mean(entropy)
     loss = (policy_loss + config.value_coef * value_loss
             - ent_coef * entropy_mean)
     # A Python branch, not `where`: the untaken branch's NaN would reach
@@ -468,8 +517,8 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
         bc_loss = torch.zeros((), device=value.device)
     with torch.no_grad():
         kl_lr = torch.clamp(logratio, -KL_LOGRATIO_CLIP, KL_LOGRATIO_CLIP)
-        approx_kl = torch.mean(torch.exp(kl_lr) - 1.0 - kl_lr)
-        clip_frac = torch.mean(
+        approx_kl = mean(torch.exp(kl_lr) - 1.0 - kl_lr)
+        clip_frac = mean(
             ((ratio - 1.0).abs() > config.clip_epsilon).to(torch.float32))
     return loss, {
         "policy_loss": policy_loss,
@@ -483,44 +532,79 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
 
 
 _BATCH_KEYS = ("board", "piece_ids", "used", "mask", "action", "logp")
+# The metrics `ppo_loss` returns.
+LOSS_METRICS = ("policy_loss", "value_loss", "entropy", "total_loss", "approx_kl",
+                "clip_fraction", "bc_loss")
+
+
+def _local_rows(idx: torch.Tensor, lanes: BatchShard, minibatch: int):
+    """This rank's entries of a global minibatch `idx` (indices t *
+    N_global + n of the global buffer): their rows of the rank's buffer (t *
+    N_local + n - lane_base) and, as a `BatchShard`, their positions in the
+    minibatch."""
+    n_global, start, count = lanes.total, lanes.rows.start, lanes.rows.stop - lanes.rows.start
+    env = idx % n_global
+    pos = ((env >= start) & (env < start + count)).nonzero().squeeze(1)
+    sel = idx[pos]
+    return (sel // n_global) * count + (sel % n_global - start), BatchShard(minibatch, pos)
 
 
 def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
            generator: torch.Generator,
-           dropout_rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+           dropout_rng: Optional[torch.Generator] = None,
+           lanes: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """`num_epochs` of shuffled minibatch PPO updates (`bbx/agent/ppo.py:387`).
 
     Trains `ts.network` in place, in train mode, through `ts.optimizer`
     (one Adam step per minibatch) and advances `ts.update_step` once;
     `generator` shuffles and `dropout_rng` draws the dropout masks.
     Returns the metrics averaged over every minibatch step, as 0-dim
-    tensors.
+    tensors.  With `lanes` (this rank's env columns of the global fleet,
+    in a process group) `traj` holds those columns and the update runs
+    over the global minibatches (module docstring); the metrics are then
+    global, equal on every rank.
     """
     total, mb = config.batch_size, config.minibatch_size
     if total % mb:
         raise ValueError(f"rollout batch {total} not divisible by minibatch {mb}")
     num_mb = total // mb
     keys = _BATCH_KEYS + tuple(_search_fields(config))
-    flat = {k: traj[k].reshape(total, *traj[k].shape[2:]) for k in keys}
-    adv = normalize_advantages(advantages.reshape(total))
-    ret = returns.reshape(total)
+    local = advantages.numel()
+    flat = {k: traj[k].reshape(local, *traj[k].shape[2:]) for k in keys}
+    adv = normalize_advantages(advantages.reshape(local),
+                               None if lanes is None else total)
+    ret = returns.reshape(local)
     ent_coef = entropy_coef_at(config, ts.update_step)
     bc_coef = bc_coef_at(config, ts.update_step)
     params = [p for p in ts.network.parameters()]
     ts.network.train()
+    # A rank with no row of a minibatch still runs a forward that couples
+    # rows (BatchNorm's reductions) or draws (dropout); otherwise its
+    # gradient is zero.
+    lockstep = getattr(ts.network, "lockstep_forward", False)
     sums: Dict[str, torch.Tensor] = {}
     for _ in range(config.num_epochs):
         perm = torch.randperm(total, generator=generator, device=adv.device)
         for i in range(num_mb):
             idx = perm[i * mb:(i + 1) * mb]
+            kw = {}
+            if lanes is not None:
+                idx, kw["shard"] = _local_rows(idx, lanes, mb)
             batch = {k: v[idx] for k, v in flat.items()}
             batch["adv"], batch["ret"] = adv[idx], ret[idx]
-            obs = _minibatch_obs(batch)
-            logits, value = ts.network(obs["board"], obs["pieces"],
-                                       obs["action_mask"], generator=dropout_rng)
-            loss, aux = ppo_loss(config, logits, value, batch, ent_coef, bc_coef)
             ts.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if idx.numel() or lockstep or lanes is None:
+                obs = _minibatch_obs(batch)
+                logits, value = ts.network(obs["board"], obs["pieces"],
+                                           obs["action_mask"], generator=dropout_rng,
+                                           **kw)
+                loss, aux = ppo_loss(config, logits, value, batch, ent_coef, bc_coef,
+                                     None if lanes is None else mb)
+                loss.backward()
+            else:
+                aux = {k: torch.zeros((), device=adv.device) for k in LOSS_METRICS}
+            if lanes is not None:
+                reduce_gradients(params)
             clip_by_global_norm_([p.grad for p in params], config.max_grad_norm)
             lr = learning_rate_at(config, optimizer_steps(ts.optimizer))
             for group in ts.optimizer.param_groups:
@@ -531,6 +615,10 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
                 sums[k] = sums[k] + v if k in sums else v
     ts.update_step += 1
     steps = config.num_epochs * num_mb
+    if lanes is not None:
+        names = sorted(sums)
+        reduced = all_reduce_sum(torch.stack([sums[k] for k in names]))
+        sums = dict(zip(names, reduced.unbind()))
     return {k: v / steps for k, v in sums.items()}
 
 
@@ -538,21 +626,26 @@ def train_iteration(config: PPOConfig, reward_config: RewardConfig,
                     ts: TrainState, env_state: EnvState,
                     action_rng: torch.Generator, shuffle_rng: torch.Generator,
                     dropout_rng: Optional[torch.Generator] = None,
-                    search_rng: Optional[torch.Generator] = None):
+                    search_rng: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None):
     """One PPO iteration: rollout + GAE + update (`bbx/agent/ppo.py:533`).
 
     `ts` is trained in place and returned.  Returns (ts, env_state,
     metrics), the metrics as 0-dim tensors on the device; with search,
-    also the iteration's `search_frac` and `bc_coef`.
+    also the iteration's `search_frac` and `bc_coef`.  With a distributed
+    `mesh`, `env_state` is this rank's shard of the fleet and the metrics
+    are global.
     """
     it = ts.update_step
+    sharded = mesh is not None and mesh.distributed
+    lanes = lane_shard(env_state) if sharded else None
     env_state, traj, last_value, ep_stats = rollout(
         ts.network, config, reward_config, env_state, action_rng, dropout_rng,
-        update_step=it, search_rng=search_rng)
+        update_step=it, search_rng=search_rng, mesh=mesh)
     advantages, returns = compute_gae(config, traj["reward"], traj["done"],
                                       traj["value"], last_value)
     metrics = update(config, ts, traj, advantages, returns, shuffle_rng,
-                     dropout_rng)
+                     dropout_rng, lanes)
     metrics.update(ep_stats)
     if config.uses_search:
         dev = last_value.device

@@ -1,18 +1,28 @@
-"""High-level PPO trainer on one device: train loop, logging, checkpoints.
+"""High-level PPO trainer: train loop, logging, checkpoints, data parallelism.
 
-Counterpart of `bbx/agent/trainer.py` for one CUDA card (or the CPU when
-asked).  `bbx` places the fleet and the train state on a device mesh; the
-port has no mesh yet (`parallel/` is ROADMAP.md Queue 1), so a config's
-``mesh:`` section is ignored.  A checkpoint is one `torch.save` file
-holding the params, the Adam state, both step counters, the env fleet and
-the state of every generator (the fleet's, the action sampler's, the
-minibatch shuffler's, the dropout masks' and the search's), so a resumed
-run continues the exact trajectory of an uninterrupted one on the CPU.  (A
-checkpoint saved before the search generator existed loads with that
-generator freshly seeded.)  The params entry
-is the network's state dict, so the flat CNN's BatchNorm running
-statistics travel with it.  (On the card, cuDNN's convolution
-backward sums with atomics, so two runs need not agree bit for bit.)
+Counterpart of `bbx/agent/trainer.py`, on one CUDA card (or the CPU when
+asked) a process.  Where bbx places the fleet and the train state on a
+device mesh, the port runs one process a device in a `torch.distributed`
+group (`bbx_torch.parallel`): a config's ``mesh:`` section is checked
+against the group (``num_data`` null or the world size, ``num_model`` 1),
+each rank resets and steps only its contiguous shard of the fleet
+(`host_env_slice`), the network and the generators are the same on every
+rank (same seeds, every draw at the global shape), and the update reduces
+across ranks (`bbx_torch.agent.ppo`), so a run on several ranks computes
+what one process computes.  Search configs (``uses_search``) run in one
+process only (ROADMAP.md Queue 1, "search configs at world size > 1").
+
+A checkpoint is one `torch.save` file holding the params, the Adam state,
+both step counters, the whole env fleet (gathered to rank 0, which alone
+writes) and the state of every generator (the fleet's, the action
+sampler's, the minibatch shuffler's, the dropout masks' and the search's),
+so a resumed run continues the exact trajectory of an uninterrupted one on
+the CPU, and a checkpoint of a run on k ranks resumes on any world size
+that divides its fleet.  (A checkpoint saved before the search generator
+existed loads with that generator freshly seeded.)  The params entry is the
+network's state dict, so the flat CNN's BatchNorm running statistics travel
+with it.  (On the card, cuDNN's convolution backward sums with atomics, so
+two runs need not agree bit for bit.)
 """
 from __future__ import annotations
 
@@ -21,15 +31,19 @@ import os
 import signal
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..device import device_name, resolve_device
 from ..engine.state import EnvState, make_generator, reset
 from ..engine.step import RewardConfig
 from ..models import network_from_config
 from ..models.flops import network_flops
+from ..parallel.collectives import agree, broadcast_from_primary, gather_to_primary
+from ..parallel.distributed import host_env_slice
+from ..parallel.mesh import Mesh, mesh_from_config, replicate_tree, shard_batched_tree
 from ..utils.checkpoints import load_checkpoint, save_checkpoint
 from ..utils.logging import Logger, MetricsTracker, TensorBoardLogger
 from ..utils.profiling import PhaseTimer, trace
@@ -122,22 +136,38 @@ class PPOTrainer:
     shuffler's (`seed + 2`), the dropout masks' (`seed + 3`) and the
     search's (`seed + 4`: the simulated fleet's regen draws and the
     search/policy mix); the initial weights come from a CPU generator
-    seeded `seed`.
+    seeded `seed`.  In a process group every rank seeds the same ones and
+    holds lanes `host_env_slice(num_envs)` of the fleet; `save` and
+    `evaluate` are then collective (every rank calls them).
     """
 
     def __init__(self, config: Dict[str, Any], seed: int = 42,
-                 total_timesteps: Optional[int] = None, device="cuda"):
+                 total_timesteps: Optional[int] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh or mesh_from_config(config, self.device)
         self.ppo = ppo_config_from(config, total_timesteps)
+        if self.mesh.distributed and self.ppo.uses_search:
+            raise ValueError(
+                "search configs (ppo.uses_search) train in one process only: "
+                f"this group has {self.mesh.world_size} ranks (ROADMAP.md "
+                "Queue 1, 'search configs at world size > 1')")
+        self.lanes = host_env_slice(self.ppo.num_envs)
         self.rewards = reward_config_from(config)
         network = network_from_config(
             config.get("network", {}),
             generator=torch.Generator().manual_seed(seed)).to(self.device)
+        if self.mesh.distributed:
+            # Every rank drew these from the same seed; rank 0's are the
+            # run's, whatever another rank's torch build drew.
+            replicate_tree(network.state_dict())
         self.train_state = TrainState(network, make_optimizer(self.ppo, network))
         self.rngs = {name: make_generator(seed + i, self.device)
                      for i, name in enumerate(RNG_NAMES)}
-        self.env_state = reset(self.ppo.num_envs, self.rngs["fleet"], self.device)
+        start, count = self.lanes
+        self.env_state = reset(count, self.rngs["fleet"], self.device, start,
+                               self.ppo.num_envs)
         self.global_step = 0
         self._loaded_extra: Dict[str, Any] = {}
 
@@ -152,7 +182,17 @@ class PPOTrainer:
         """Evaluate the current policy (greedy by default) through
         `bbx_torch.cli.evaluate.evaluate_policy`; `lookahead` plays
         policy+1-ply search at the run's gamma and `search_topk` (search
-        results, not the raw policy's)."""
+        results, not the raw policy's).  In a process group rank 0 plays
+        and broadcasts its numbers (the parameters are the same on every
+        rank), so every rank's `best` gate agrees."""
+        if self.mesh.distributed:
+            out = self._evaluate(num_episodes, seed, max_steps, chunk, stochastic,
+                                 lookahead) if self.mesh.rank == 0 else None
+            return broadcast_from_primary(out, self.mesh.cpu_group)
+        return self._evaluate(num_episodes, seed, max_steps, chunk, stochastic,
+                              lookahead)
+
+    def _evaluate(self, num_episodes, seed, max_steps, chunk, stochastic, lookahead):
         from ..cli.evaluate import evaluate_policy
 
         r = evaluate_policy(
@@ -181,15 +221,23 @@ class PPOTrainer:
         _, self.env_state, metrics = train_iteration(
             self.ppo, self.rewards, self.train_state, self.env_state,
             self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"],
-            self.rngs["search"])
+            self.rngs["search"], self.mesh)
         self.global_step += self.ppo.batch_size
         return metrics
 
     # ---- checkpointing ---------------------------------------------------
-    def _payload(self, extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    def _payload(self, extra: Optional[Dict[str, Any]] = None
+                 ) -> Optional[Dict[str, Any]]:
+        """The checkpoint's contents, the whole fleet gathered (as CPU
+        copies) to rank 0 in a process group: collective there, and None
+        on the other ranks."""
         ts = self.train_state
         env = {f.name: getattr(self.env_state, f.name)
                for f in dataclasses.fields(EnvState) if f.name != "rng"}
+        if self.mesh.distributed:
+            env = gather_to_primary(env, self.mesh.cpu_group)
+            if env is None:
+                return None
         payload = {
             "params": ts.network.state_dict(),
             "optimizer": ts.optimizer.state_dict(),
@@ -205,13 +253,23 @@ class PPOTrainer:
     def save(self, directory: str, name: str,
              extra: Optional[Dict[str, Any]] = None) -> str:
         """Save a full-state checkpoint and its ``.config.json`` sidecar
-        (the sections that rebuild the network and the run)."""
+        (the sections that rebuild the network and the run).  In a process
+        group every rank calls it: the fleet is gathered to rank 0, which
+        alone writes, and every rank returns once the file is written."""
         sidecar = {k: self.config[k] for k in ("network", "ppo", "rewards",
                                                "training") if k in self.config}
-        return save_checkpoint(directory, name, self._payload(extra),
-                               config=sidecar)
+        payload = self._payload(extra)
+        path = os.path.abspath(os.path.join(directory, name))
+        if payload is not None:
+            path = save_checkpoint(directory, name, payload, config=sidecar)
+        if self.mesh.distributed:
+            dist.barrier(group=self.mesh.cpu_group)
+        return path
 
     def load(self, path: str) -> None:
+        """Restore a full-state checkpoint (every rank reads the file and
+        keeps its lanes of the saved fleet, so a checkpoint of any world
+        size that divides the fleet loads)."""
         payload = load_checkpoint(path)
         ts = self.train_state
         ts.network.load_state_dict(payload["params"])
@@ -223,9 +281,10 @@ class PPOTrainer:
                 g.set_state(payload["rng_states"][name])
         env = payload["env_state"]
         if env["board"].shape[0] == self.ppo.num_envs:
+            env = shard_batched_tree(env, self.ppo.num_envs)
             self.env_state = EnvState(
                 **{k: v.to(self.device) for k, v in env.items()},
-                rng=self.rngs["fleet"])
+                rng=self.rngs["fleet"]).sharded(self.lanes[0], self.ppo.num_envs)
         self._loaded_extra = dict(payload.get("extra", {}) or {})
 
     def load_params_only(self, path: str) -> None:
@@ -236,24 +295,33 @@ def train(
     config: Dict[str, Any],
     resume_path: Optional[str] = None,
     seed: Optional[int] = None,
+    progress_callback: Optional[Callable[[Dict[str, Any]], bool]] = None,
     total_timesteps: Optional[int] = None,
     profile: bool = False,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """The training entry point (`bbx/agent/trainer.py:435`).
 
     Returns final stats.  `seed=None` takes `training.seed` (42 if
-    absent).  As in `bbx`: optional greedy eval every
-    `logging.eval_interval` updates (which then gates the `best`
-    checkpoint), a wall-clock budget (`training.max_hours`), exact resume,
-    and a SIGTERM that stops the loop at the next iteration boundary and
-    saves `final` + `latest`.  (bbx's `progress_callback` serves its GUI,
-    which is not ported yet.)  `profile=True` times the phases (each
-    iteration up to its metrics on the device), adds an `mfu` row
-    (`iteration_flops` over an iteration's wall time and the card's
-    `PEAK_FLOPS`) to each log line, writes one `torch.profiler` trace of
-    the iteration after update `TRACE_AT_UPDATE` into ``<log_dir>/trace``
-    and prints the phase report at the end.
+    absent).  `progress_callback(row)` is called at each log row with
+    ``{"step": global_step, **row}`` (bbx's keys; `mfu` only with
+    `profile`), on rank 0 in a process group; returning False stops the
+    loop, which then saves `final` as any stop does.  As in `bbx`: optional
+    greedy eval every `logging.eval_interval` updates (which then gates the
+    `best` checkpoint), a wall-clock budget (`training.max_hours`), exact
+    resume, and a SIGTERM that stops the loop at the next iteration
+    boundary and saves `final` + `latest`.  In a process group every rank
+    runs `train`: a stop that one rank sees (its SIGTERM, its clock, rank
+    0's callback) is agreed by all at the iteration boundary, since a rank
+    that stopped alone would leave the others waiting in the next
+    collective; logging, TensorBoard and the console are rank 0's.
+    `profile=True` times the phases (each iteration up to its metrics on
+    the device), adds an `mfu` row (`iteration_flops` over an iteration's
+    wall time and the group's `PEAK_FLOPS`) to each log line, writes one
+    `torch.profiler` trace of the iteration after update
+    `TRACE_AT_UPDATE` into ``<log_dir>/trace`` and prints the phase
+    report at the end.
     """
     tr_cfg = config.get("training", {})
     log_cfg = config.get("logging", {})
@@ -267,17 +335,22 @@ def train(
     log_dir = paths.get("log_dir", "logs")
     os.makedirs(ckpt_dir, exist_ok=True)
 
-    logger = Logger(log_dir, "ppo")
-    tb = TensorBoardLogger(log_dir, "ppo")
+    trainer = PPOTrainer(config, seed=seed, total_timesteps=total_timesteps,
+                         device=device, mesh=mesh)
+    mesh = trainer.mesh
+    primary = mesh.rank == 0
+    say = print if primary else (lambda *a, **k: None)
+    logger = Logger(log_dir, "ppo", console=primary, enabled=primary)
+    tb = TensorBoardLogger(log_dir, "ppo", enabled=primary)
     tracker = MetricsTracker(window_size=100)
     timer = PhaseTimer()
 
-    trainer = PPOTrainer(config, seed=seed, total_timesteps=total_timesteps,
-                         device=device)
-    print(f"device: {trainer.device}")
-    print(f"envs: {trainer.ppo.num_envs}  rollout: {trainer.ppo.rollout_steps}"
-          f"  batch/update: {trainer.ppo.batch_size}")
-    print(f"network parameters: {trainer.num_params:,}")
+    say(f"device: {trainer.device}")
+    if mesh.distributed:
+        say(f"mesh: {mesh.shape} ({mesh.backend}), {trainer.lanes[1]} envs a rank")
+    say(f"envs: {trainer.ppo.num_envs}  rollout: {trainer.ppo.rollout_steps}"
+        f"  batch/update: {trainer.ppo.batch_size}")
+    say(f"network parameters: {trainer.num_params:,}")
 
     best_score = -float("inf")
     best_eval = -float("inf")
@@ -286,14 +359,14 @@ def train(
         # Warm start: weights only -- fresh optimizer, schedules, fleet and
         # step counter.
         trainer.load_params_only(init_from)
-        print(f"initialized params from {init_from}")
+        say(f"initialized params from {init_from}")
     if resume_path:
         trainer.load(resume_path)
         best_score = trainer._loaded_extra.get("best_score", best_score)
         best_eval = trainer._loaded_extra.get("best_eval", best_eval)
         tracker.update_many("score", trainer._loaded_extra.get("tracker_scores", []))
         tracker.update_many("length", trainer._loaded_extra.get("tracker_lengths", []))
-        print(f"resumed from {resume_path} at step {trainer.global_step}")
+        say(f"resumed from {resume_path} at step {trainer.global_step}")
 
     log_interval = log_cfg.get("log_interval", 10)
     save_interval = log_cfg.get("save_interval", 100)
@@ -305,8 +378,10 @@ def train(
     dtype_name = str(dtype).removeprefix("torch.")
     peak_flops = device_peak_flops(trainer.device, dtype) if profile else None
     if profile and not peak_flops:
-        print(f"mfu: no peak known for the {device_name(trainer.device)} in "
-              f"{dtype_name}: no mfu row")
+        say(f"mfu: no peak known for the {device_name(trainer.device)} in "
+            f"{dtype_name}: no mfu row")
+    # Ranks that share a card share its peak.
+    num_devices = mesh.num_devices() if flops_per_iter and peak_flops else 1
 
     def _iterate():
         """One iteration, timed to its metrics on the device."""
@@ -319,6 +394,10 @@ def train(
         return {"best_score": best_score, "best_eval": best_eval,
                 "tracker_scores": tracker.values("score"),
                 "tracker_lengths": tracker.values("length")}
+
+    def _agreed(*flags: bool):
+        """Each flag, raised on any rank (themselves in one process)."""
+        return agree(*flags, group=mesh.cpu_group) if mesh.distributed else flags
 
     # A SIGTERM stops the loop at the next iteration boundary; the finally
     # block then saves a full-state checkpoint, so (train, SIGTERM, resume)
@@ -335,6 +414,8 @@ def train(
     iter_window = 0
     peak_shown = False
     stop = False
+    sigterm_seen = False
+    failed = False
     deadline = t_start + max_hours * 3600 if max_hours else None
 
     try:
@@ -351,13 +432,18 @@ def train(
                 update_idx += 1
                 steps_window += trainer.ppo.batch_size
                 iter_window += 1
-                print(f"profiler trace written to {trace_dir}")
+                say(f"profiler trace written to {trace_dir}")
 
+            # Each rank reports what it saw; the stop is the group's.
             if deadline and time.time() > deadline:
                 print(f"wall-clock budget ({max_hours}h) reached — stopping")
                 stop = True
             if preempted.is_set():
                 print("SIGTERM received — checkpointing and stopping")
+                stop = True
+            agreed_stop, sigterm_seen = _agreed(stop, preempted.is_set())
+            if agreed_stop and not stop:
+                print("another rank stopped — checkpointing and stopping")
                 stop = True
 
             if update_idx % log_interval == 0 or stop:
@@ -386,13 +472,16 @@ def train(
                     if key in metrics:
                         row[key] = metrics[key]
                 if flops_per_iter and peak_flops:
-                    row["mfu"] = flops_per_iter / sec_per_iter / peak_flops
+                    # The FLOPs of the global batch over every device's peak.
+                    row["mfu"] = (flops_per_iter / sec_per_iter
+                                  / (peak_flops * num_devices))
                     if not peak_shown:
                         peak_shown = True
-                        print(f"mfu: {flops_per_iter:,} matmul and convolution "
-                              f"FLOPs an iteration (recompute included) against "
-                              f"{peak_flops:.4g} FLOP/s, the dense {dtype_name} peak of "
-                              f"the {device_name(trainer.device)}")
+                        say(f"mfu: {flops_per_iter:,} matmul and convolution "
+                            f"FLOPs an iteration (recompute included) against "
+                            f"{peak_flops:.4g} FLOP/s on each of {num_devices} "
+                            f"device(s), the dense {dtype_name} peak of the "
+                            f"{device_name(trainer.device)}")
                 logger.log(row, step=trainer.global_step)
                 for k, v in row.items():
                     tag = ("performance/" if k in
@@ -401,11 +490,18 @@ def train(
                     tb.log_scalar(tag + k, v, trainer.global_step)
 
                 # Without in-run eval, `best` is gated on the rolling mean
-                # of stochastic rollout scores once the window has substance.
+                # of stochastic rollout scores once the window has substance
+                # (the metrics are global, so every rank's gate agrees and
+                # every rank joins the collective save).
                 if (not eval_interval
                         and row["avg_score"] > best_score and update_idx > 10):
                     best_score = row["avg_score"]
                     trainer.save(ckpt_dir, "best", extra=_extra())
+
+                if progress_callback is not None and primary:
+                    if progress_callback({"step": trainer.global_step, **row}) is False:
+                        stop = True
+                (stop,) = _agreed(stop)
 
             if eval_interval and (update_idx % eval_interval == 0 or stop):
                 with timer.phase("eval"):
@@ -413,10 +509,10 @@ def train(
                 logger.log(ev, step=trainer.global_step)
                 for k, v in ev.items():
                     tb.log_scalar("eval/" + k, v, trainer.global_step)
-                print(f"  eval @ {trainer.global_step}: "
-                      f"mean {ev['eval_score_mean']:.1f}  "
-                      f"max {ev['eval_score_max']:.0f}  "
-                      f"len {ev['eval_length_mean']:.1f}")
+                say(f"  eval @ {trainer.global_step}: "
+                    f"mean {ev['eval_score_mean']:.1f}  "
+                    f"max {ev['eval_score_max']:.0f}  "
+                    f"len {ev['eval_length_mean']:.1f}")
                 if ev["eval_score_mean"] > best_eval:
                     best_eval = ev["eval_score_mean"]
                     trainer.save(ckpt_dir, "best", extra=_extra())
@@ -426,20 +522,28 @@ def train(
                     trainer.save(ckpt_dir, f"checkpoint_{trainer.global_step}",
                                  extra=_extra())
                     trainer.save(ckpt_dir, "latest", extra=_extra())
-    except KeyboardInterrupt:
-        print("interrupted — saving final checkpoint")
+    except BaseException as e:
+        # An error or an interrupt one rank raised is not seen by the others
+        # (which may be inside a collective): a collective save would wait
+        # on ranks that never arrive.
+        failed = mesh.distributed
+        if failed or not isinstance(e, KeyboardInterrupt):
+            raise
+        say("interrupted — saving final checkpoint")
     finally:
-        trainer.save(ckpt_dir, "final", extra=_extra())
-        if preempted.is_set():
-            # Also refresh `latest`, so resume-from-latest picks up the
-            # preempted state.
-            trainer.save(ckpt_dir, "latest", extra=_extra())
+        if not failed:
+            trainer.save(ckpt_dir, "final", extra=_extra())
+            if sigterm_seen if mesh.distributed else preempted.is_set():
+                # Also refresh `latest`, so resume-from-latest picks up the
+                # preempted state (in a group, a SIGTERM any rank saw by the
+                # last boundary, so that every rank saves alike).
+                trainer.save(ckpt_dir, "latest", extra=_extra())
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
         logger.save_summary()
         tb.close()
         if profile:
-            print(timer.report())
+            say(timer.report())
 
     elapsed = time.time() - t_start
     return {

@@ -2,13 +2,28 @@
 
 Runs on the CUDA card unless ``--device cpu``.  On a machine without
 PyYAML, pass a ``.json`` config.
+
+Several processes train one run data-parallel when started by `torchrun`
+(or with its environment variables set):
+
+    torchrun --nproc_per_node=2 -m bbx_torch.cli.train --config CFG \\
+        --device cpu --backend gloo
+
+Each rank runs on ``--device`` (default ``cuda:<LOCAL_RANK>``).  The
+backend defaults to ``nccl`` on the card and ``gloo`` on the CPU; NCCL
+runs one rank a card, so two ranks that share one card need
+``--device cuda:0 --backend gloo``.
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch.distributed as dist
 
 from ..agent.trainer import train
 from ..device import resolve_device
+from ..parallel.distributed import BACKENDS, initialize_multihost
 from ..utils.config import load_config
 
 
@@ -22,20 +37,32 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="per-phase timing, an mfu row and one profiler "
                          "trace (into <log_dir>/trace)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; 'cpu' to run there)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda, or cuda:<LOCAL_RANK> "
+                         "under torchrun; 'cpu' to run there)")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="collective backend of a multi-process run (default "
+                         "nccl on the card, gloo on the CPU)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    config = load_config(args.config)
-    stats = train(
-        config,
-        resume_path=args.resume,
-        seed=args.seed,
-        total_timesteps=args.total_timesteps,
-        profile=args.profile,
-        device=device,
-    )
+    local_rank = os.environ.get("LOCAL_RANK")
+    device = resolve_device(args.device or (f"cuda:{local_rank}" if local_rank
+                                            else "cuda"))
+    grouped = initialize_multihost(backend=args.backend, device=device)
+    try:
+        stats = train(
+            load_config(args.config),
+            resume_path=args.resume,
+            seed=args.seed,
+            total_timesteps=args.total_timesteps,
+            profile=args.profile,
+            device=device,
+        )
+    finally:
+        if grouped:
+            dist.destroy_process_group()
+    if stats["trainer"].mesh.rank:
+        return 0
     # With in-run eval enabled, `best` is gated on eval score and the
     # rollout-mean best stays -inf; report whichever gate was active.
     if stats["best_eval"] > float("-inf"):

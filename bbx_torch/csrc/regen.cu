@@ -43,8 +43,11 @@
 //     block in static shared memory, with each piece's span
 //     (`bb_piece_span`); NO_CONFLICT_U64 (700 KB) stays in L2 and is read
 //     through the read-only path by the disjoint tier.
-// Draw j of lane i is the counter-based hash `regen_draw(seed, i, j)` that
-// the plain version computes too, so ids and attempts agree bit for bit.
+// Draw j of lane i is the counter-based hash `regen_draw(seed, lane_base +
+// i, j)` that the plain version computes too, so ids and attempts agree bit
+// for bit.  `lane_base` is the global index of the fleet's first lane: a
+// rank that owns lanes [lane_base, lane_base + n) of a fleet sharded over
+// ranks draws what those lanes draw in one process (0 for a whole fleet).
 // Bound: the bytes are 45 per lane plus the tables; the work is integer ALU
 // work in the exact tier on the draws the disjoint tier rejects.
 #include <cuda_runtime.h>
@@ -97,7 +100,8 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
              const int* __restrict__ shifts,
              const long long* __restrict__ anchor_ok,
              const long long* __restrict__ no_conflict,
-             int* __restrict__ out_ids, int* __restrict__ attempts, int n) {
+             int* __restrict__ out_ids, int* __restrict__ attempts, int n,
+             int lane_base) {
     constexpr int W = REGEN_THREADS;
     constexpr int NW = W / 32;
     __shared__ u64 s_place[BB_NUM_PIECES * BB_ANCHORS];
@@ -169,7 +173,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
                         for (int s = 0; s < 3; ++s) id[s] = s_id[q_best][s];
                     } else {
                         const uint32_t key =
-                            bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)lane) ^
+                            bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)(lane_base + lane)) ^
                                         (uint32_t)(REGEN_MAX_ATTEMPTS - 1));
                         for (int s = 0; s < 3; ++s) id[s] = regen_shape(key, s);
                     }
@@ -207,7 +211,7 @@ regen_kernel(const long long* __restrict__ bits, const int* __restrict__ ids,
         const int k = s_lane[w];
         if (k >= 0) {
             const int lane = base + k;
-            const uint32_t key = bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)lane) ^
+            const uint32_t key = bbx_mix32(bbx_mix32(seed_key ^ (uint32_t)(lane_base + lane)) ^
                                              (uint32_t)s_attempt[w]);
             int id[3];
             u64 v[3];
@@ -255,13 +259,13 @@ extern "C" int bbx_regen(const void* bits, const void* ids, const void* need,
                          const void* seed, const void* place,
                          const void* shifts, const void* anchor_ok,
                          const void* no_conflict, void* out_ids,
-                         void* attempts, int n, void* stream) {
+                         void* attempts, int n, int lane_base, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     BBX_LAUNCH(regen_kernel, (n + REGEN_CHUNK - 1) / REGEN_CHUNK, REGEN_THREADS,
                stream, (const long long*)bits, (const int*)ids,
                (const unsigned char*)need, (const long long*)seed,
                (const long long*)place, (const int*)shifts,
                (const long long*)anchor_ok, (const long long*)no_conflict,
-               (int*)out_ids, (int*)attempts, n);
+               (int*)out_ids, (int*)attempts, n, lane_base);
     return (int)cudaGetLastError();
 }

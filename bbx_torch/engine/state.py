@@ -11,7 +11,15 @@ round loop `regen_pieces_plain` for CPU tensors, the fused CUDA kernel K7
 for CUDA tensors, counting its launches in ``regen_pieces.launches``.
 Its draws are a counter-based hash of (seed, lane, attempt), `regen_draw`,
 which both versions compute: one seed per `step` comes from the fleet's
-generator as a device tensor, so a resumed generator resumes the draws.  The hash is a 32-bit xorshift-multiply mix
+generator as a device tensor, so a resumed generator resumes the draws.
+
+A fleet may be one rank's shard of a fleet sharded over ranks
+(`bbx_torch.parallel`): `EnvState.lane_base` is the global index of its
+first lane and `EnvState.global_lanes` the global lane count (0 and its own
+N for a whole fleet).  Every rank then draws its fresh triples at the
+global shape and keeps its rows, and regen hashes the global lane, so rank
+r's lanes draw what lanes [lane_base, lane_base + N) draw in one process
+and the ranks' generators stay in lockstep.  The hash is a 32-bit xorshift-multiply mix
 with multipliers below 2**31, because PyTorch on the CPU has no right
 shift for unsigned types and the plain version must keep its int64
 products below 2**63; a word becomes a shape by ``(w * 37) >> 32``.
@@ -56,16 +64,42 @@ class EnvState:
     ep_len: torch.Tensor        # [N] int32
     rng: Optional[torch.Generator]  # the fleet's generator, on its device
 
+    # The fleet's place in a fleet sharded over ranks: the global index of
+    # its first lane, and the global lane count (None: its own N).  Plain
+    # class attributes, not dataclass fields, which are the per-lane
+    # tensors and the generator; `replace` and `step` carry them.
+    lane_base = 0
+    _global_lanes = None
+
     @property
     def num_envs(self) -> int:
         return self.board.shape[0]
 
     @property
+    def global_lanes(self) -> int:
+        return self._global_lanes or self.num_envs
+
+    @property
     def device(self) -> torch.device:
         return self.board.device
 
+    def sharded(self, lane_base: int, global_lanes: int) -> "EnvState":
+        """This state as lanes [lane_base, lane_base + N) of a fleet of
+        `global_lanes` (in place; returns self)."""
+        if not 0 <= lane_base <= global_lanes - self.num_envs:
+            raise ValueError(f"lanes [{lane_base}, {lane_base + self.num_envs}) "
+                             f"outside a fleet of {global_lanes}")
+        self.lane_base = lane_base
+        self._global_lanes = global_lanes
+        return self
+
+    def with_shard_of(self, other: "EnvState") -> "EnvState":
+        """This state placed where `other` is (in place; returns self)."""
+        self.lane_base, self._global_lanes = other.lane_base, other._global_lanes
+        return self
+
     def replace(self, **changes) -> "EnvState":
-        return replace(self, **changes)
+        return replace(self, **changes).with_shard_of(self)
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -82,14 +116,18 @@ def _draw(n: int, rng: torch.Generator, device) -> torch.Tensor:
                          generator=rng, device=device, dtype=torch.int32)
 
 
-def fresh_pieces(n: int, rng: torch.Generator, device) -> torch.Tensor:
-    """Piece draw for an *empty* board.
+def fresh_pieces(n: int, rng: torch.Generator, device, lane_base: int = 0,
+                 global_lanes: Optional[int] = None) -> torch.Tensor:
+    """Piece draw for an *empty* board: lanes [lane_base, lane_base + n) of
+    a draw for `global_lanes` lanes (default n).
 
     On an empty board every triple of the 37 shapes admits three pairwise-
     disjoint placements (checked exhaustively in the tests), so the retry
     loop would accept the first draw: one unchecked draw is identical.
     """
-    return _draw(n, rng, device)
+    if not global_lanes or global_lanes == n:
+        return _draw(n, rng, device)
+    return _draw(global_lanes, rng, device)[lane_base:lane_base + n]
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +185,7 @@ def _verdict_plain(bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def regen_pieces_plain(bits: torch.Tensor, piece_ids: torch.Tensor,
-                       seed: torch.Tensor, need: torch.Tensor):
+                       seed: torch.Tensor, need: torch.Tensor, lane_base: int = 0):
     """Plain version of `regen_pieces`: a round loop, each round drawing
     attempt j for every lane still in need (compacted with `nonzero`) and
     keeping the lanes whose draw the verdict rejects."""
@@ -155,7 +193,7 @@ def regen_pieces_plain(bits: torch.Tensor, piece_ids: torch.Tensor,
     ids = piece_ids.clone()
     attempts = torch.zeros(n, dtype=torch.int32, device=bits.device)
     todo = need.nonzero().squeeze(1)
-    keys = lane_keys(seed, todo)
+    keys = lane_keys(seed, todo + lane_base)
     for j in range(MAX_REGEN_ATTEMPTS):
         if todo.numel() == 0:
             break
@@ -168,13 +206,14 @@ def regen_pieces_plain(bits: torch.Tensor, piece_ids: torch.Tensor,
 
 
 def regen_pieces(bits: torch.Tensor, piece_ids: torch.Tensor,
-                 seed: torch.Tensor, need: torch.Tensor):
+                 seed: torch.Tensor, need: torch.Tensor, lane_base: int = 0):
     """Redraw piece triples until solvable, for the lanes in `need`.
 
     Faithful to the reference's `_generate_new_pieces`: up to
     `MAX_REGEN_ATTEMPTS` iid draws per lane, the first solvable draw (by
     attempt index) wins, and if none passes the 100th draw is kept (the
-    game then ends).  Draw j of lane i is ``regen_draw(seed, i, j)``.
+    game then ends).  Draw j of lane i is ``regen_draw(seed, lane_base + i,
+    j)``: `lane_base` is the global index of lane 0 (`EnvState.lane_base`).
 
     Args:
       bits: [N, 2] int64 bitboards of the new boards (fixed during the
@@ -182,16 +221,17 @@ def regen_pieces(bits: torch.Tensor, piece_ids: torch.Tensor,
       piece_ids: [N, 3] int32 (returned untouched where ~need).
       seed: 0-dim int64 tensor on the boards' device (`regen_seed`).
       need: [N] bool.
+      lane_base: int, the global index of lane 0.
     Returns:
       (ids [N, 3] int32, attempts [N] int32: the draws each lane used, 0
       where ~need).
     """
     if not bits.is_cuda:
-        return regen_pieces_plain(bits, piece_ids, seed, need)
-    return _regen_pieces_cuda(bits, piece_ids, seed, need)
+        return regen_pieces_plain(bits, piece_ids, seed, need, lane_base)
+    return _regen_pieces_cuda(bits, piece_ids, seed, need, lane_base)
 
 
-def _regen_pieces_cuda(bits, piece_ids, seed, need):
+def _regen_pieces_cuda(bits, piece_ids, seed, need, lane_base=0):
     """K7 on the card: one block for each chunk of 32 lanes."""
     n = bits.shape[0]
     seed = seed.reshape(())
@@ -202,18 +242,21 @@ def _regen_pieces_cuda(bits, piece_ids, seed, need):
         ("regen_pieces: seed", seed, torch.int64, ())))
     return _launch_regen(bits.data_ptr(), piece_ids.data_ptr(), need.data_ptr(),
                          seed.data_ptr(), n, bits.device, build.stream_of(bits),
-                         tables(bits.device))
+                         tables(bits.device), lane_base)
 
 
-def _launch_regen(bits, piece_ids, need, seed, n, device, stream, tb):
+def _launch_regen(bits, piece_ids, need, seed, n, device, stream, tb, lane_base=0):
     """K7 on checked inputs given as device pointers: (ids, attempts)."""
+    if lane_base < 0 or lane_base + n >= 2**31:
+        raise ValueError(f"regen_pieces: lanes [{lane_base}, {lane_base + n}) outside "
+                         "K7's int32 lane index")
     ids = torch.empty((n, PIECES_PER_TURN), dtype=torch.int32, device=device)
     attempts = torch.empty(n, dtype=torch.int32, device=device)
     err = build.function("regen")(
         bits, piece_ids, need, seed, tb.PLACE_U64.data_ptr(),
         tb.PIECE_SHIFTS_I32.data_ptr(), tb.ANCHOR_OK_U64.data_ptr(),
         tb.NO_CONFLICT_U64.data_ptr(), ids.data_ptr(), attempts.data_ptr(), n,
-        stream)
+        lane_base, stream)
     build.check("regen", err)
     if n:
         regen_pieces.launches += 1
@@ -223,13 +266,16 @@ def _launch_regen(bits, piece_ids, need, seed, n, device, stream, tb):
 regen_pieces.launches = 0
 
 
-def reset(num_envs: int, rng: torch.Generator, device) -> EnvState:
-    """Fresh batch of `num_envs` games on `device`."""
+def reset(num_envs: int, rng: torch.Generator, device, lane_base: int = 0,
+          global_lanes: Optional[int] = None) -> EnvState:
+    """Fresh batch of `num_envs` games on `device`: lanes [lane_base,
+    lane_base + num_envs) of a fleet of `global_lanes` (default num_envs),
+    whose fresh triples are drawn at the global shape."""
     n = num_envs
     z = torch.zeros(n, dtype=torch.int32, device=device)
-    return EnvState(
+    state = EnvState(
         board=empty_boards(n, device),
-        piece_ids=fresh_pieces(n, rng, device),
+        piece_ids=fresh_pieces(n, rng, device, lane_base, global_lanes),
         used=torch.zeros((n, PIECES_PER_TURN), dtype=torch.bool, device=device),
         score=z,
         streak=z.clone(),
@@ -244,6 +290,7 @@ def reset(num_envs: int, rng: torch.Generator, device) -> EnvState:
         ep_len=z.clone(),
         rng=rng,
     )
+    return state.sharded(lane_base, global_lanes or n)
 
 
 def from_components(board, piece_ids, used, score=None, streak=None,

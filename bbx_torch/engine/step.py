@@ -423,7 +423,7 @@ def _step_finish_plain(state: EnvState, moved: Moved, ids_after: torch.Tensor,
                              tb.ANCHOR_OK[new_state.piece_ids.long()], valid3)
 
     obs = observe(new_state, valid3)
-    return new_state, obs, reward, game_over_now, info
+    return new_state.with_shard_of(state), obs, reward, game_over_now, info
 
 
 def _reward_coefficients(rc: RewardConfig) -> tuple:
@@ -516,7 +516,7 @@ def _finish_views(state: EnvState, words, raw, moved: MoveBlocks):
         "final_return": final_return, "final_lines": lines_i,
         "final_max_combo": max_streak_i,
     }
-    return new_state, obs, reward, game_over, info
+    return new_state.with_shard_of(state), obs, reward, game_over, info
 
 
 
@@ -550,8 +550,10 @@ def _step_plain(state, actions, reward_config, auto_reset) -> StepOutput:
     # One seed per step, drawn whether or not a lane needs it, so the
     # generator advances alike on every step.
     seed = regen_seed(state.rng, state.device)
-    ids, attempts = regen_pieces_plain(moved.bits, state.piece_ids, seed, moved.need)
-    fresh = fresh_pieces(state.num_envs, state.rng, state.device) if auto_reset else None
+    ids, attempts = regen_pieces_plain(moved.bits, state.piece_ids, seed, moved.need,
+                                       state.lane_base)
+    fresh = (fresh_pieces(state.num_envs, state.rng, state.device, state.lane_base,
+                          state.global_lanes) if auto_reset else None)
     return StepOutput(*_step_finish_plain(state, moved, ids, fresh, reward_config,
                                           auto_reset), attempts)
 
@@ -569,7 +571,8 @@ def _step_cuda(state, actions, reward_config, auto_reset) -> StepOutput:
     seed = regen_seed(state.rng, dev)
     ids, attempts = _launch_regen(moved.ptrs["bits"], state.piece_ids.data_ptr(),
                                   moved.ptrs["need"], seed.data_ptr(), n, dev,
-                                  stream, tb)
-    fresh = fresh_pieces(n, state.rng, dev) if auto_reset else None
+                                  stream, tb, state.lane_base)
+    fresh = (fresh_pieces(n, state.rng, dev, state.lane_base, state.global_lanes)
+             if auto_reset else None)
     return StepOutput(*_step_finish_cuda(state, moved, ids, fresh, reward_config,
                                          auto_reset, stream, tb), attempts)

@@ -611,7 +611,8 @@ class AfterstateNetwork(nn.Module):
     -> (logits [B,192] f32, value [B] f32)``; ``value(board, pieces)`` is
     the value alone (what the one-ply search reads).  The network has no
     dropout and no BatchNorm, so train and eval mode are the same function
-    and the ``generator`` argument that `BlockBlastNetwork` takes is unused.
+    and the ``generator`` and ``shard`` arguments that `BlockBlastNetwork`
+    takes are unused: each row's outputs depend on that row alone.
     """
 
     def __init__(self, eval_channels: Sequence[int] = (24, 24),
@@ -684,9 +685,9 @@ class AfterstateNetwork(nn.Module):
 
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, shard=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        del generator  # no dropout
+        del generator, shard  # no dropout, no batch statistics
         dt = self.compute_dtype
         b = board.shape[0]
         board = board.to(torch.float32).contiguous()

@@ -17,11 +17,15 @@ def mask_logits(logits: torch.Tensor, action_mask: torch.Tensor) -> torch.Tensor
     return torch.where(action_mask > 0, logits, MASKED_LOGIT)
 
 
-def sample(rng: torch.Generator, masked: torch.Tensor) -> torch.Tensor:
+def sample(rng: torch.Generator, masked: torch.Tensor, shard=None) -> torch.Tensor:
     """Sample from the masked categorical ([B, A] logits -> [B] int32), by
-    the Gumbel-max trick."""
-    u = torch.rand(masked.shape, generator=rng, device=masked.device,
-                   dtype=torch.float32)
+    the Gumbel-max trick.  With `shard` (a `bbx_torch.parallel.BatchShard`:
+    these B rows of a global batch) the noise is drawn for the global batch
+    and this rank's rows kept, so every rank's generator stays in step."""
+    shape = masked.shape if shard is None else (shard.total, *masked.shape[1:])
+    u = torch.rand(shape, generator=rng, device=masked.device, dtype=torch.float32)
+    if shard is not None:
+        u = shard.take(u)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
     return torch.argmax(masked.float() + gumbel, dim=-1).to(torch.int32)

@@ -19,6 +19,13 @@ The norms follow Flax, not `torch.nn`:
   * GroupNorm: ``min(32, C)`` groups, eps 1e-6.
 Dropout draws its mask from an explicit `torch.Generator` passed to
 `forward` (``F.dropout`` takes none); it is live only in train mode.
+
+Data parallelism (`bbx_torch.parallel`): `forward`'s ``shard`` (a
+`BatchShard`) says which rows of a global batch this rank holds.  Train-mode
+BatchNorm then takes its mean and E[x^2] over the global batch (the
+per-rank sums all-reduced, differentiably, as bbx's cross-replica
+BatchNorm reduces over its ``axis_name``), and each dropout mask is drawn
+at the global batch's shape and this rank's rows kept.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .afterstate import _conv, _dense, _kaiming_uniform_
 from .distributions import mask_logits
 from .flops import conv_layer, linear_layer
@@ -57,7 +65,7 @@ class _Norm(nn.Module):
             self.register_buffer("running_var", torch.ones(channels))
         self.groups = min(32, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if self.kind == "none":
             return x
         # At least float32, as Flax's `force_float32_reductions` promotes.
@@ -71,8 +79,16 @@ class _Norm(nn.Module):
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
             return y.to(x.dtype)
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            if shard is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                c = xf.shape[1]
+                sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                 (xf * xf).sum(dim=(0, 2, 3))]))
+                sums = sums / (shard.total * xf.shape[2] * xf.shape[3])
+                mean, sq = sums[:c], sums[c:]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1.0 - BN_MOMENTUM) * mean)
@@ -85,14 +101,19 @@ class _Norm(nn.Module):
         return y.to(x.dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             shard=None):
     """Flax's Dropout: keep with probability 1 - rate, scale kept values by
-    1 / (1 - rate), the mask from `generator`."""
+    1 / (1 - rate), the mask from `generator` (drawn for `shard`'s global
+    batch and cut to its rows, where given)."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator: pass "
                          "forward(..., generator=...)")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape = x.shape if shard is None else (shard.total, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if shard is not None:
+        keep = shard.take(keep)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -112,9 +133,9 @@ class ResidualBlock(nn.Module):
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
         self.norm1 = _Norm(norm, channels)
 
-    def forward(self, x: torch.Tensor, dt) -> torch.Tensor:
-        y = F.relu(self.norm0(_conv(x, self.conv0, dt)))
-        y = self.norm1(_conv(y, self.conv1, dt))
+    def forward(self, x: torch.Tensor, dt, shard=None) -> torch.Tensor:
+        y = F.relu(self.norm0(_conv(x, self.conv0, dt), shard))
+        y = self.norm1(_conv(y, self.conv1, dt), shard)
         return F.relu(y + x)
 
 
@@ -122,9 +143,10 @@ class BlockBlastNetwork(nn.Module):
     """Shared-trunk policy/value CNN, about 5M parameters at the defaults.
 
     ``forward(board [B,8,8], pieces [B,3,8,8], action_mask [B,192] | None,
-    generator=None) -> (logits [B,192] f32, value [B] f32)``; `generator`
-    draws the dropout masks and is needed in train mode when
-    ``dropout_rate > 0``.
+    generator=None, shard=None) -> (logits [B,192] f32, value [B] f32)``;
+    `generator` draws the dropout masks and is needed in train mode when
+    ``dropout_rate > 0``; `shard` places the B rows in a global batch
+    (module docstring).
     """
 
     def __init__(self, conv_channels: Sequence[int] = (64, 128, 128),
@@ -164,18 +186,18 @@ class BlockBlastNetwork(nn.Module):
                     m.weight.copy_(w)
                     m.bias.zero_()
 
-    def _trunk(self, board, pieces, generator) -> torch.Tensor:
+    def _trunk(self, board, pieces, generator, shard=None) -> torch.Tensor:
         dt = self.compute_dtype
         x = _planes(board, pieces, dt)
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            x = F.relu(norm(_conv(x, conv, dt)))
+            x = F.relu(norm(_conv(x, conv, dt), shard))
             if i > 0 and self.blocks:
-                x = self.blocks[i - 1](x, dt)
-        x = x.reshape(x.shape[0], -1)
+                x = self.blocks[i - 1](x, dt, shard)
+        x = x.flatten(1)  # a rank may hold no row of a minibatch
         for layer in self.fc:
             x = F.relu(_dense(x, layer, dt))
             if self.training and self.dropout_rate > 0.0:
-                x = _dropout(x, self.dropout_rate, generator)
+                x = _dropout(x, self.dropout_rate, generator, shard)
         return x
 
     def flop_layers(self, batch: int) -> list:
@@ -191,6 +213,14 @@ class BlockBlastNetwork(nn.Module):
             *self.fc, self.policy_hidden, self.policy_out, self.value_hidden,
             self.value_out)]
 
+    @property
+    def lockstep_forward(self) -> bool:
+        """Does a train-mode forward couple the batch's rows (BatchNorm) or
+        draw dropout masks?  Then every rank runs it, even on no rows, to
+        join its reductions and keep its generator in lockstep."""
+        return any(n.kind == "batch" for n in self.norms) or (
+            self.training and self.dropout_rate > 0.0)
+
     def _value_head(self, x: torch.Tensor) -> torch.Tensor:
         v = F.relu(_dense(x, self.value_hidden, self.compute_dtype))
         return _dense(v, self.value_out, self.compute_dtype)[:, 0].to(torch.float32)
@@ -202,10 +232,10 @@ class BlockBlastNetwork(nn.Module):
 
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, shard=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = self.compute_dtype
-        x = self._trunk(board, pieces, generator)
+        x = self._trunk(board, pieces, generator, shard)
         p = F.relu(_dense(x, self.policy_hidden, dt))
         logits = _dense(p, self.policy_out, dt).to(torch.float32)
         value = self._value_head(x)
@@ -251,9 +281,9 @@ class ActorCritic(nn.Module):
 
     def forward(self, board: torch.Tensor, pieces: torch.Tensor,
                 action_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, shard=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        del generator  # no dropout
+        del generator, shard  # no dropout, no batch statistics
         dt = self.compute_dtype
         x = _planes(board, pieces, dt)
         for conv in self.convs:

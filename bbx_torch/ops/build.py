@@ -13,6 +13,7 @@ Every exported C function launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -67,8 +68,8 @@ SIGNATURES = {
     "step_finish": ("move", "bbx_step_finish",
                     [_P] * 28 + [_F] * 7 + [_I, _P, _P, _I, _P]),
     # bits, ids, need, seed, place, shifts, anchor_ok, no_conflict,
-    # out_ids, attempts, n, stream
-    "regen": ("regen", "bbx_regen", [_P] * 10 + [_I, _P]),
+    # out_ids, attempts, n, lane_base, stream
+    "regen": ("regen", "bbx_regen", [_P] * 10 + [_I, _I, _P]),
     # planes, feats, ctx, the 8 evaluator parameters, layout, scores, b,
     # c1, c2, h, d, element size, stream
     "evaluator": ("evaluator", "bbx_evaluator", [_P] * 13 + [_I] * 6 + [_P]),
@@ -123,10 +124,31 @@ def build_all() -> dict:
 
     Returns ``{"seconds": wall time, "ptxas": {name: nvcc's -Xptxas -v
     report}}``; raises with nvcc's output if any source fails to compile.
+    Processes that reach it at once (the ranks of a data-parallel run)
+    build one after another under a lock on the build directory, so the
+    later ones find the libraries built.
     """
     out = build_dir()
     os.makedirs(out, exist_ok=True)
     t0 = time.perf_counter()
+    with open(os.path.join(out, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _build_missing(out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    ptxas = {}
+    for name in SOURCES:
+        log = os.path.join(out, f"{name}.log")
+        if os.path.exists(log):
+            with open(log) as f:
+                ptxas[name] = f.read()
+    return {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
+
+
+def _build_missing(out: str) -> None:
+    """Compile the libraries missing from `out`, one nvcc a source, all at
+    once; raise with nvcc's output if any fails."""
     procs = {}
     for name, src in SOURCES.items():
         lib = os.path.join(out, f"lib{name}.so")
@@ -149,13 +171,6 @@ def build_all() -> dict:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    ptxas = {}
-    for name in SOURCES:
-        log = os.path.join(out, f"{name}.log")
-        if os.path.exists(log):
-            with open(log) as f:
-                ptxas[name] = f.read()
-    return {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
 
 
 def function(name: str):

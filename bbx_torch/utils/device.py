@@ -2,8 +2,8 @@
 
 `bbx_torch.device` resolves a device name (`resolve_device`, which raises
 for a CUDA device without a card); these helpers check, seed, describe and
-tidy it.  The port runs one process until `parallel/` is ported, so the
-process count is 1 and the index 0.
+tidy it.  The process count and index are those of the `torch.distributed`
+group (`bbx_torch.parallel`), 1 and 0 without one.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import device_name, resolve_device
+from ..parallel.distributed import rank, world_size
 
 
 def get_device(device="cuda") -> torch.device:
@@ -46,12 +47,13 @@ def get_device_info(device="cuda") -> Dict[str, Any]:
             "platform": "gpu",
             "device_kind": device_name(dev),
             "num_devices": n,
-            "num_processes": 1,
-            "process_index": 0,
+            "num_processes": world_size(),
+            "process_index": rank(),
             "devices": [f"cuda:{i}" for i in range(n)],
         }
     return {"platform": "cpu", "device_kind": "cpu", "num_devices": 1,
-            "num_processes": 1, "process_index": 0, "devices": ["cpu"]}
+            "num_processes": world_size(), "process_index": rank(),
+            "devices": ["cpu"]}
 
 
 def memory_stats(device: Optional[torch.device] = None) -> Dict[str, Any]:

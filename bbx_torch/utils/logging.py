@@ -2,8 +2,9 @@
 
 Counterpart of `bbx/utils/logging.py`, with the same API: `Logger` (JSONL
 + summary), `TensorBoardLogger` (a silent no-op without tensorboard),
-`MetricsTracker` (rolling window stats).  The port trains on one device,
-so ``enabled`` is the only gate on writing.
+`MetricsTracker` (rolling window stats).  ``enabled`` is the only gate
+on writing: the trainer enables them on rank 0 alone, as bbx enables them
+on its primary process.
 """
 from __future__ import annotations
 

@@ -123,7 +123,37 @@ Phases, each of which must pass (exit code 1 otherwise):
    `bbx_torch.cli.train --profile` for 21 iterations at a small fleet
    (run9's network and recipe at 64 x 32, minibatch 512): the `mfu` rows
    finite and in (0, 1], the phase report, the trace after update 20, the
-   train kernels launched; and run9's mfu over phase 8's iterations.
+   train kernels launched; and run9's mfu over phase 8's iterations;
+15. two ranks on the one card: this script's ``--parallel-rank`` mode,
+   started twice with the torchrun variables, runs the train CLI on cuda:0
+   under gloo with the launch counters set to 0 before and read after:
+   config/run9.yaml at full width (512 envs, 256 a rank) for 2 iterations
+   and the collective save of `final`, then config/default.yaml's flat CNN
+   (BatchNorm, dropout) for one, in bf16 and again in float32 without
+   TF32; each rank's rollouts, updates, gradient
+   all-reduces and save timed, and its parameters and buffers held bit for
+   bit equal to the other rank's after every update; against a 1-rank run
+   of each config and seed here: run9's first rollout statistics equal
+   (PARALLEL_EXACT), its first update's losses within PARALLEL_LOSS_RTOL /
+   PARALLEL_LOSS_ATOL, the flat CNN's BatchNorm running statistics after
+   the first rollout step within PARALLEL_BN_TOL, and in float32 without
+   TF32 its whole iteration (the first rollout's statistics equal, the
+   first step's running statistics and the first minibatch's losses
+   tight, the running statistics after the iteration and the update's
+   losses within PARALLEL_F32_*, beside a second 1-rank run's spread);
+   run9's 2-rank `final` resumed on 1 rank for one
+   iteration; K1, K4-K8, K8b, K8w launched on each rank (K4 and K8 not for
+   the flat CNN); K7 on rank 1's shard (256 lanes, lane base 256) against
+   its plain version and the whole fleet's rows, timed beside the whole
+   512 lanes (into the kernels line's K7 row); a 1-rank nccl group's
+   all-reduce through the gradient path.  Two ranks share one card: their
+   times are no scaling number;
+16. the GUI's workers: `TrainingRunner` at 64 x 32 on run9's network,
+   stopped by its callback after 2 rows with `final` written, and
+   `watch_frames` for 50 moves (game after game, as the watch page plays)
+   of phase 5's seeded run9 network from a checkpoint, equal move for
+   move to `PolicyAgent` on `BlockBlastEnv`,
+   each with the launch counters set to 0 before and read after.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels' numbers, and
@@ -133,6 +163,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -274,6 +305,21 @@ PATH_KERNELS = {
                       "_step_finish_cuda", "regen_pieces", "evaluator_scores",
                       "_evaluator_grad_tiles", "_evaluator_grad_dense0",
                       "_evaluator_grad_reduce"),
+    # Phase 15, on each rank: run9 (K1-K8 and K8's backward) and the flat
+    # CNN (no K4 or K8).
+    "parallel": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
+                 "_step_finish_cuda", "regen_pieces", "evaluator_scores",
+                 "_evaluator_grad_tiles", "_evaluator_grad_dense0",
+                 "_evaluator_grad_reduce"),
+    "parallel_cnn": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
+                     "regen_pieces"),
+    # Phase 16: the GUI's training runner and watch loop.
+    "gui_train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
+                  "_step_finish_cuda", "regen_pieces", "evaluator_scores",
+                  "_evaluator_grad_tiles", "_evaluator_grad_dense0",
+                  "_evaluator_grad_reduce"),
+    "gui_watch": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
+                  "regen_pieces", "evaluator_scores"),
 }
 # The kernels line's rows (one a kernel) and the launch counters each
 # sums: K6 has two entry points, `bbx_move` and `bbx_step_finish`.
@@ -1787,11 +1833,12 @@ def exact_ops(bits, ids, valid3, solvable) -> int:
     return 80 * (first + need)
 
 
-def regen_ops(bits, seed, need, attempts) -> int:
+def regen_ops(bits, seed, need, attempts, lane_base: int = 0) -> int:
     """32-bit operations K7 needs for these lanes, replaying every draw a
     lane made: per draw the hash (about 40) and three fits (about 40 each),
     then the disjoint tier as in K2's count, then, for the draws it rejects,
-    the exact tier as `exact_ops` counts it."""
+    the exact tier as `exact_ops` counts it.  Lane i hashes as lane_base +
+    i."""
     import torch
 
     from bbx_torch.engine import solvability as S
@@ -1805,7 +1852,7 @@ def regen_ops(bits, seed, need, attempts) -> int:
         if lanes.numel() == 0:
             break
         b = bits[lanes]
-        ids = ES.regen_draw(seed, lanes, j)
+        ids = ES.regen_draw(seed, lanes + lane_base, j)
         v3 = S.valid3_bits_plain(b, ids)
         pid = ids.long()
         m01 = S.unpack_cells(tb.NO_CONFLICT_BITS[pid[:, 0], pid[:, 1]]
@@ -3364,9 +3411,702 @@ def host_api_phase(device, report):
         raise AssertionError("; ".join(failures))
 
 
+# Phase 15: two ranks on the one card.  Each rank is this script run with
+# --parallel-rank (`parallel_rank`), which drives the train CLI under gloo
+# on cuda:0 and records its iterations.
+PARALLEL_RANKS = 2
+PARALLEL_ITERATIONS = 2
+PARALLEL_TIMEOUT_S = 420
+# The first update's losses, 2 ranks against 1 (bf16).  Its first
+# minibatch (the same parameters on both sides): each rank's sums over its
+# rows, added, against one rank's means; the rows' outputs may differ by a
+# bf16 rounding where cuDNN / cuBLAS pick another algorithm for the value
+# head and the context at half the rows, so within PARALLEL_FIRST_RTOL /
+# PARALLEL_FIRST_ATOL.  The update's averages over its 64 minibatch steps:
+# the ranks' float32 sums split the rows and K8b / K8w's tile sums
+# otherwise, so the parameters part in the last bits after the first Adam
+# step and bf16 activations (0.4% a rounding) round apart from then on:
+# within PARALLEL_LOSS_RTOL / PARALLEL_LOSS_ATOL (measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: the clip fraction 0.0800 against 0.0769, the approx
+# KL 0.00666 against 0.00648).
+PARALLEL_FIRST_RTOL = 2e-3
+PARALLEL_FIRST_ATOL = 1e-5
+PARALLEL_LOSS_RTOL = 1e-1
+PARALLEL_LOSS_ATOL = 5e-3
+PARALLEL_LOSSES = ("policy_loss", "value_loss", "entropy", "total_loss", "approx_kl",
+                   "clip_fraction")
+# The rollout statistics that an equal rollout makes equal (integer game
+# outcomes, summed in float32 below 2**24).
+PARALLEL_EXACT = ("episodes", "mean_score", "max_score", "mean_length", "invalid_frac")
+# The flat CNN's BatchNorm running statistics after the first rollout
+# step (one train-mode forward of the same fleet: the statistics of the
+# global batch), 2 ranks against 1: within PARALLEL_BN_TOL x the tensor's
+# largest |value| (bf16 activations of cuDNN convolutions at 32 rows and
+# at 64).  In bf16 the statistics after the whole iteration are reported,
+# not held: bf16 roundings flip sampled actions, the trajectories part,
+# and so do the statistics (on an NVIDIA H100 80GB HBM3 at 700 W: by up to
+# 26% of their largest value).  The same run in float32 without TF32
+# has every statistic of the first rollout equal to 1 rank's, and holds
+# the whole iteration.  The running statistics after the first rollout step
+# within PARALLEL_F32_BN_FIRST_TOL and the first minibatch's losses within
+# PARALLEL_F32_FIRST_RTOL / _ATOL: float32 sums split over 2 ranks
+# (measured on an NVIDIA H100 80GB HBM3 at 700 W: 2.1e-7 of the largest
+# value; the losses within 4e-7 relative).  From the update's second
+# minibatch on, the losses part as they do between two 1-rank runs on the
+# card (its backward is not deterministic: in three calls, 1 rank against
+# itself has the second or third minibatch apart by 7.7e-8 to 3.9e-7, the
+# update's averages by up to 2.5% and the running statistics after it by
+# up to 9.4% of the largest value; 2 ranks against 1, up to 2.2% and
+# 11.0%; scripts_dev/torch_parallel_spread.py): the update's
+# averaged losses within PARALLEL_F32_LOSS_RTOL / _ATOL and the running
+# statistics after the iteration within PARALLEL_F32_BN_TOL x the largest
+# |value|, the card's own spread with room (each phase also reports a
+# second 1-rank run against the first).
+PARALLEL_BN_TOL = 1e-2
+PARALLEL_F32_BN_FIRST_TOL = 1e-5
+PARALLEL_F32_FIRST_RTOL = 1e-5
+PARALLEL_F32_FIRST_ATOL = 1e-6
+PARALLEL_F32_BN_TOL = 0.25
+PARALLEL_F32_LOSS_RTOL = 1e-1
+PARALLEL_F32_LOSS_ATOL = 1e-3
+# config/default.yaml's `network:` and `training:` (the flat CNN with
+# BatchNorm and dropout, 64 envs x 128 steps, minibatch 2048, 10 epochs).
+DEFAULT_NETWORK = {"conv_channels": [64, 128, 128], "fc_hidden": [512, 256],
+                   "use_batch_norm": True, "use_residual": True,
+                   "compute_dtype": "bfloat16"}
+DEFAULT_TRAINING = {"num_envs": 64, "batch_size": 2048, "total_timesteps": 10000000,
+                    "rollout_steps": 128, "seed": 42}
+DEFAULT_PPO = {"learning_rate": 0.0003, "gamma": 0.99, "gae_lambda": 0.95,
+               "clip_epsilon": 0.2, "entropy_coef": 0.01, "value_coef": 0.5,
+               "max_grad_norm": 0.5, "num_epochs": 10}
+# Phase 16: the GUI's training runner at phase 14's small fleet, stopped
+# by its callback after GUI_ROWS rows; the watch loop for GUI_MOVES moves.
+GUI_ROWS = 2
+GUI_MOVES = 50
+
+
+class FirstRecords:
+    """While installed: the BatchNorm running statistics of `net` when the
+    first action is drawn (after the rollout's first forward), and each
+    minibatch's loss terms (`ppo_loss`'s metrics: `series`; `losses` the
+    first minibatch's)."""
+
+    def __init__(self):
+        self.net = None
+        self.bn = None
+        self.series = []
+
+    @property
+    def losses(self):
+        return self.series[0] if self.series else None
+
+    def __enter__(self):
+        from bbx_torch.agent import ppo as P
+        from bbx_torch.models import distributions as D
+
+        self._saved = (D, D.sample), (P, P.ppo_loss)
+        sample0, loss0 = D.sample, P.ppo_loss
+
+        def sample(*args, **kwargs):
+            if self.bn is None and self.net is not None:
+                self.bn = {name: buf.detach().double().cpu().reshape(-1).tolist()
+                           for name, buf in self.net.state_dict().items()
+                           if "running" in name}
+            return sample0(*args, **kwargs)
+
+        def ppo_loss(*args, **kwargs):
+            out = loss0(*args, **kwargs)
+            self.series.append({k: float(v.detach()) for k, v in out[1].items()})
+            return out
+
+        D.sample, P.ppo_loss = sample, ppo_loss
+        return self
+
+    def __exit__(self, *exc):
+        (D, sample0), (P, loss0) = self._saved
+        D.sample, P.ppo_loss = sample0, loss0
+
+
+def parallel_rank(cfg_path: str, out_path: str, seed: int, exact: bool = False) -> int:
+    """One rank of phase 15 (``--parallel-rank``): the train CLI on cuda:0
+    under gloo (the group from the torchrun variables the phase sets),
+    with the launch counters set to 0 before; each rollout, update,
+    gradient all-reduce and collective save timed between synchronises;
+    each iteration's metrics and whether the parameters and buffers are
+    bit for bit equal on every rank after it (a digest gathered from
+    each); `FirstRecords` (this rank's minibatch sums over its rows,
+    divided by the global minibatch).  With `exact`, float32 convolutions
+    and matmuls run in full float32 (no TF32).  Writes its record to
+    `out_path`; returns the CLI's code."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from bbx_torch.agent import ppo as P
+    from bbx_torch.agent import trainer as T
+    from bbx_torch.cli import train as cli_train
+    from bbx_torch.device import float32_exact
+
+    rec = {"rank": int(os.environ["RANK"]), "rollout_s": [], "update_s": [],
+           "allreduce_s": [], "save_s": [], "metrics": [], "same_params": []}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    iterate0 = T.PPOTrainer.iterate
+    first = FirstRecords()
+
+    def iterate(self):
+        first.net = self.network
+        metrics = iterate0(self)
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        digest = hashlib.sha256(b"".join(
+            v.detach().cpu().numpy().tobytes()
+            for v in self.network.state_dict().values())).hexdigest()
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, digest)
+        rec["same_params"].append(len(set(digests)) == 1)
+        return metrics
+
+    P.rollout, P.update = timed(P.rollout, "rollout_s"), timed(P.update, "update_s")
+    P.reduce_gradients = timed(P.reduce_gradients, "allreduce_s")
+    T.PPOTrainer.save = timed(T.PPOTrainer.save, "save_s")
+    T.PPOTrainer.iterate = iterate
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with first, (float32_exact() if exact else contextlib.nullcontext()):
+        rec["rc"] = cli_train.main(["--config", cfg_path, "--device", "cuda:0",
+                                    "--backend", "gloo", "--seed", str(seed)])
+    rec["launches"] = {name: fn.launches for name, fn in counters.items()}
+    rec["first_bn"], rec["first_losses"] = first.bn, first.losses
+    rec["loss_series"] = first.series
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return rec["rc"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cfg_path: str, work: str, seed: int, exact: bool = False) -> list:
+    """PARALLEL_RANKS processes of `parallel_rank` on cuda:0 (`exact`:
+    without TF32), started together; each wait has PARALLEL_TIMEOUT_S,
+    after which every rank is killed.  Returns each rank's record (raises
+    if one failed)."""
+    port = free_port()
+    procs, outs = [], []
+    for r in range(PARALLEL_RANKS):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(PARALLEL_RANKS), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(PARALLEL_RANKS))
+        out = os.path.join(work, f"rank{r}.json")
+        log_path = os.path.join(work, f"rank{r}.log")
+        outs.append((out, log_path))
+        with open(log_path, "w") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", cfg_path,
+                 out, str(seed), *(["exact"] if exact else [])], env=env, stdout=logf, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, (out, log_path)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or not os.path.exists(out):
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{tail}")
+        with open(out) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def k7_lane_base_case(device) -> dict:
+    """K7 on rank 1's shard of a 512-lane fleet (lanes 256-511, lane base
+    256) after a random valid move of reachable mid-game boards, against
+    `regen_pieces_plain` at the same base and against those lanes of the
+    whole fleet's K7 (base 0), each bit for bit; the shard's and the whole
+    fleet's times in turns."""
+    import torch
+
+    from bbx_torch.engine import state as ES
+    from bbx_torch.engine import step as ST
+
+    n, base = 2 * 256, 256
+    g = ES.make_generator(SEED, device)
+    state = ES.reset(n, g, device)
+    obs = ST.observe(state)
+    for _ in range(20):
+        u = torch.rand(obs["action_mask"].shape, generator=g, device=device)
+        out = ST.step(state, torch.where(obs["action_mask"], u, -1.0).argmax(1)
+                      .to(torch.int32))
+        state, obs = out.state, out.obs
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=device)
+    moved = ST._move_core(state, torch.where(obs["action_mask"], u, -1.0).argmax(1)
+                          .to(torch.int32))
+    seed = ES.regen_seed(g, device)
+    whole_in = (moved.bits, state.piece_ids, seed, moved.need)
+    part_in = (moved.bits[base:].contiguous(), state.piece_ids[base:].contiguous(), seed,
+               moved.need[base:].contiguous())
+    whole = ES.regen_pieces(*whole_in)
+    got = ES.regen_pieces(*part_in, lane_base=base)
+    want = ES.regen_pieces_plain(*part_in, lane_base=base)
+    equal = all(torch.equal(a, b) and torch.equal(a, w[base:])
+                for a, b, w in zip(got, want, whole))
+    times = {"shard": [], "whole": []}
+    for name in ("shard", "whole", "whole", "shard"):
+        fn = ((lambda: ES.regen_pieces(*part_in, lane_base=base)) if name == "shard"
+              else (lambda: ES.regen_pieces(*whole_in)))
+        times[name].append(time_ms(fn))
+    att = want[1][part_in[3]].to(torch.float64)
+    lanes = n - base
+    return {"lanes": lanes, "lane_base": base, "equal": equal,
+            # As `k7_case` counts them: the lanes' bytes, the seed, the tables.
+            "nbytes": lanes * (16 + 12 + 1 + 12 + 4) + 8 + 37 * 64 * 8 + 37 * 9 * 4
+            + 37 * 8 + 37 * 37 * 64 * 8,
+            "ops": regen_ops(part_in[0], seed, part_in[3], want[1], base),
+            "max_abs_err": max(max_abs_err(a, b) for a, b in zip(got, want)),
+            "needy": int(part_in[3].sum()), "attempts_mean": float(att.mean()),
+            "ms": min(times["shard"]), "ms_turns": times["shard"],
+            "whole_512_ms": min(times["whole"]), "whole_512_ms_turns": times["whole"],
+            "device_ms": kernel_device_ms(lambda: ES.regen_pieces(*part_in, lane_base=base),
+                                          "regen_kernel"),
+            "plain_ms": time_ms(lambda: ES.regen_pieces_plain(*part_in, lane_base=base),
+                                reps=3, inner=1)}
+
+
+def nccl_allreduce_case(device) -> dict:
+    """A 1-rank nccl group on the card, and one all-reduce of the run9
+    network's gradients through the trainer's gradient path
+    (`reduce_gradients`): the sum over one rank leaves them equal; its
+    time between synchronises."""
+    import torch
+    import torch.distributed as dist
+
+    from bbx_torch.models import network_from_config
+    from bbx_torch.parallel import initialize_multihost, reduce_gradients
+
+    if not initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                                device=device, timeout_s=120):
+        raise AssertionError("no nccl group formed")
+    try:
+        net = network_from_config(RUN9_NETWORK, generator=torch.Generator().manual_seed(SEED)
+                                  ).to(device)
+        for p in net.parameters():
+            p.grad = torch.randn_like(p)
+        before = [p.grad.clone() for p in net.parameters()]
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduce_gradients(net.parameters())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        equal = all(torch.equal(p.grad, b) for p, b in zip(net.parameters(), before))
+        return {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                "elements": sum(p.numel() for p in net.parameters()), "equal": equal,
+                "ms": times}
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(device, report):
+    """Phase 15: two ranks of the train CLI on the one card (gloo), for
+    run9 at full width (PARALLEL_ITERATIONS iterations, then the collective
+    save of `final`) and for one iteration of config/default.yaml's flat
+    CNN, each against a 1-rank run of the same config and seed in this
+    process; the 2-rank `final` resumed on 1 rank; K7 at a lane base; a
+    1-rank nccl all-reduce.  Two ranks share one card here: their times
+    are no scaling number."""
+    import torch
+
+    from bbx_torch.agent.trainer import PPOTrainer
+    from bbx_torch.device import float32_exact
+    from bbx_torch.utils.checkpoints import load_checkpoint
+
+    out = report.setdefault("parallel_run", {})
+    failures = []
+    root = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def config(name, ppo, training, network, iterations):
+        work = os.path.join(root, name)
+        os.makedirs(work)
+        per_iter = training["num_envs"] * training["rollout_steps"]
+        cfg = {"ppo": ppo, "network": network, "rewards": RUN9_REWARDS,
+               "training": dict(training, total_timesteps=iterations * per_iter),
+               "logging": {"log_interval": 1, "save_interval": 0, "eval_interval": 0},
+               "paths": {"checkpoint_dir": os.path.join(work, "checkpoints"),
+                         "log_dir": os.path.join(work, "logs")}}
+        path = os.path.join(work, "config.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f, indent=2)
+        return cfg, path, work
+
+    def reference(cfg, seed, exact=False):
+        """A 1-rank trainer of `cfg` after its first iteration (`exact`:
+        without TF32), that iteration's metrics, and its `FirstRecords`."""
+        trainer = PPOTrainer(cfg, seed=seed, device=device)
+        with FirstRecords() as first, (float32_exact() if exact
+                                       else contextlib.nullcontext()):
+            first.net = trainer.network
+            metrics = {k: float(v) for k, v in trainer.iterate().items()}
+        return trainer, metrics, first
+
+    def summary(recs):
+        res = {}
+        for rec in recs:
+            steps = len(rec["allreduce_s"]) // max(1, len(rec["update_s"]))
+            res[f"rank{rec['rank']}"] = {
+                "rollout_s": rec["rollout_s"], "update_s": rec["update_s"],
+                "allreduce_ms_a_minibatch": 1e3 * sum(rec["allreduce_s"])
+                / max(1, len(rec["allreduce_s"])),
+                "allreduce_s_an_update": sum(rec["allreduce_s"]) / max(1, len(rec["update_s"])),
+                "minibatch_steps_an_update": steps, "save_s": rec["save_s"],
+                "same_params": rec["same_params"], "launches": rec["launches"]}
+            log(f"  rank {rec['rank']}: rollout {rec['rollout_s']} s, update "
+                f"{rec['update_s']} s, gradient all-reduce "
+                f"{res[f'rank{rec['rank']}']['allreduce_ms_a_minibatch']:.3f} ms a minibatch "
+                f"({res[f'rank{rec['rank']}']['allreduce_s_an_update']:.3f} s an update of "
+                f"{steps} steps), collective save {rec['save_s']} s, parameters equal on "
+                f"every rank after each update: {rec['same_params']}")
+        return res
+
+    def launches_of(recs):
+        return {k: sum(r["launches"].get(k, 0) for r in recs) for k in recs[0]["launches"]}
+
+    # run9 at full width on 2 ranks, then 1 rank.
+    cfg, path, work = config("run9", RUN9_PPO, RUN9_TRAINING, RUN9_NETWORK,
+                             PARALLEL_ITERATIONS)
+    t0 = time.perf_counter()
+    recs = run_ranks(path, work, TRAIN_SEED)
+    wall = time.perf_counter() - t0
+    out["run9"] = summary(recs) | {"wall_s": wall}
+    report["parallel"] = {"launches": launches_of(recs)}
+    for rec in recs:
+        try:
+            check_launches("parallel", rec["launches"])
+        except AssertionError as e:
+            failures.append(f"rank {rec['rank']}: {e}")
+        if not all(rec["same_params"]) or len(rec["same_params"]) != PARALLEL_ITERATIONS:
+            failures.append(f"rank {rec['rank']}: parameters apart {rec['same_params']}")
+    ref_trainer, ref, ref_first = reference(cfg, TRAIN_SEED)
+    two = recs[0]["metrics"][0]
+    exact = {k: (two[k], ref[k]) for k in PARALLEL_EXACT}
+    first = {k: (sum(r["first_losses"][k] for r in recs), ref_first.losses[k])
+             for k in PARALLEL_LOSSES}
+    first = {k: (a, b, abs(a - b)) for k, (a, b) in first.items()}
+    losses = {k: (two[k], ref[k], abs(two[k] - ref[k])) for k in PARALLEL_LOSSES}
+    out["run9"].update(first_iteration_rollout=exact, first_minibatch_losses=first,
+                       first_update_losses=losses,
+                       tolerances={"first_minibatch": [PARALLEL_FIRST_RTOL,
+                                                       PARALLEL_FIRST_ATOL],
+                                   "update": [PARALLEL_LOSS_RTOL, PARALLEL_LOSS_ATOL]})
+    log(f"  run9, 2 ranks vs 1, first iteration's rollout: {exact}")
+    log(f"  run9, first minibatch's losses (2 ranks, 1 rank, |difference|): {first}")
+    log(f"  run9, first update's losses (2 ranks, 1 rank, |difference|): {losses}")
+    if any(a != b for a, b in exact.values()):
+        failures.append(f"first iteration's rollout statistics differ: {exact}")
+    for name, got, rtol, atol in (("first minibatch", first, PARALLEL_FIRST_RTOL,
+                                   PARALLEL_FIRST_ATOL),
+                                  ("first update", losses, PARALLEL_LOSS_RTOL,
+                                   PARALLEL_LOSS_ATOL)):
+        bad = [k for k, (a, b, d) in got.items() if not d <= atol + rtol * abs(b)]
+        if bad:
+            failures.append(f"{name}'s losses beyond tolerance: {bad}")
+    # The 2-rank `final`, resumed on 1 rank for one iteration.
+    resumed = PPOTrainer(cfg, seed=999, device=device)
+    resumed.load(os.path.join(cfg["paths"]["checkpoint_dir"], "final"))
+    step0 = resumed.global_step
+    m = {k: float(v) for k, v in resumed.iterate().items()}
+    out["run9"]["resumed_on_one_rank"] = {"from_step": step0, "metrics": m}
+    log(f"  the 2-rank final resumed on 1 rank at step {step0}: one iteration, "
+        f"finite: {all(math.isfinite(v) for v in m.values())}")
+    if step0 != PARALLEL_ITERATIONS * ref_trainer.ppo.batch_size or \
+            not all(math.isfinite(v) for v in m.values()):
+        failures.append(f"the resumed run: step {step0}, metrics {m}")
+    del ref_trainer, resumed
+
+    def flat_cnn(name, dtype, bn_tol, exact=False):
+        """One iteration of config/default.yaml's flat CNN (BatchNorm,
+        dropout) in `dtype` (`exact`: without TF32) on 2 ranks and on 1:
+        the phase's record of it, with the BatchNorm running statistics
+        after the first rollout step (held within `bn_tol` x the largest
+        |value|) and after the iteration, the first rollout's statistics
+        and the losses of the first minibatch, of each and of the update,
+        2 ranks against 1; and the ranks' launches."""
+        cfg, path, work = config(name, DEFAULT_PPO, DEFAULT_TRAINING,
+                                 dict(DEFAULT_NETWORK, compute_dtype=dtype), 1)
+        recs = run_ranks(path, work, TRAIN_SEED, exact)
+        res = summary(recs)
+        for rec in recs:
+            try:
+                check_launches("parallel_cnn", rec["launches"])
+            except AssertionError as e:
+                failures.append(f"flat CNN ({dtype}) rank {rec['rank']}: {e}")
+            if not all(rec["same_params"]):
+                failures.append(f"flat CNN ({dtype}) rank {rec['rank']}: parameters apart")
+        ref_trainer, ref, ref_first = reference(cfg, TRAIN_SEED, exact)
+        saved = load_checkpoint(os.path.join(cfg["paths"]["checkpoint_dir"],
+                                             "final"))["params"]
+        stats, after = {}, {}
+        for key, buf in ref_trainer.network.state_dict().items():
+            if "running" not in key:
+                continue
+            want = torch.tensor(ref_first.bn[key], dtype=torch.float64)
+            got = [torch.tensor(r["first_bn"][key], dtype=torch.float64) for r in recs]
+            top = float(want.abs().max())
+            err = float((got[0] - want).abs().max())
+            stats[key] = {"max_abs_err": err, "ref_max": top,
+                          "ranks_equal": all(torch.equal(g, got[0]) for g in got),
+                          "within": err <= bn_tol * top}
+            end = buf.cpu().double()
+            after[key] = {"max_abs_err": float((saved[key].double() - end).abs().max()),
+                          "ref_max": float(end.abs().max())}
+        two = recs[0]["metrics"][0]
+        series = [{k: sum(r["loss_series"][i][k] for r in recs) for k in PARALLEL_LOSSES}
+                  for i in range(min(len(r["loss_series"]) for r in recs))]
+        # Each minibatch's total loss, 2 ranks against 1: |difference| / |1 rank's|.
+        apart = [abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                 for a, b in zip(series, ref_first.series)]
+        res.update(
+            running_stats_first_step=stats, running_stats_after_iteration=after,
+            first_iteration_rollout={k: (two[k], ref[k]) for k in PARALLEL_EXACT},
+            first_minibatch_losses={k: (series[0][k], ref_first.losses[k],
+                                        abs(series[0][k] - ref_first.losses[k]))
+                                    for k in PARALLEL_LOSSES},
+            minibatch_total_loss_rel_diff=apart,
+            update_losses={k: (two[k], ref[k], abs(two[k] - ref[k]))
+                           for k in PARALLEL_LOSSES},
+            bn_tolerance=bn_tol)
+        log(f"  flat CNN ({dtype}) BatchNorm running statistics after the first "
+            f"rollout step, 2 ranks vs 1: largest |difference| "
+            f"{max(v['max_abs_err'] for v in stats.values()):.3g} over {len(stats)} "
+            f"tensors (largest |value| {max(v['ref_max'] for v in stats.values()):.3g}), "
+            f"equal on both ranks: {all(v['ranks_equal'] for v in stats.values())}, "
+            f"within tolerance: {all(v['within'] for v in stats.values())}; after the "
+            f"iteration: largest |difference| "
+            f"{max(v['max_abs_err'] for v in after.values()):.3g}, relative to the "
+            f"tensor's largest |value| "
+            f"{max(v['max_abs_err'] / max(v['ref_max'], 1e-30) for v in after.values()):.3g}"
+            f"; first rollout 2 ranks / 1: {res['first_iteration_rollout']}; the first "
+            f"minibatch's losses (2 ranks, 1 rank, |difference|): "
+            f"{res['first_minibatch_losses']}; each minibatch's total loss, "
+            f"|difference| / |1 rank's|: {apart}; the update's losses: "
+            f"{res['update_losses']}")
+        if not stats or not all(v["within"] and v["ranks_equal"] for v in stats.values()):
+            failures.append(f"flat CNN ({dtype}) running statistics beyond tolerance")
+        if exact:
+            # The card's own spread: the 1-rank run again, against the first.
+            again, ref2, first2 = reference(cfg, TRAIN_SEED, exact)
+            res["one_rank_again"] = {
+                "update_losses": {k: (ref2[k], ref[k], abs(ref2[k] - ref[k]))
+                                  for k in PARALLEL_LOSSES},
+                "minibatch_total_loss_rel_diff": [
+                    abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                    for a, b in zip(first2.series, ref_first.series)],
+                "running_stats_after_iteration_rel": max(
+                    float((v.cpu().double() - ref_trainer.network.state_dict()[k]
+                           .cpu().double()).abs().max()) / max(after[k]["ref_max"], 1e-30)
+                    for k, v in again.network.state_dict().items() if "running" in k)}
+            log(f"  flat CNN ({dtype}), 1 rank run again against its first run (the "
+                f"card's own spread): {res['one_rank_again']}")
+            del again
+        del ref_trainer
+        return recs, res
+
+    # The flat CNN as config/default.yaml runs it (bf16): its first step held.
+    recs, out["flat_cnn"] = flat_cnn("flat_cnn", "bfloat16", PARALLEL_BN_TOL)
+    report["parallel_cnn"] = {"launches": launches_of(recs)}
+    # In float32 without TF32 its whole iteration is held: the first
+    # rollout equal, the first step's running statistics and the first
+    # minibatch's losses tight, the running statistics after the iteration
+    # and the update's losses within the card's own run-to-run spread.
+    _, res = flat_cnn("flat_cnn_float32", "float32", PARALLEL_F32_BN_FIRST_TOL, exact=True)
+    out["flat_cnn_float32"] = res | {"tolerances": {
+        "bn_first_step": PARALLEL_F32_BN_FIRST_TOL,
+        "first_minibatch": [PARALLEL_F32_FIRST_RTOL, PARALLEL_F32_FIRST_ATOL],
+        "bn_after_iteration": PARALLEL_F32_BN_TOL,
+        "update_losses": [PARALLEL_F32_LOSS_RTOL, PARALLEL_F32_LOSS_ATOL]}}
+    bad = [k for k, (a, b, d) in res["first_minibatch_losses"].items()
+           if not d <= PARALLEL_F32_FIRST_ATOL + PARALLEL_F32_FIRST_RTOL * abs(b)]
+    if bad:
+        failures.append(f"flat CNN (float32): the first minibatch's losses beyond "
+                        f"tolerance: {bad}")
+    exact = res["first_iteration_rollout"]
+    if any(a != b for a, b in exact.values()):
+        failures.append(f"flat CNN (float32): first rollout's statistics differ: {exact}")
+    bad = [k for k, v in res["running_stats_after_iteration"].items()
+           if not v["max_abs_err"] <= PARALLEL_F32_BN_TOL * v["ref_max"]]
+    if bad:
+        failures.append(f"flat CNN (float32): running statistics after the iteration "
+                        f"beyond tolerance: {bad}")
+    bad = [k for k, (a, b, d) in res["update_losses"].items()
+           if not d <= PARALLEL_F32_LOSS_ATOL + PARALLEL_F32_LOSS_RTOL * abs(b)]
+    if bad:
+        failures.append(f"flat CNN (float32): the update's losses beyond tolerance: {bad}")
+
+    # K7 at a lane base, into the kernels line's K7 row.
+    case = with_bound(k7_lane_base_case(device))
+    out["k7_lane_base"] = case
+    for row in report.get("kernels", []):
+        if row["name"] == "regen_pieces":
+            row.setdefault("at_other_shapes", {})["rank_shard_256_lanes_base_256"] = case
+    log(f"  K7 at lane base 256 (256 lanes): equal={case['equal']}, {case['ms']:.4f} ms "
+        f"(device {case['device_ms']}); the whole 512 lanes {case['whole_512_ms']:.4f} ms; "
+        f"plain {case['plain_ms']:.3f} ms")
+    if not case["equal"]:
+        failures.append("K7 at lane base 256 differs from its plain version")
+
+    # A 1-rank nccl group and one all-reduce through the gradient path.
+    nccl = nccl_allreduce_case(device)
+    out["nccl"] = nccl
+    log(f"  nccl, 1 rank: all-reduce of {nccl['elements']:,} gradient elements "
+        f"{nccl['ms']} ms, gradients unchanged: {nccl['equal']}")
+    if not nccl["equal"] or nccl["backend"] != "nccl":
+        failures.append(f"nccl all-reduce: {nccl}")
+    log("  (two ranks share one card here: these times are no scaling number)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def gui_phase(device, report):
+    """Phase 16: the GUI's workers on the card.  `TrainingRunner` on run9's
+    network at phase 14's small fleet, stopped by its callback after
+    GUI_ROWS rows, `final` written; `watch_frames` for GUI_MOVES moves of
+    phase 5's seeded run9 network from a checkpoint, move for move equal to
+    `PolicyAgent` on `BlockBlastEnv`.  The launch counters are set to 0
+    before each and read after."""
+    import queue
+
+    import torch
+
+    from bbx_torch.agent.policy_agent import PolicyAgent
+    from bbx_torch.env.single import BlockBlastEnv
+    from bbx_torch.gui import workers
+    from bbx_torch.models import network_from_config
+    from bbx_torch.utils.checkpoints import checkpoint_exists, save_checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke_gui")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counters = kernel_counters()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    failures = []
+    cfg = {"ppo": RUN9_PPO, "network": RUN9_NETWORK, "rewards": RUN9_REWARDS,
+           "training": dict(RUN9_TRAINING, **PROFILE_TRAINING),
+           "logging": {"log_interval": 1, "save_interval": 0, "eval_interval": 0},
+           "paths": {"checkpoint_dir": os.path.join(work, "checkpoints"),
+                     "log_dir": os.path.join(work, "logs")}}
+    class StopAfterRows(workers.TrainingRunner):
+        """The runner, stopped from its callback after GUI_ROWS rows."""
+
+        rows = 0
+
+        def callback(self, row):
+            self.rows += 1
+            if self.rows >= GUI_ROWS:
+                self.stop()
+            return super().callback(row)
+
+    events = queue.Queue()
+    runner = StopAfterRows(cfg, events, device=device, seed=TRAIN_SEED)
+    zero()
+    t0 = time.perf_counter()
+    stats = runner.run()
+    seconds = time.perf_counter() - t0
+    tags = []
+    while not events.empty():
+        tags.append(events.get_nowait()[0])
+    final = checkpoint_exists(os.path.join(cfg["paths"]["checkpoint_dir"], "final"))
+    report["gui_train"] = {"launches": launches(), "rows": runner.rows, "stats": stats,
+                           "final_written": final, "seconds": seconds,
+                           "events": {t: tags.count(t) for t in set(tags)}}
+    per_iter = PROFILE_TRAINING["num_envs"] * PROFILE_TRAINING["rollout_steps"]
+    log(f"  training runner: {runner.rows} rows, stopped at step "
+        f"{stats and stats['global_step']}, final written {final}, {seconds:.1f} s")
+    if stats is None or runner.rows != GUI_ROWS or not final \
+            or stats["global_step"] != GUI_ROWS * per_iter:
+        failures.append(f"training runner: {report['gui_train']}")
+
+    net = network_from_config(RUN9_NETWORK, generator=torch.Generator().manual_seed(SEED))
+    ckpt = save_checkpoint(work, "run9_seeded.pt", {"params": net.state_dict()},
+                           config={"network": RUN9_NETWORK})
+    # Games seeded SEED + 1, SEED + 2, ... as the watch page plays them,
+    # until GUI_MOVES moves; each replayed by `PolicyAgent` on the env.
+    zero()
+    agent = PolicyAgent.from_checkpoint(ckpt, device=device)
+    t0 = time.perf_counter()
+    games = []
+    while sum(len(g) for g in games) < GUI_MOVES:
+        left = GUI_MOVES - sum(len(g) for g in games)
+        games.append(list(workers.watch_frames(agent, seed=SEED + len(games) + 1,
+                                               game=len(games) + 1, max_moves=left,
+                                               device=device)))
+    seconds = time.perf_counter() - t0
+    watch_launches = launches()
+    ref = PolicyAgent.from_checkpoint(ckpt, device=device)
+    apart = []
+    for g, frames in enumerate(games, start=1):
+        env = BlockBlastEnv(seed=SEED + g, device=device)
+        obs, _ = env.reset(seed=SEED + g)
+        for i, frame in enumerate(frames):
+            action, _ = ref.select_action(obs, deterministic=True)
+            obs, _, done, _, info = env.step(action)
+            if frame["action"] != action or frame["score"] != info["score"] \
+                    or not (frame["board"] == obs["board"]).all():
+                apart.append((g, i))
+    moves = sum(len(g) for g in games)
+    report["gui_watch"] = {"launches": watch_launches, "moves": moves, "games": len(games),
+                           "moves_apart": apart, "ms_a_move": 1e3 * seconds / max(1, moves),
+                           "scores": [g[-1]["score"] for g in games if g]}
+    log(f"  watch loop: {moves} moves in {len(games)} games, "
+        f"{report['gui_watch']['ms_a_move']:.2f} ms a move, equal to PolicyAgent on "
+        f"BlockBlastEnv move for move: {not apart}")
+    if apart or moves != GUI_MOVES:
+        failures.append(f"watch loop: moves apart {apart}, {moves} moves")
+    for path in ("gui_train", "gui_watch"):
+        try:
+            check_launches(path, report[path]["launches"])
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) in (5, 6) and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                             exact=sys.argv[5:] == ["exact"])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -3432,6 +4172,10 @@ def main() -> int:
               lambda: distill_phase(device, report))
         phase("14. the host API: single env, play, watch, --env, --render, --profile",
               lambda: host_api_phase(device, report))
+        phase("15. two ranks on the one card: run9 and the flat CNN, K7 at a lane "
+              "base, nccl", lambda: parallel_phase(device, report))
+        phase("16. the GUI's workers: training runner and watch loop",
+              lambda: gui_phase(device, report))
 
     # `launches` sums the paths' runs; `launches_by_path` splits them.
     kernels = []

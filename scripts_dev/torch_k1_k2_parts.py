@@ -208,7 +208,7 @@ def cases(dev):
     args = (eng["bits"].data_ptr(), eng["ids"].data_ptr(), eng["need"].data_ptr(),
             seed.data_ptr(), tb.PLACE_U64.data_ptr(), tb.PIECE_SHIFTS_I32.data_ptr(),
             tb.ANCHOR_OK_U64.data_ptr(), tb.NO_CONFLICT_U64.data_ptr(), got_ids.data_ptr(),
-            attempts.data_ptr(), n)
+            attempts.data_ptr(), n, 0)  # lane base 0: a whole fleet
     out[f"k7_{n}"] = ("regen", args, (got_ids, attempts),
                       ES.regen_pieces_plain(eng["bits"], eng["ids"], seed, eng["need"]),
                       (eng, seed))

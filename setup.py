@@ -30,6 +30,7 @@ setup(
             "bbx-torch-evaluate=bbx_torch.cli.evaluate:main",
             "bbx-torch-play=bbx_torch.cli.play:main",
             "bbx-torch-benchmark=bbx_torch.cli.benchmark:main",
+            "bbx-torch-gui=bbx_torch.gui.__main__:main",
         ],
     },
 )

@@ -424,6 +424,32 @@ def test_regen_kernel_matches_plain(cuda, which):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lane_base", [0, 256])
+def test_regen_kernel_lane_base(cuda, lane_base):
+    """K7 on each rank's 256 lanes of a 512-lane fleet (lane base 0 and
+    256: rank 1's lanes hash as lanes 256-511) against
+    `regen_pieces_plain` at the same base, bit for bit, and against those
+    lanes of the whole fleet regenerated from lane 0."""
+    state, obs, _ = _midgame(cuda, n=512, moves=25, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    u = torch.rand(obs["action_mask"].shape, generator=g, device=cuda)
+    acts = torch.where(obs["action_mask"], u, -1.0).argmax(1).to(torch.int32)
+    moved = TStep._move_core(state, acts)
+    need = moved[11].all(dim=1) & moved[0]
+    bits = S.board_bits(moved[3])
+    seed = TState.regen_seed(g, cuda)
+    whole = TState.regen_pieces(bits, state.piece_ids, seed, need)
+    rows = slice(lane_base, lane_base + 256)
+    part = (bits[rows].contiguous(), state.piece_ids[rows].contiguous(), seed,
+            need[rows].contiguous())
+    got = TState.regen_pieces(*part, lane_base=lane_base)
+    want = TState.regen_pieces_plain(*part, lane_base=lane_base)
+    for a, b, w in zip(got, want, whole):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, w[rows])
+    assert need[rows].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [512, 16384])
 def test_regen_kernel_matches_plain_at_path_lanes(cuda, n):
     """K7 against `regen_pieces_plain` on the inputs of one step of a

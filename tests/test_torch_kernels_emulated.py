@@ -609,6 +609,30 @@ def test_emulated_regen_kernel_edge_cases(kernels, which):
     assert (want[1][need] >= 1).all()
 
 
+@pytest.mark.parametrize("lane_base", [0, 256])
+def test_emulated_regen_kernel_lane_base(kernels, lane_base):
+    """K7 with a lane base (a rank's shard of a fleet: its lanes hash as
+    lane_base + i) equals `regen_pieces_plain` at the same base, bit for
+    bit, and both equal those lanes of a whole fleet regenerated from
+    lane 0."""
+    bits, ids, need = _regen_case("ragged")
+    seed = torch.tensor(424242, dtype=torch.int64)
+    want = TState.regen_pieces_plain(bits, ids, seed, need, lane_base)
+    got = TState._regen_pieces_cuda(bits, ids, seed, need, lane_base)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    pad = lane_base
+    whole = TState.regen_pieces_plain(
+        torch.cat([torch.zeros((pad, 2), dtype=bits.dtype), bits]),
+        torch.cat([torch.zeros((pad, 3), dtype=ids.dtype), ids]), seed,
+        torch.cat([torch.zeros(pad, dtype=torch.bool), need]))
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w[pad:])
+    if lane_base:
+        base0 = TState.regen_pieces_plain(bits, ids, seed, need)
+        assert not torch.equal(base0[0][need], want[0][need])  # the hash moved
+
+
 def _finish_inputs(seed=16):
     """`bbx_step_finish`'s inputs on reachable boards with finished lanes,
     used slots, streaks, valid and random (often invalid) actions, and 12
