@@ -28,10 +28,14 @@ def tile_state(state: EnvState, width: int, generator: torch.Generator) -> EnvSt
     """Each lane repeated `width` times in a row ([N * width] lanes), drawing
     from `generator`: the simulated fleet's regen draws never touch the real
     fleet's generator, and `regen_draw` hashes the tiled lane index, so each
-    simulated lane draws its own pieces."""
-    return EnvState(**{f.name: getattr(state, f.name).repeat_interleave(width, dim=0)
-                       for f in dataclasses.fields(EnvState) if f.name != "rng"},
-                    rng=generator)
+    simulated lane draws its own pieces.  A shard of a fleet tiles into the
+    same shard of the tiled fleet (lane i, candidate j of a fleet whose first
+    lane is `lane_base` is tiled lane (lane_base + i) * width + j), so each
+    rank's simulated lanes draw what the whole fleet's tiling draws there."""
+    tiled = EnvState(**{f.name: getattr(state, f.name).repeat_interleave(width, dim=0)
+                        for f in dataclasses.fields(EnvState) if f.name != "rng"},
+                     rng=generator)
+    return tiled.sharded(state.lane_base * width, state.global_lanes * width)
 
 
 def search_width(topk: int) -> int:

@@ -27,9 +27,9 @@ lanes (its network in eval mode; the rollout's logits pick the top-k),
 floors the stored logp at -15 and
 records the search's action (and, for ``bc_target: q_soft``, its
 candidates and their Q in bf16); the update adds the dual clip at 3 x adv
-for negative advantages and the behaviour-cloning term.  ``adam_mu_dtype``
-(Adam's first moment in bf16) is not ported: no config of the repo sets it,
-and any value but None is refused.
+for negative advantages and the behaviour-cloning term.  ``adam_mu_dtype:
+bfloat16`` keeps Adam's first moment in bf16 (`AdamBF16Mu`), as optax's
+``mu_dtype``.
 Random draws come from explicit `torch.Generator`s: one for the actions,
 one for the minibatch shuffle, one for the dropout masks and one for the
 search (its simulated regen draws and the search/policy mix).
@@ -63,6 +63,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import deterministic_cudnn
 from ..engine.state import EnvState
 from ..engine.step import RewardConfig, observe, step
 from ..engine.tables import tables
@@ -118,13 +119,14 @@ class PPOConfig:
     final_learning_rate: Optional[float] = None
     final_entropy_coef: Optional[float] = None
     schedule_updates: int = 0
-    # Not ported (no config of the repo sets it): None only.
+    # Adam's first moment in bf16 (`AdamBF16Mu`) or, with None, float32.
+    # bbx reads any other value as None; the port refuses it.
     adam_mu_dtype: Optional[str] = None
 
     def __post_init__(self):
         for name, allowed in (("bc_filter", ("all", "adv_pos")),
                               ("bc_target", ("argmax", "q_soft")),
-                              ("adam_mu_dtype", (None,))):
+                              ("adam_mu_dtype", (None, "bfloat16"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"PPOConfig.{name} = {getattr(self, name)!r}; "
                                  f"one of {allowed}")
@@ -162,9 +164,71 @@ class TrainState:
     update_step: int = 0
 
 
+class AdamBF16Mu(torch.optim.Optimizer):
+    """Adam with its first moment stored in bf16 and its second in float32:
+    ``optax.adam(lr, eps=eps, mu_dtype=jnp.bfloat16)`` (`bbx/agent/ppo.py:147`)
+    as bbx's jitted update computes it with optax 0.2.6.
+
+    Each step, for gradient g: mu = (1 - b1) g + b1' mu_stored in float32,
+    where b1' is b1 rounded to bf16 (0.9 -> 0.8984375: optax multiplies
+    the bf16 moment by b1 as a weak-typed constant, which takes the
+    moment's dtype) and the product is kept in float32 (jitted, XLA keeps
+    the excess precision; optax run eagerly would round it to bf16);
+    nu = (1 - b2) g^2 + b2 nu; the step is -lr (mu / (1 - b1^t)) /
+    (sqrt(nu / (1 - b2^t)) + eps), the bias corrections in float32, from
+    the unrounded mu; then mu is stored rounded to bf16.  The state's
+    names are `torch.optim.Adam`'s (``step``, ``exp_avg``,
+    ``exp_avg_sq``), so `optimizer_steps` and the checkpoints read it
+    alike.
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = ADAM_EPS):
+        super().__init__(params, {"lr": lr, "betas": betas, "eps": eps})
+
+    def load_state_dict(self, state_dict) -> None:
+        # The base class casts every floating state tensor to its
+        # parameter's dtype; the stored moment is bf16 (an exact round trip).
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "exp_avg" in state:
+                state["exp_avg"] = state["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamBF16Mu takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            lr, eps = group["lr"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                state["step"] += 1
+                t = np.float32(state["step"].item())
+                bc1 = np.float32(1.0) - np.float32(b1) ** t
+                bc2 = np.float32(1.0) - np.float32(b2) ** t
+                g = p.grad.to(torch.float32)
+                mu = g * (1.0 - b1) + state["exp_avg"].to(torch.float32) * b1_bf16
+                nu = state["exp_avg_sq"]
+                nu.copy_(g * g * (1.0 - b2) + nu * b2)
+                step = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + eps)
+                p.add_((step * -lr).to(p.dtype))
+                state["exp_avg"].copy_(mu)
+        return None
+
+
 def make_optimizer(config: PPOConfig, network: torch.nn.Module):
-    """Adam(eps=1e-5) over the network's parameters; the global-norm clip
-    and the lr schedule are applied by `update` around each step."""
+    """Adam(eps=1e-5) over the network's parameters (`AdamBF16Mu` where
+    ``adam_mu_dtype`` is ``"bfloat16"``); the global-norm clip and the lr
+    schedule are applied by `update` around each step."""
+    if config.adam_mu_dtype == "bfloat16":
+        return AdamBF16Mu(network.parameters(), lr=config.learning_rate)
     return torch.optim.Adam(network.parameters(), lr=config.learning_rate,
                             eps=ADAM_EPS)
 
@@ -312,7 +376,9 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
                     network, env_state, search_rng, reward_config,
                     gamma=config.gamma, topk=config.search_topk,
                     policy_logits=logits, return_q=True, obs=obs)
-                use = torch.rand(n, generator=search_rng, device=dev) < frac
+                use = torch.rand(n if shard is None else shard.total,
+                                 generator=search_rng, device=dev)
+                use = (use if shard is None else shard.take(use)) < frac
                 action = torch.where(use, search_a, action)
                 traj["search_a"][t] = search_a
                 traj["search_used"][t] = use
@@ -459,31 +525,50 @@ def normalize_advantages(adv: torch.Tensor, total: Optional[int] = None
     return (adv - mean) / (torch.sqrt(var) + ADV_EPS)
 
 
-def bc_loss_of(config: PPOConfig, logits, batch) -> torch.Tensor:
+def bc_weights(batch) -> torch.Tensor:
+    """The ``adv_pos`` filter's weights: 1 on the executed search actions
+    with a positive advantage, else 0 (float32)."""
+    return (batch["search_used"] & (batch["adv"] > 0.0)).to(torch.float32)
+
+
+def bc_loss_of(config: PPOConfig, logits, batch, total: Optional[int] = None,
+               weight_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The behaviour-cloning loss (`bbx/agent/ppo.py:444-476`): CE against
     softmax(q / bc_q_temp) over the search's candidates for ``q_soft``,
     else the search action's negative log-probability, over every state
     (``all``) or the executed search actions with a positive advantage
-    (``adv_pos``)."""
+    (``adv_pos``).  With `total`, the batch is this rank's rows of a
+    global minibatch of `total` rows and the loss is this rank's part of
+    the global one (the ranks' parts sum to it): a mean is the rank's sum
+    over `total`, and ``adv_pos`` divides the rank's weighted sum by
+    `weight_sum`, the global sum of `bc_weights`."""
+
+    def mean(x):
+        return torch.mean(x) if total is None else torch.sum(x) / total
+
     if config.bc_target == "q_soft":
         tgt = torch.softmax(batch["search_q"].to(torch.float32) / config.bc_q_temp, dim=-1)
         logp_cand = torch.gather(torch.log_softmax(logits, dim=-1), -1,
                                  batch["search_cand"].long())
-        return -torch.mean(torch.sum(tgt * logp_cand, dim=-1))
+        return -mean(torch.sum(tgt * logp_cand, dim=-1))
     bc_logp = D.log_prob(logits, batch["search_a"].to(torch.int32))
     if config.bc_filter == "adv_pos":
-        w = (batch["search_used"] & (batch["adv"] > 0.0)).to(torch.float32)
-        return -(torch.sum(bc_logp * w) / torch.clamp(torch.sum(w), min=1.0))
-    return -torch.mean(bc_logp)
+        w = bc_weights(batch)
+        return -(torch.sum(bc_logp * w)
+                 / torch.clamp(torch.sum(w) if weight_sum is None else weight_sum,
+                               min=1.0))
+    return -mean(bc_logp)
 
 
 def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
-             bc_coef: float = 0.0, total: Optional[int] = None):
+             bc_coef: float = 0.0, total: Optional[int] = None,
+             bc_weight_sum: Optional[torch.Tensor] = None):
     """The clipped-surrogate loss and its metrics (0-dim tensors); with
     search, the dual clip and, where `bc_coef` > 0, the BC term.  With
     `total`, the batch is this rank's rows of a global minibatch of `total`
     rows, and each mean is the rank's sum over `total` (the ranks' losses
-    and metrics then sum to the global ones)."""
+    and metrics then sum to the global ones); ``adv_pos``'s BC term then
+    divides by `bc_weight_sum`, its weights' global sum."""
 
     def mean(x):
         return torch.mean(x) if total is None else torch.sum(x) / total
@@ -511,7 +596,7 @@ def ppo_loss(config: PPOConfig, logits, value, batch, ent_coef: float,
     # A Python branch, not `where`: the untaken branch's NaN would reach
     # the gradient (the search fields hold dummies once BC has annealed).
     if config.uses_search and bc_coef > 0.0:
-        bc_loss = bc_loss_of(config, logits, batch)
+        bc_loss = bc_loss_of(config, logits, batch, total, bc_weight_sum)
         loss = loss + bc_coef * bc_loss
     else:
         bc_loss = torch.zeros((), device=value.device)
@@ -549,6 +634,8 @@ def _local_rows(idx: torch.Tensor, lanes: BatchShard, minibatch: int):
     return (sel // n_global) * count + (sel % n_global - start), BatchShard(minibatch, pos)
 
 
+# cuDNN's deterministic algorithms: the update repeats bit for bit.
+@deterministic_cudnn()
 def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
            generator: torch.Generator,
            dropout_rng: Optional[torch.Generator] = None,
@@ -582,6 +669,8 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
     # rows (BatchNorm's reductions) or draws (dropout); otherwise its
     # gradient is zero.
     lockstep = getattr(ts.network, "lockstep_forward", False)
+    adv_pos_bc = (config.uses_search and bc_coef > 0.0 and config.bc_target == "argmax"
+                  and config.bc_filter == "adv_pos")
     sums: Dict[str, torch.Tensor] = {}
     for _ in range(config.num_epochs):
         perm = torch.randperm(total, generator=generator, device=adv.device)
@@ -593,13 +682,17 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
             batch = {k: v[idx] for k, v in flat.items()}
             batch["adv"], batch["ret"] = adv[idx], ret[idx]
             ts.optimizer.zero_grad(set_to_none=True)
+            # adv_pos's BC term divides by its weights' global sum: every
+            # rank joins that sum, rows or none.
+            weight_sum = (all_reduce_sum(bc_weights(batch).sum())
+                          if lanes is not None and adv_pos_bc else None)
             if idx.numel() or lockstep or lanes is None:
                 obs = _minibatch_obs(batch)
                 logits, value = ts.network(obs["board"], obs["pieces"],
                                            obs["action_mask"], generator=dropout_rng,
                                            **kw)
                 loss, aux = ppo_loss(config, logits, value, batch, ent_coef, bc_coef,
-                                     None if lanes is None else mb)
+                                     None if lanes is None else mb, weight_sum)
                 loss.backward()
             else:
                 aux = {k: torch.zeros((), device=adv.device) for k in LOSS_METRICS}

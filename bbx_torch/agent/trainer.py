@@ -9,8 +9,11 @@ each rank resets and steps only its contiguous shard of the fleet
 (`host_env_slice`), the network and the generators are the same on every
 rank (same seeds, every draw at the global shape), and the update reduces
 across ranks (`bbx_torch.agent.ppo`), so a run on several ranks computes
-what one process computes.  Search configs (``uses_search``) run in one
-process only (ROADMAP.md Queue 1, "search configs at world size > 1").
+what one process computes.  Search configs (``uses_search``) follow the
+same rule: each rank simulates its lanes' tiling of the fleet as those
+lanes of the whole fleet's tiling (`agent/lookahead.py:tile_state`), draws
+the search/policy mix at the fleet's shape, and the BC term is a sum over
+the global minibatch.
 
 A checkpoint is one `torch.save` file holding the params, the Adam state,
 both step counters, the whole env fleet (gathered to rank 0, which alone
@@ -21,8 +24,9 @@ the CPU, and a checkpoint of a run on k ranks resumes on any world size
 that divides its fleet.  (A checkpoint saved before the search generator
 existed loads with that generator freshly seeded.)  The params entry is the
 network's state dict, so the flat CNN's BatchNorm running statistics travel
-with it.  (On the card, cuDNN's convolution backward sums with atomics, so
-two runs need not agree bit for bit.)
+with it.  On the card the update runs cuDNN's deterministic algorithms
+(`bbx_torch.device.deterministic_cudnn`), so a run and its resumption
+repeat bit for bit there too.
 """
 from __future__ import annotations
 
@@ -148,11 +152,6 @@ class PPOTrainer:
         self.device = resolve_device(device)
         self.mesh = mesh or mesh_from_config(config, self.device)
         self.ppo = ppo_config_from(config, total_timesteps)
-        if self.mesh.distributed and self.ppo.uses_search:
-            raise ValueError(
-                "search configs (ppo.uses_search) train in one process only: "
-                f"this group has {self.mesh.world_size} ranks (ROADMAP.md "
-                "Queue 1, 'search configs at world size > 1')")
         self.lanes = host_env_slice(self.ppo.num_envs)
         self.rewards = reward_config_from(config)
         network = network_from_config(

@@ -75,7 +75,18 @@ Phases, each of which must pass (exit code 1 otherwise):
    every update minibatch, K8's backward (K8b, K8w, the reduction) once in
    every update minibatch, and the first minibatch's largest |rollout logp
    - update logp| and clip fraction before any optimizer step reported;
-   then `latest` is loaded and one more iteration must be finite;
+   then `latest` is loaded and one more iteration must be finite; then
+   the determinism check: run9 and config/default.yaml's flat CNN in
+   float32 (with TF32 and without), each trained twice from one seed for
+   2 iterations and once saved after the first and resumed into a fresh
+   trainer, every tensor of the end state (parameters and buffers, Adam's
+   state, the fleet, every generator) and the metrics equal bit for bit;
+   for the flat CNN without TF32, the first convolution or dense layer
+   whose backward does not repeat without cuDNN's deterministic
+   algorithms, named with its CUDA kernels, and the update's time with
+   them and without, in turns; and one run9 iteration with
+   ``adam_mu_dtype: bfloat16`` beside float32 mu in turns (the update's
+   time, peak memory and moments' bytes; mu bf16);
 9. one float32 PPO update at run9 widths on a fixed batch, card against
    CPU (losses and post-Adam parameters), the card's through K8 and K8's
    backward;
@@ -142,10 +153,20 @@ Phases, each of which must pass (exit code 1 otherwise):
    tight, the running statistics after the iteration and the update's
    losses within PARALLEL_F32_*, beside a second 1-rank run's spread);
    run9's 2-rank `final` resumed on 1 rank for one
-   iteration; K1, K4-K8, K8b, K8w launched on each rank (K4 and K8 not for
-   the flat CNN); K7 on rank 1's shard (256 lanes, lane base 256) against
+   iteration; config/run8.yaml's search distillation at full width (512
+   envs, top-16, Q-soft) for one iteration, in float32 without TF32
+   (every search action and candidate set of the first rollout equal to
+   1 rank's up to the first lane that a near-tie explains, shown with
+   its pair of logits or Q and their gap (`search_rows`); with none, the
+   first rollout's statistics and the first minibatch's losses held too;
+   the first step's running statistics tight) and in bf16 (the first
+   step's running statistics held, the rest reported), its bf16 2-rank
+   `final` resumed on 1 rank, each rank's rollout, search and update
+   seconds; K1, K4-K8, K8b, K8w launched on each rank (K4 and K8
+   not for the flat CNN); K7 on rank 1's shard (256 lanes, lane base 256)
+   and on its tiling for the search (4,096 lanes, lane base 4,096) against
    its plain version and the whole fleet's rows, timed beside the whole
-   512 lanes (into the kernels line's K7 row); a 1-rank nccl group's
+   fleet (into the kernels line's K7 row); a 1-rank nccl group's
    all-reduce through the gradient path.  Two ranks share one card: their
    times are no scaling number;
 16. the GUI's workers: `TrainingRunner` at 64 x 32 on run9's network,
@@ -153,7 +174,12 @@ Phases, each of which must pass (exit code 1 otherwise):
    `watch_frames` for 50 moves (game after game, as the watch page plays)
    of phase 5's seeded run9 network from a checkpoint, equal move for
    move to `PolicyAgent` on `BlockBlastEnv`,
-   each with the launch counters set to 0 before and read after.
+   each with the launch counters set to 0 before and read after;
+17. the launchers: `bbx-torch-stable-train` at its recipe on the card
+   for 2 iterations, then resumed from its checkpoint for one more, and
+   `bbx-torch-quick-bench` three times (its verdict, exit code and rate),
+   each with the launch counters set to 0 before and read after; a FAIL,
+   or no steady measurement in any run, fails the phase.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels' numbers, and
@@ -313,6 +339,10 @@ PATH_KERNELS = {
                  "_evaluator_grad_reduce"),
     "parallel_cnn": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
                      "regen_pieces"),
+    # ... and config/run8.yaml's search distillation (the flat CNN: no K4
+    # or K8; the search's simulated step is K6, K7, K6 on the tiled shard).
+    "parallel_run8": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
+                      "regen_pieces"),
     # Phase 16: the GUI's training runner and watch loop.
     "gui_train": ("valid3_bits", "afterstate_buffer", "compute_gae", "_move_core",
                   "_step_finish_cuda", "regen_pieces", "evaluator_scores",
@@ -320,6 +350,12 @@ PATH_KERNELS = {
                   "_evaluator_grad_reduce"),
     "gui_watch": ("valid3_bits", "afterstate_buffer", "_move_core", "_step_finish_cuda",
                   "regen_pieces", "evaluator_scores"),
+    # Phase 17: stable_train (the default flat CNN) and quick_bench (the
+    # engine path at 16,384 lanes).
+    "stable_train": ("valid3_bits", "compute_gae", "_move_core", "_step_finish_cuda",
+                     "regen_pieces"),
+    "quick_bench": ("valid3_bits", "_move_core", "_step_finish_cuda", "regen_pieces",
+                    "sample_valid_actions_device"),
 }
 # The kernels line's rows (one a kernel) and the launch counters each
 # sums: K6 has two entry points, `bbx_move` and `bbx_step_finish`.
@@ -2275,6 +2311,328 @@ def train_phase(device, report):
         raise AssertionError("the first minibatch's logp gap is not finite")
     if resumed_from != TRAIN_TIMESTEPS:
         raise AssertionError(f"latest holds step {resumed_from}")
+    train_determinism(device, report, work)
+    train_bf16_mu(device, report)
+
+
+# Phase 8's determinism check: each configuration trained twice from one
+# seed for DETERMINISM_ITERATIONS iterations, and saved after the first
+# and resumed into a fresh trainer for the second; the end states compared
+# bit for bit.  run9 at full width (K8 and K8's backward, the value head in
+# cuDNN) must agree; config/default.yaml's flat CNN in float32 is reported.
+DETERMINISM_ITERATIONS = 2
+DETERMINISM_SEED = 21
+
+
+def trainer_tensors(trainer) -> dict:
+    """Every tensor a checkpoint carries, as CPU copies, in a fixed order:
+    the parameters and buffers, Adam's state, the fleet, each generator."""
+    import dataclasses
+
+    from bbx_torch.engine.state import EnvState
+
+    out = {f"params.{k}": v.detach().cpu().clone()
+           for k, v in trainer.network.state_dict().items()}
+    opt = trainer.train_state.optimizer.state_dict()["state"]
+    for i in sorted(opt):
+        for k, v in opt[i].items():
+            out[f"adam.{i}.{k}"] = v.detach().cpu().clone()
+    for f in dataclasses.fields(EnvState):
+        if f.name != "rng":
+            out[f"fleet.{f.name}"] = getattr(trainer.env_state, f.name).cpu().clone()
+    for k, g in trainer.rngs.items():
+        out[f"rng.{k}"] = g.get_state().clone()
+    return out
+
+
+def tensor_gaps(a: dict, b: dict) -> dict:
+    """Each tensor of `a` that differs from `b`'s: the share of its
+    elements that differ and, for floats, the largest |difference|."""
+    import torch
+
+    gaps = {}
+    for k, x in a.items():
+        y = b[k]
+        if torch.equal(x, y):
+            continue
+        gaps[k] = {"share": float((x != y).float().mean()),
+                   "max_abs": (float((x.double() - y.double()).abs().max())
+                               if x.is_floating_point() else None)}
+    return gaps
+
+
+def metric_gaps(a: dict, b: dict) -> dict:
+    return {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+
+
+def determinism_case(device, cfg: dict, work: str) -> dict:
+    """Two runs of `cfg` from DETERMINISM_SEED, DETERMINISM_ITERATIONS
+    iterations each, and a third saved after its first iteration and
+    resumed into a fresh trainer (another seed: the load must win) for the
+    rest: the tensors that differ, first run against second and resumed
+    against the first, and the metrics of each iteration after the save."""
+    from bbx_torch.agent.trainer import PPOTrainer
+
+    def floats(m):
+        return {k: float(v) for k, v in m.items()}
+
+    runs = []
+    for _ in range(2):
+        t = PPOTrainer(cfg, seed=DETERMINISM_SEED, device=device)
+        metrics = [floats(t.iterate()) for _ in range(DETERMINISM_ITERATIONS)]
+        runs.append((trainer_tensors(t), metrics))
+        del t
+    t = PPOTrainer(cfg, seed=DETERMINISM_SEED, device=device)
+    t.iterate()
+    path = t.save(work, "after_1")
+    del t
+    resumed = PPOTrainer(cfg, seed=DETERMINISM_SEED + 1, device=device)
+    resumed.load(path)
+    tail = [floats(resumed.iterate()) for _ in range(DETERMINISM_ITERATIONS - 1)]
+    (first, m_first), (second, m_second) = runs
+    again = tensor_gaps(first, second)
+    resume = tensor_gaps(first, trainer_tensors(resumed))
+    return {"tensors": len(first),
+            "run_twice": {"tensors_apart": again,
+                          "metrics_apart": [metric_gaps(a, b)
+                                            for a, b in zip(m_first, m_second)]},
+            "resumed": {"tensors_apart": resume,
+                        "metrics_apart": [metric_gaps(a, b)
+                                          for a, b in zip(m_first[1:], tail)]},
+            "equal": not again and not resume and m_first == m_second
+            and m_first[1:] == tail}
+
+
+def first_nondeterministic_layer(device, cfg: dict) -> dict:
+    """Where an update's backward stops being reproducible without cuDNN's
+    deterministic algorithms: one minibatch step (the whole batch) of a
+    fresh trainer of `cfg` after its first rollout, with each
+    convolution's and dense layer's inputs and output gradient recorded
+    (`F.conv2d` and `F.linear`, which the networks call); then each such
+    op's backward alone, outside the update (input and weight gradients
+    from the recorded tensors), twice, in the order the backward reached
+    them.  The first op whose two gradients differ is named with the CUDA
+    kernels `torch.profiler` shows for its backward, and the same backward
+    is tried twice under ``torch.backends.cudnn.deterministic``."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from bbx_torch.agent import ppo as P
+    from bbx_torch.agent.trainer import PPOTrainer
+
+    trainer = PPOTrainer(cfg, seed=DETERMINISM_SEED, device=device)
+    ops, order = [], []
+    recording = [False]
+
+    def recorded(name, fn):
+        def op(x, w, b=None, **kw):
+            out = fn(x, w, b, **kw)
+            if recording[0] and out.requires_grad:
+                rec = {"op": name, "fn": fn, "x": x.detach(), "w": w.detach(),
+                       "b": None if b is None else b.detach(), "kw": kw,
+                       "index": len(ops)}
+                ops.append(rec)
+
+                def reached(g, rec=rec):
+                    rec["grad_out"] = g.detach()
+                    order.append(rec["index"])
+
+                out.register_hook(reached)
+            return out
+        return op
+
+    conv0, linear0, update0 = F.conv2d, F.linear, P.update
+
+    def one_step(config, ts, *args, **kwargs):
+        recording[0] = True
+        one = dataclasses.replace(config, num_epochs=1, minibatch_size=config.batch_size)
+        return update0(one, ts, *args, **kwargs)
+
+    F.conv2d, F.linear = recorded("conv2d", conv0), recorded("linear", linear0)
+    P.update = one_step
+    try:
+        trainer.iterate()
+    finally:
+        F.conv2d, F.linear, P.update = conv0, linear0, update0
+
+    def backward(rec):
+        x = rec["x"].clone().requires_grad_()
+        w = rec["w"].clone().requires_grad_()
+        out = rec["fn"](x, w, rec["b"], **rec["kw"])
+        return torch.autograd.grad(out, (x, w), rec["grad_out"])
+
+    found = {"ops_checked": len(order)}
+    for i in order:
+        rec = ops[i]
+        a, b = backward(rec), backward(rec)
+        if all(torch.equal(x, y) for x, y in zip(a, b)):
+            continue
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            backward(rec)
+            torch.cuda.synchronize()
+        kernels = sorted({e.key for e in prof.key_averages()
+                          if getattr(e, "device_time_total",
+                                     getattr(e, "cuda_time_total", 0)) > 0})
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            c, d = backward(rec), backward(rec)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        found.update(
+            op=rec["op"], forward_index=i, backward_rank=order.index(i),
+            input_shape=list(rec["x"].shape), weight_shape=list(rec["w"].shape),
+            dtype=str(rec["x"].dtype),
+            apart={"input_grad": not torch.equal(a[0], b[0]),
+                   "weight_grad": not torch.equal(a[1], b[1])},
+            max_abs=[float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)],
+            kernels=kernels,
+            deterministic_cudnn_equal=all(torch.equal(x, y) for x, y in zip(c, d)))
+        break
+    return found
+
+
+def train_determinism(device, report, work: str) -> None:
+    """Phase 8's determinism and exact-resume check (DETERMINISM_*): run9
+    at full width and the flat CNN of config/default.yaml in float32, with
+    cuDNN's and cuBLAS's default TF32 and without it (`float32_exact`, as
+    phase 15's float32 comparisons run), must each agree bit for bit.  For
+    the flat CNN without TF32, the one whose update needs cuDNN's
+    deterministic algorithms (`bbx_torch.device.deterministic_cudnn`),
+    also: the first convolution or dense layer whose backward does not
+    repeat without them (`first_nondeterministic_layer`), and the update's
+    seconds with them and without, in turns."""
+    import torch
+
+    from bbx_torch.device import float32_exact
+
+    out = report.setdefault("train_determinism", {})
+    run9 = {"ppo": RUN9_PPO, "network": RUN9_NETWORK, "rewards": RUN9_REWARDS,
+            "training": dict(RUN9_TRAINING, total_timesteps=TRAIN_TIMESTEPS)}
+    cnn = {"ppo": DEFAULT_PPO, "network": dict(DEFAULT_NETWORK, compute_dtype="float32"),
+           "training": DEFAULT_TRAINING}
+    for name, cfg, exact in (("run9", run9, False), ("flat_cnn_float32", cnn, False),
+                             ("flat_cnn_float32_without_tf32", cnn, True)):
+        t0 = time.perf_counter()
+        with float32_exact() if exact else contextlib.nullcontext():
+            case = determinism_case(device, cfg, os.path.join(work, name))
+            if exact:
+                case["without_deterministic_cudnn"] = first_nondeterministic_layer(
+                    device, cfg)
+        if exact:
+            case["update_s"] = deterministic_update_cost(device, cfg, exact)
+        case["seconds"] = time.perf_counter() - t0
+        out[name] = case
+        log(f"  determinism, {name}: {DETERMINISM_ITERATIONS} iterations twice from one "
+            f"seed and saved/resumed after the first; every tensor of the end state "
+            f"({case['tensors']}) and the metrics equal: {case['equal']}; run twice, "
+            f"apart: {case['run_twice']}; resumed against uninterrupted, apart: "
+            f"{case['resumed']} ({case['seconds']:.1f} s)")
+        if exact:
+            log(f"  {name}: the first layer whose backward does not repeat without "
+                f"cuDNN's deterministic algorithms: {case['without_deterministic_cudnn']}; "
+                f"one update's seconds with them and without, in turns: "
+                f"{case['update_s']}")
+        torch.cuda.empty_cache()
+    apart = [name for name, case in out.items() if not case["equal"]]
+    if apart:
+        raise AssertionError(f"not bit-reproducible on the card (two runs from one seed, "
+                             f"or a resumed run against the uninterrupted one): {apart}")
+
+
+def deterministic_update_cost(device, cfg: dict, exact: bool) -> dict:
+    """One iteration of `cfg` from one seed four times, in turns: the
+    update as it runs (under `deterministic_cudnn`), then without it, then
+    without, then with (`exact`: all without TF32): each update's seconds
+    between synchronises."""
+    import torch
+
+    from bbx_torch.agent import ppo as P
+    from bbx_torch.agent.trainer import PPOTrainer
+    from bbx_torch.device import float32_exact
+
+    update0 = P.update
+    times = {"deterministic": [], "default": []}
+    for kind in ("deterministic", "default", "default", "deterministic"):
+        trainer = PPOTrainer(cfg, seed=DETERMINISM_SEED, device=device)
+        # Without: the update's body outside its `deterministic_cudnn`.
+        fn = update0 if kind == "deterministic" else update0.__wrapped__
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+            return out
+
+        P.update = timed
+        try:
+            with float32_exact() if exact else contextlib.nullcontext():
+                trainer.iterate()
+        finally:
+            P.update = update0
+        del trainer
+    return times
+
+
+def train_bf16_mu(device, report) -> None:
+    """One run9 iteration with ``adam_mu_dtype: bfloat16`` beside one with
+    float32 mu, each from the same seed, in turns (float32, bf16, bf16,
+    float32): the update's seconds and peak memory and the moments' bytes;
+    mu bf16 and nu float32 after it; the losses finite."""
+    import torch
+
+    from bbx_torch.agent import ppo as P
+    from bbx_torch.agent.trainer import PPOTrainer
+
+    res = {"float32": [], "bfloat16": []}
+    update0 = P.update
+    for mu in ("float32", "bfloat16", "bfloat16", "float32"):
+        ppo = dict(RUN9_PPO, adam_mu_dtype=None if mu == "float32" else mu)
+        cfg = {"ppo": ppo, "network": RUN9_NETWORK, "rewards": RUN9_REWARDS,
+               "training": dict(RUN9_TRAINING, total_timesteps=TRAIN_TIMESTEPS)}
+        trainer = PPOTrainer(cfg, seed=TRAIN_SEED, device=device)
+        rec = {}
+
+        def timed_update(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = update0(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec.update(update_s=time.perf_counter() - t0,
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            return metrics
+
+        P.update = timed_update
+        try:
+            metrics = {k: float(v) for k, v in trainer.iterate().items()}
+        finally:
+            P.update = update0
+        states = list(trainer.train_state.optimizer.state.values())
+        rec.update(mu_dtypes=sorted({str(s["exp_avg"].dtype) for s in states}),
+                   nu_dtypes=sorted({str(s["exp_avg_sq"].dtype) for s in states}),
+                   moments_mb=sum(t.numel() * t.element_size() for s in states
+                                  for t in (s["exp_avg"], s["exp_avg_sq"])) / 1e6,
+                   metrics=metrics)
+        res[mu].append(rec)
+        del trainer
+    report["train_bf16_mu"] = res
+    for mu, recs in res.items():
+        log(f"  Adam's mu in {mu}: update " + ", ".join(
+            f"{r['update_s']:.3f} s (peak {r['peak_memory_gb']:.4f} GB, moments "
+            f"{r['moments_mb']:.3f} MB)" for r in recs)
+            + f"; mu {recs[0]['mu_dtypes']}, nu {recs[0]['nu_dtypes']}")
+    bf = res["bfloat16"][0]
+    if bf["mu_dtypes"] != ["torch.bfloat16"] or bf["nu_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"bf16 mu: moments {bf['mu_dtypes']}, {bf['nu_dtypes']}")
+    if not all(math.isfinite(v) for recs in res.values() for r in recs
+               for v in r["metrics"].values()):
+        raise AssertionError("a bf16-mu training metric is not finite")
 
 
 def train_profile_phase(device, report):
@@ -3487,14 +3845,17 @@ GUI_MOVES = 50
 
 class FirstRecords:
     """While installed: the BatchNorm running statistics of `net` when the
-    first action is drawn (after the rollout's first forward), and each
+    first action is drawn (after the rollout's first forward), each
     minibatch's loss terms (`ppo_loss`'s metrics: `series`; `losses` the
-    first minibatch's)."""
+    first minibatch's), and each search call of the first rollout (its
+    actions, candidates, float32 Q and the policy logits that chose the
+    candidates, on the CPU: `search`)."""
 
     def __init__(self):
         self.net = None
         self.bn = None
         self.series = []
+        self.search = []
 
     @property
     def losses(self):
@@ -3504,8 +3865,9 @@ class FirstRecords:
         from bbx_torch.agent import ppo as P
         from bbx_torch.models import distributions as D
 
-        self._saved = (D, D.sample), (P, P.ppo_loss)
-        sample0, loss0 = D.sample, P.ppo_loss
+        self._saved = ((D, "sample", D.sample), (P, "ppo_loss", P.ppo_loss),
+                       (P, "lookahead_actions", P.lookahead_actions))
+        sample0, loss0, look0 = D.sample, P.ppo_loss, P.lookahead_actions
 
         def sample(*args, **kwargs):
             if self.bn is None and self.net is not None:
@@ -3519,25 +3881,32 @@ class FirstRecords:
             self.series.append({k: float(v.detach()) for k, v in out[1].items()})
             return out
 
-        D.sample, P.ppo_loss = sample, ppo_loss
+        def lookahead_actions(*args, **kwargs):
+            out = look0(*args, **kwargs)
+            if not self.series:
+                self.search.append(tuple(x.cpu() for x in (*out, kwargs["policy_logits"])))
+            return out
+
+        D.sample, P.ppo_loss, P.lookahead_actions = sample, ppo_loss, lookahead_actions
         return self
 
     def __exit__(self, *exc):
-        (D, sample0), (P, loss0) = self._saved
-        D.sample, P.ppo_loss = sample0, loss0
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
 
 
 def parallel_rank(cfg_path: str, out_path: str, seed: int, exact: bool = False) -> int:
     """One rank of phase 15 (``--parallel-rank``): the train CLI on cuda:0
     under gloo (the group from the torchrun variables the phase sets),
-    with the launch counters set to 0 before; each rollout, update,
-    gradient all-reduce and collective save timed between synchronises;
-    each iteration's metrics and whether the parameters and buffers are
-    bit for bit equal on every rank after it (a digest gathered from
-    each); `FirstRecords` (this rank's minibatch sums over its rows,
-    divided by the global minibatch).  With `exact`, float32 convolutions
-    and matmuls run in full float32 (no TF32).  Writes its record to
-    `out_path`; returns the CLI's code."""
+    with the launch counters set to 0 before; each rollout, search call,
+    update, gradient all-reduce and collective save timed between
+    synchronises; each iteration's metrics and whether the parameters and
+    buffers are bit for bit equal on every rank after it (a digest
+    gathered from each); `FirstRecords` (this rank's minibatch sums over
+    its rows, divided by the global minibatch; its first rollout's search
+    calls into ``<out_path>.search.pt``).  With `exact`, float32
+    convolutions and matmuls run in full float32 (no TF32).  Writes its
+    record to `out_path`; returns the CLI's code."""
     import hashlib
 
     import torch
@@ -3550,7 +3919,8 @@ def parallel_rank(cfg_path: str, out_path: str, seed: int, exact: bool = False) 
     from bbx_torch.device import float32_exact
 
     rec = {"rank": int(os.environ["RANK"]), "rollout_s": [], "update_s": [],
-           "allreduce_s": [], "save_s": [], "metrics": [], "same_params": []}
+           "search_s": [], "allreduce_s": [], "save_s": [], "metrics": [],
+           "same_params": []}
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
@@ -3579,6 +3949,7 @@ def parallel_rank(cfg_path: str, out_path: str, seed: int, exact: bool = False) 
 
     P.rollout, P.update = timed(P.rollout, "rollout_s"), timed(P.update, "update_s")
     P.reduce_gradients = timed(P.reduce_gradients, "allreduce_s")
+    P.lookahead_actions = timed(P.lookahead_actions, "search_s")
     T.PPOTrainer.save = timed(T.PPOTrainer.save, "save_s")
     T.PPOTrainer.iterate = iterate
     counters = kernel_counters()
@@ -3590,6 +3961,7 @@ def parallel_rank(cfg_path: str, out_path: str, seed: int, exact: bool = False) 
     rec["launches"] = {name: fn.launches for name, fn in counters.items()}
     rec["first_bn"], rec["first_losses"] = first.bn, first.losses
     rec["loss_series"] = first.series
+    torch.save(first.search, out_path + ".search.pt")
     with open(out_path, "w") as f:
         json.dump(rec, f)
     return rec["rc"]
@@ -3641,18 +4013,24 @@ def run_ranks(cfg_path: str, work: str, seed: int, exact: bool = False) -> list:
     return recs
 
 
-def k7_lane_base_case(device) -> dict:
-    """K7 on rank 1's shard of a 512-lane fleet (lanes 256-511, lane base
-    256) after a random valid move of reachable mid-game boards, against
-    `regen_pieces_plain` at the same base and against those lanes of the
-    whole fleet's K7 (base 0), each bit for bit; the shard's and the whole
-    fleet's times in turns."""
+def k7_lane_base_case(device, width: int = 1) -> dict:
+    """K7 on rank 1's shard of a 512-lane fleet (lanes 256-511) after a
+    random valid move of reachable mid-game boards, or with `width` > 1 on
+    that shard of the search's tiled fleet (each lane's top-`width`
+    actions by random masked logits, tiled by `tile_state`: 256 x width
+    lanes at lane base 256 x width), against `regen_pieces_plain` at the
+    same base and against those lanes of the whole (tiled) fleet's K7 at
+    base 0, each bit for bit; the shard's and the whole fleet's times in
+    turns."""
+    import dataclasses
+
     import torch
 
+    from bbx_torch.agent.lookahead import tile_state
     from bbx_torch.engine import state as ES
     from bbx_torch.engine import step as ST
 
-    n, base = 2 * 256, 256
+    n, half = 2 * 256, 256
     g = ES.make_generator(SEED, device)
     state = ES.reset(n, g, device)
     obs = ST.observe(state)
@@ -3662,11 +4040,24 @@ def k7_lane_base_case(device) -> dict:
                       .to(torch.int32))
         state, obs = out.state, out.obs
     u = torch.rand(obs["action_mask"].shape, generator=g, device=device)
-    moved = ST._move_core(state, torch.where(obs["action_mask"], u, -1.0).argmax(1)
-                          .to(torch.int32))
+    if width == 1:
+        moved = ST._move_core(state, torch.where(obs["action_mask"], u, -1.0).argmax(1)
+                              .to(torch.int32))
+        fleet = state
+    else:
+        logits = torch.where(obs["action_mask"], u, -1e9)
+        cand = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :width]
+        fleet = tile_state(state, width, g)
+        shard = state.replace(**{f.name: getattr(state, f.name)[half:]
+                                 for f in dataclasses.fields(state) if f.name != "rng"}
+                              ).sharded(half, n)
+        if tile_state(shard, width, g).lane_base != half * width:
+            raise AssertionError("tile_state placed the shard's tiling elsewhere")
+        moved = ST._move_core(fleet, cand.reshape(-1).to(torch.int32))
+    base, lanes = half * width, half * width
     seed = ES.regen_seed(g, device)
-    whole_in = (moved.bits, state.piece_ids, seed, moved.need)
-    part_in = (moved.bits[base:].contiguous(), state.piece_ids[base:].contiguous(), seed,
+    whole_in = (moved.bits, fleet.piece_ids, seed, moved.need)
+    part_in = (moved.bits[base:].contiguous(), fleet.piece_ids[base:].contiguous(), seed,
                moved.need[base:].contiguous())
     whole = ES.regen_pieces(*whole_in)
     got = ES.regen_pieces(*part_in, lane_base=base)
@@ -3679,8 +4070,7 @@ def k7_lane_base_case(device) -> dict:
               else (lambda: ES.regen_pieces(*whole_in)))
         times[name].append(time_ms(fn))
     att = want[1][part_in[3]].to(torch.float64)
-    lanes = n - base
-    return {"lanes": lanes, "lane_base": base, "equal": equal,
+    return {"lanes": lanes, "lane_base": base, "width": width, "equal": equal,
             # As `k7_case` counts them: the lanes' bytes, the seed, the tables.
             "nbytes": lanes * (16 + 12 + 1 + 12 + 4) + 8 + 37 * 64 * 8 + 37 * 9 * 4
             + 37 * 8 + 37 * 37 * 64 * 8,
@@ -3688,11 +4078,75 @@ def k7_lane_base_case(device) -> dict:
             "max_abs_err": max(max_abs_err(a, b) for a, b in zip(got, want)),
             "needy": int(part_in[3].sum()), "attempts_mean": float(att.mean()),
             "ms": min(times["shard"]), "ms_turns": times["shard"],
-            "whole_512_ms": min(times["whole"]), "whole_512_ms_turns": times["whole"],
+            "whole_ms": min(times["whole"]), "whole_ms_turns": times["whole"],
             "device_ms": kernel_device_ms(lambda: ES.regen_pieces(*part_in, lane_base=base),
                                           "regen_kernel"),
             "plain_ms": time_ms(lambda: ES.regen_pieces_plain(*part_in, lane_base=base),
                                 reps=3, inner=1)}
+
+
+def search_rows(ranks: list, one: list) -> dict:
+    """The first rollout's search calls of each rank (`FirstRecords.search`:
+    a step's actions [n], candidates [n, w], float32 Q [n, w] and policy
+    logits [n, 192]) against one rank's over the whole fleet, the ranks'
+    lanes in rank order.  A lane plays alike when its action and its set
+    of candidates are equal; `equal` when every lane of every step does,
+    with each candidate's Q finite alike.  Candidates listed in another
+    order (two logits inside the top-k swapped) play alike and are
+    counted.  At the first step where a lane plays otherwise, each such
+    lane is explained, or not, by a near-tie: another candidate set where
+    the two logits at the top-k boundary lie closer than twice the row's
+    largest |logit difference| between the two runs, or another action
+    where the two best Q lie closer than twice the row's largest |Q
+    difference| (float32 sums that round with the batch size can swap such
+    a pair, and nothing else).  Q's and the logits' largest |difference|
+    before that step are reported."""
+    import torch
+
+    steps = min(len(one), *(len(r) for r in ranks))
+    res = {"steps": steps, "equal": steps == len(one), "q_max_abs": 0.0,
+           "logit_max_abs": 0.0, "reordered_lanes": 0}
+    for t in range(steps):
+        got = [torch.cat([r[t][i] for r in ranks]) for i in range(4)]
+        want = one[t]
+        # Each side's candidates in action order, with their Q.
+        order_g, order_w = got[1].long().argsort(dim=1), want[1].long().argsort(dim=1)
+        cand_g, cand_w = got[1].gather(1, order_g), want[1].gather(1, order_w)
+        q_g, q_w = got[2].gather(1, order_g), want[2].gather(1, order_w)
+        apart = ((got[0] != want[0]) | (cand_g != cand_w).any(dim=1)
+                 | (torch.isfinite(q_g) != torch.isfinite(q_w)).any(dim=1))
+        res["reordered_lanes"] += int(((got[1] != want[1]).any(dim=1) & ~apart).sum())
+        if not apart.any():
+            both = torch.isfinite(q_g) & torch.isfinite(q_w)
+            if both.any():
+                res["q_max_abs"] = max(res["q_max_abs"],
+                                       float((q_g - q_w)[both].abs().max()))
+            res["logit_max_abs"] = max(res["logit_max_abs"],
+                                       float((got[3] - want[3]).abs().max()))
+            continue
+        width = got[1].shape[1]
+        lanes = []
+        for lane in apart.nonzero()[:, 0].tolist():
+            dlogit = float((got[3][lane] - want[3][lane]).abs().max())
+            if not torch.equal(cand_g[lane], cand_w[lane]):
+                edge = [torch.sort(x[lane], descending=True).values[width - 1:width + 1]
+                        .tolist() for x in (got[3], want[3])]
+                gap = min(abs(a - b) for a, b in edge)
+                lanes.append({"lane": lane, "kind": "candidates", "boundary_logits": edge,
+                              "gap": gap, "max_abs_logit_diff": dlogit,
+                              "explained": gap <= 2 * dlogit})
+            else:
+                best = [torch.topk(q[lane], 2).values.tolist() for q in (q_g, q_w)]
+                gap = min(b[0] - b[1] for b in best)
+                fin = torch.isfinite(q_g[lane]) & torch.isfinite(q_w[lane])
+                dq = float((q_g[lane] - q_w[lane])[fin].abs().max())
+                lanes.append({"lane": lane, "kind": "action", "two_best_q": best,
+                              "gap": gap, "max_abs_q_diff": dq,
+                              "explained": gap <= 2 * dq})
+        res.update(equal=False, first_apart={"step": t, "lanes": lanes},
+                   explained=all(x["explained"] for x in lanes))
+        break
+    return res
 
 
 def nccl_allreduce_case(device) -> dict:
@@ -3779,13 +4233,17 @@ def parallel_phase(device, report):
             steps = len(rec["allreduce_s"]) // max(1, len(rec["update_s"]))
             res[f"rank{rec['rank']}"] = {
                 "rollout_s": rec["rollout_s"], "update_s": rec["update_s"],
+                "search_s_a_rollout": sum(rec["search_s"]) / max(1, len(rec["rollout_s"])),
+                "search_calls": len(rec["search_s"]),
                 "allreduce_ms_a_minibatch": 1e3 * sum(rec["allreduce_s"])
                 / max(1, len(rec["allreduce_s"])),
                 "allreduce_s_an_update": sum(rec["allreduce_s"]) / max(1, len(rec["update_s"])),
                 "minibatch_steps_an_update": steps, "save_s": rec["save_s"],
                 "same_params": rec["same_params"], "launches": rec["launches"]}
-            log(f"  rank {rec['rank']}: rollout {rec['rollout_s']} s, update "
-                f"{rec['update_s']} s, gradient all-reduce "
+            log(f"  rank {rec['rank']}: rollout {rec['rollout_s']} s (search "
+                f"{res[f'rank{rec['rank']}']['search_s_a_rollout']:.3f} s of each, "
+                f"{len(rec['search_s'])} calls), update {rec['update_s']} s, gradient "
+                f"all-reduce "
                 f"{res[f'rank{rec['rank']}']['allreduce_ms_a_minibatch']:.3f} ms a minibatch "
                 f"({res[f'rank{rec['rank']}']['allreduce_s_an_update']:.3f} s an update of "
                 f"{steps} steps), collective save {rec['save_s']} s, parameters equal on "
@@ -3847,26 +4305,38 @@ def parallel_phase(device, report):
         failures.append(f"the resumed run: step {step0}, metrics {m}")
     del ref_trainer, resumed
 
-    def flat_cnn(name, dtype, bn_tol, exact=False):
-        """One iteration of config/default.yaml's flat CNN (BatchNorm,
-        dropout) in `dtype` (`exact`: without TF32) on 2 ranks and on 1:
-        the phase's record of it, with the BatchNorm running statistics
-        after the first rollout step (held within `bn_tol` x the largest
-        |value|) and after the iteration, the first rollout's statistics
-        and the losses of the first minibatch, of each and of the update,
-        2 ranks against 1; and the ranks' launches."""
-        cfg, path, work = config(name, DEFAULT_PPO, DEFAULT_TRAINING,
-                                 dict(DEFAULT_NETWORK, compute_dtype=dtype), 1)
+    def flat_cnn(name, dtype, bn_tol, exact=False, ppo=DEFAULT_PPO,
+                 training=DEFAULT_TRAINING, network=DEFAULT_NETWORK,
+                 path_name="parallel_cnn", again=False):
+        """One iteration of a flat CNN config (BatchNorm, dropout;
+        config/default.yaml's by default) in `dtype` (`exact`: without
+        TF32) on 2 ranks and on 1: the phase's record of it, with the
+        BatchNorm running statistics after the first rollout step (held
+        within `bn_tol` x the largest |value|) and after the iteration, the
+        first rollout's statistics and the losses of the first minibatch,
+        of each and of the update, 2 ranks against 1; with search, the
+        first rollout's search rows (`search_rows`); `again`: a second
+        1-rank run against the first (the card's own spread); the ranks'
+        launches, held to `path_name`'s kernels.  Returns the ranks'
+        records, the record and the config."""
+        cfg, path, work = config(name, ppo, training,
+                                 dict(network, compute_dtype=dtype), 1)
         recs = run_ranks(path, work, TRAIN_SEED, exact)
         res = summary(recs)
         for rec in recs:
             try:
-                check_launches("parallel_cnn", rec["launches"])
+                check_launches(path_name, rec["launches"])
             except AssertionError as e:
-                failures.append(f"flat CNN ({dtype}) rank {rec['rank']}: {e}")
+                failures.append(f"{name} rank {rec['rank']}: {e}")
             if not all(rec["same_params"]):
-                failures.append(f"flat CNN ({dtype}) rank {rec['rank']}: parameters apart")
+                failures.append(f"{name} rank {rec['rank']}: parameters apart")
         ref_trainer, ref, ref_first = reference(cfg, TRAIN_SEED, exact)
+        if ref_first.search:
+            res["first_rollout_search"] = search_rows(
+                [torch.load(os.path.join(work, f"rank{r}.json.search.pt"))
+                 for r in range(PARALLEL_RANKS)], ref_first.search)
+            log(f"  {name}: the first rollout's search, 2 ranks vs 1: "
+                f"{res['first_rollout_search']}")
         saved = load_checkpoint(os.path.join(cfg["paths"]["checkpoint_dir"],
                                              "final"))["params"]
         stats, after = {}, {}
@@ -3915,8 +4385,8 @@ def parallel_phase(device, report):
             f"|difference| / |1 rank's|: {apart}; the update's losses: "
             f"{res['update_losses']}")
         if not stats or not all(v["within"] and v["ranks_equal"] for v in stats.values()):
-            failures.append(f"flat CNN ({dtype}) running statistics beyond tolerance")
-        if exact:
+            failures.append(f"{name} running statistics beyond tolerance")
+        if again:
             # The card's own spread: the 1-rank run again, against the first.
             again, ref2, first2 = reference(cfg, TRAIN_SEED, exact)
             res["one_rank_again"] = {
@@ -3929,20 +4399,21 @@ def parallel_phase(device, report):
                     float((v.cpu().double() - ref_trainer.network.state_dict()[k]
                            .cpu().double()).abs().max()) / max(after[k]["ref_max"], 1e-30)
                     for k, v in again.network.state_dict().items() if "running" in k)}
-            log(f"  flat CNN ({dtype}), 1 rank run again against its first run (the "
+            log(f"  {name}, 1 rank run again against its first run (the "
                 f"card's own spread): {res['one_rank_again']}")
             del again
         del ref_trainer
-        return recs, res
+        return recs, res, cfg
 
     # The flat CNN as config/default.yaml runs it (bf16): its first step held.
-    recs, out["flat_cnn"] = flat_cnn("flat_cnn", "bfloat16", PARALLEL_BN_TOL)
+    recs, out["flat_cnn"], _ = flat_cnn("flat_cnn", "bfloat16", PARALLEL_BN_TOL)
     report["parallel_cnn"] = {"launches": launches_of(recs)}
     # In float32 without TF32 its whole iteration is held: the first
     # rollout equal, the first step's running statistics and the first
     # minibatch's losses tight, the running statistics after the iteration
     # and the update's losses within the card's own run-to-run spread.
-    _, res = flat_cnn("flat_cnn_float32", "float32", PARALLEL_F32_BN_FIRST_TOL, exact=True)
+    _, res, _ = flat_cnn("flat_cnn_float32", "float32", PARALLEL_F32_BN_FIRST_TOL,
+                         exact=True, again=True)
     out["flat_cnn_float32"] = res | {"tolerances": {
         "bn_first_step": PARALLEL_F32_BN_FIRST_TOL,
         "first_minibatch": [PARALLEL_F32_FIRST_RTOL, PARALLEL_F32_FIRST_ATOL],
@@ -3966,17 +4437,71 @@ def parallel_phase(device, report):
     if bad:
         failures.append(f"flat CNN (float32): the update's losses beyond tolerance: {bad}")
 
-    # K7 at a lane base, into the kernels line's K7 row.
-    case = with_bound(k7_lane_base_case(device))
-    out["k7_lane_base"] = case
-    for row in report.get("kernels", []):
-        if row["name"] == "regen_pieces":
-            row.setdefault("at_other_shapes", {})["rank_shard_256_lanes_base_256"] = case
-    log(f"  K7 at lane base 256 (256 lanes): equal={case['equal']}, {case['ms']:.4f} ms "
-        f"(device {case['device_ms']}); the whole 512 lanes {case['whole_512_ms']:.4f} ms; "
-        f"plain {case['plain_ms']:.3f} ms")
-    if not case["equal"]:
-        failures.append("K7 at lane base 256 differs from its plain version")
+    # config/run8.yaml (Q-soft search distillation on the flat CNN, top-16,
+    # 512 envs) at full width for one iteration: in float32 without TF32
+    # the first rollout, its search rows included, equal to 1 rank's; in
+    # bf16 the first step's running statistics held and the rollout
+    # statistics reported beside 1 rank's; the bf16 run's 2-rank `final`
+    # resumed on 1 rank.
+    _, res, _ = flat_cnn("run8_float32", "float32", PARALLEL_F32_BN_FIRST_TOL, exact=True,
+                         ppo=RUN8_PPO, training=RUN8_TRAINING, network=RUN8_NETWORK,
+                         path_name="parallel_run8")
+    out["run8_float32"] = res
+    search = res["first_rollout_search"]
+    if search["equal"]:
+        # No near-tie swapped: the whole first rollout is held.
+        exact = res["first_iteration_rollout"]
+        if any(a != b for a, b in exact.values()):
+            failures.append(f"run8 (float32): first rollout's statistics differ: {exact}")
+        bad = [k for k, (a, b, d) in res["first_minibatch_losses"].items()
+               if not d <= PARALLEL_F32_FIRST_ATOL + PARALLEL_F32_FIRST_RTOL * abs(b)]
+        if bad:
+            failures.append(f"run8 (float32): the first minibatch's losses beyond "
+                            f"tolerance: {bad}")
+    elif not search.get("explained"):
+        # Every step before the first lane apart is equal by construction;
+        # a lane apart must be a near-tie the rounding explains.  After it
+        # the trajectories part: reported, not held.
+        failures.append(f"run8 (float32): the first rollout's search parts where no "
+                        f"near-tie explains it: {search}")
+    recs, res, cfg8 = flat_cnn("run8", "bfloat16", PARALLEL_BN_TOL, ppo=RUN8_PPO,
+                               training=RUN8_TRAINING, network=RUN8_NETWORK,
+                               path_name="parallel_run8")
+    report["parallel_run8"] = {"launches": launches_of(recs)}
+    out["run8"] = res
+    resumed = PPOTrainer(cfg8, seed=999, device=device)
+    resumed.load(os.path.join(cfg8["paths"]["checkpoint_dir"], "final"))
+    step0 = resumed.global_step
+    m = {k: float(v) for k, v in resumed.iterate().items()}
+    res["resumed_on_one_rank"] = {"from_step": step0, "metrics": m}
+    log(f"  run8: the 2-rank final resumed on 1 rank at step {step0}: one iteration, "
+        f"finite: {all(math.isfinite(v) for v in m.values())}, bc_loss {m['bc_loss']:.6g}, "
+        f"search_frac {m['search_frac']:.6g}")
+    losses = [v for r in recs for it in r["metrics"] for v in it.values()]
+    if not all(math.isfinite(v) for v in losses + list(m.values())):
+        failures.append("run8: a metric of the 2-rank run or the resumed one is not finite")
+    if step0 != RUN8_TRAINING["num_envs"] * RUN8_TRAINING["rollout_steps"] or \
+            not recs[0]["metrics"][0]["bc_loss"] > 0.0:
+        failures.append(f"run8: resumed at step {step0}; the 2-rank iteration "
+                        f"{recs[0]['metrics'][0]}")
+    del resumed
+
+    # K7 at a lane base and at the search's tiled base, into the kernels
+    # line's K7 row.
+    for width, key in ((1, "rank_shard_256_lanes_base_256"),
+                       (SEARCH_TOPK, "rank_search_shard_4096_lanes_base_4096")):
+        case = with_bound(k7_lane_base_case(device, width))
+        out[f"k7_lane_base_width_{width}"] = case
+        for row in report.get("kernels", []):
+            if row["name"] == "regen_pieces":
+                row.setdefault("at_other_shapes", {})[key] = case
+        log(f"  K7 at lane base {case['lane_base']} ({case['lanes']} lanes, {width} "
+            f"a fleet lane): equal={case['equal']}, {case['ms']:.4f} ms (device "
+            f"{case['device_ms']}); the whole {2 * case['lanes']} lanes "
+            f"{case['whole_ms']:.4f} ms; plain {case['plain_ms']:.3f} ms")
+        if not case["equal"]:
+            failures.append(f"K7 at lane base {case['lane_base']} differs from its "
+                            f"plain version")
 
     # A 1-rank nccl group and one all-reduce through the gradient path.
     nccl = nccl_allreduce_case(device)
@@ -4101,6 +4626,120 @@ def gui_phase(device, report):
         raise AssertionError("; ".join(failures))
 
 
+# Phase 17: the launchers.  `bbx-torch-stable-train` at its recipe (32
+# envs x 64 steps) for STABLE_ITERATIONS iterations, then resumed for one
+# more; `bbx-torch-quick-bench` QUICK_BENCH_RUNS times.
+STABLE_ITERATIONS = 2
+QUICK_BENCH_RUNS = 3
+
+
+def launchers_phase(device, report):
+    """Phase 17: the two launchers through their `main` (the console
+    scripts' entry points), on their default device, with the launch
+    counters set to 0 before and read after each: `bbx-torch-stable-train`
+    in a fresh directory under build/ for STABLE_ITERATIONS iterations,
+    then with one more iteration's steps, which must resume from its
+    checkpoint; and `bbx-torch-quick-bench` QUICK_BENCH_RUNS times, each
+    run's exit code (0 PASS, 1 FAIL, 2 no steady measurement) and rate.
+    The phase fails on a FAIL, or when no run measured steadily."""
+    import io
+
+    import torch
+
+    from bbx_torch.cli import quick_bench as QB
+    from bbx_torch.cli import stable_train as STR
+
+    out = report.setdefault("launchers", {})
+    work = os.path.join(ROOT, "build", "chip_smoke_launchers")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counters = kernel_counters()
+    trainers, measured = [], []
+    trainer0, bench0 = STR.PPOTrainer, QB.bench_engine
+
+    class Seen(trainer0):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    def bench(*args, **kwargs):
+        try:
+            r = bench0(*args, **kwargs)
+        except Exception as e:
+            measured.append(getattr(e, "result", {"error": str(e)}))
+            raise
+        measured.append(r)
+        return r
+
+    def run(fn, argv):
+        for c in counters.values():
+            c.launches = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = fn(argv)
+        torch.cuda.synchronize()
+        return {"rc": rc, "seconds": time.perf_counter() - t0, "stdout": text.getvalue(),
+                "launches": {k: c.launches for k, c in counters.items()}}
+
+    per_iter = STR.recipe(32)["training"]["rollout_steps"] * 32
+    cwd = os.getcwd()
+    STR.PPOTrainer, QB.bench_engine = Seen, bench
+    try:
+        os.chdir(work)
+        first = run(STR.main, ["--steps", str(STABLE_ITERATIONS * per_iter)])
+        again = run(STR.main, ["--steps", str((STABLE_ITERATIONS + 1) * per_iter)])
+        benches = []
+        for _ in range(QUICK_BENCH_RUNS):
+            del measured[:]
+            r = run(QB.main, [])
+            r["measurements"] = list(measured)
+            benches.append(r)
+    finally:
+        os.chdir(cwd)
+        STR.PPOTrainer, QB.bench_engine = trainer0, bench0
+    devices = sorted({str(t.device) for t in trainers})
+    launches = {k: first["launches"][k] + again["launches"][k] for k in counters}
+    out["stable_train"] = {"runs": [first, again], "devices": devices,
+                           "steps": [t.global_step for t in trainers]}
+    report["stable_train"] = {"launches": launches}
+    for name, r in (("first", first), ("resumed", again)):
+        log(f"  stable_train ({name}): rc {r['rc']}, {r['seconds']:.2f} s: "
+            + " | ".join(r["stdout"].strip().splitlines()))
+    log(f"  stable_train: trainers on {devices}, at steps {out['stable_train']['steps']}; "
+        f"launches {launches}")
+    bench_launches = {k: sum(b["launches"][k] for b in benches) for k in counters}
+    report["quick_bench"] = {"launches": bench_launches}
+    out["quick_bench"] = {"runs": benches, "gate": QB.GATE_ENV_STEPS_PER_SEC,
+                          "rates": [b["measurements"][-1].get("env_steps_per_sec")
+                                    for b in benches if b["measurements"]]}
+    for i, b in enumerate(benches):
+        log(f"  quick_bench run {i + 1}: rc {b['rc']} ({b['seconds']:.2f} s): "
+            + " | ".join(b["stdout"].strip().splitlines()))
+    log(f"  quick_bench: rates {out['quick_bench']['rates']} against the gate "
+        f"{QB.GATE_ENV_STEPS_PER_SEC:,}; launches {bench_launches}")
+
+    failures = []
+    if first["rc"] or again["rc"] or not trainers or any(
+            t.device.type != "cuda" for t in trainers):
+        failures.append(f"stable_train: rc {first['rc']}, {again['rc']}, devices {devices}")
+    resumed = f"resumed quick_trained at step {STABLE_ITERATIONS * per_iter:,}"
+    if resumed not in again["stdout"] or \
+            trainers[-1].global_step != (STABLE_ITERATIONS + 1) * per_iter:
+        failures.append("stable_train did not resume its checkpoint")
+    for path, got in (("stable_train", launches), ("quick_bench", bench_launches)):
+        try:
+            check_launches(path, got)
+        except AssertionError as e:
+            failures.append(str(e))
+    codes = [b["rc"] for b in benches]
+    if 1 in codes or all(c == 2 for c in codes):
+        failures.append(f"quick_bench exit codes {codes} (1: FAIL, 2: no steady "
+                        f"measurement)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -4176,6 +4815,8 @@ def main() -> int:
               "base, nccl", lambda: parallel_phase(device, report))
         phase("16. the GUI's workers: training runner and watch loop",
               lambda: gui_phase(device, report))
+        phase("17. the launchers: bbx-torch-stable-train and bbx-torch-quick-bench",
+              lambda: launchers_phase(device, report))
 
     # `launches` sums the paths' runs; `launches_by_path` splits them.
     kernels = []

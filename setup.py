@@ -31,6 +31,8 @@ setup(
             "bbx-torch-play=bbx_torch.cli.play:main",
             "bbx-torch-benchmark=bbx_torch.cli.benchmark:main",
             "bbx-torch-gui=bbx_torch.gui.__main__:main",
+            "bbx-torch-stable-train=bbx_torch.cli.stable_train:main",
+            "bbx-torch-quick-bench=bbx_torch.cli.quick_bench:main",
         ],
     },
 )

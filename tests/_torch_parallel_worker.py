@@ -12,11 +12,16 @@ Modes (rank 0 prints ``RESULT <json>`` where there is one):
     ("cont"), then a fresh trainer (seed 999: the load must win) loaded
     from the save and K_ITERS more ("res"); after every update whether the
     parameters and buffers are bit for bit equal on every rank; then the
-    refusals (a fleet the world size does not divide, ``num_model`` 2, a
-    search config);
+    refusals (a fleet the world size does not divide, ``num_model`` 2,
+    ``num_data`` other than the world size);
   * ``zero_rows``: `ZERO_ROW_CFGS` (minibatches of 2 entries of a 4-lane
     fleet, so some minibatch falls wholly on one rank), each for 2
     iterations, with the same per-update check;
+  * ``search``: `SEARCH_CFG` (config/run8.yaml's search and BC knobs on
+    the tiny flat CNN, float32), seed 3, as ``train`` runs `MP_CFG`
+    (K_ITERS, a collective save, K_ITERS more, a fresh trainer loaded from
+    the save for K_ITERS more), with each rank's rows of the first
+    rollout's search fields gathered to rank 0;
   * ``sigterm``: `train` on `SIGTERM_CFG` until the test signals one rank;
     every rank prints ``FINAL_STEP <step>`` and ``CLEAN_EXIT``;
   * ``bn``: the flat CNN of <out_dir>/bn_state.pt in train mode on its rows
@@ -49,14 +54,29 @@ TINY_CNN = {"conv_channels": [4, 8], "fc_hidden": [16], "use_batch_norm": True,
 TINY_AFTERSTATE = {"type": "afterstate", "eval_channels": [4, 4], "eval_hidden": 8,
                    "ctx_dim": 6, "value_channels": [4, 4], "value_hidden": 16,
                    "compute_dtype": "float32"}
+# config/run8.yaml's search and BC knobs (Q-soft, top-16).
+RUN8_SEARCH = {"rollout_search_frac": 0.85, "final_rollout_search_frac": 0.0,
+               "bc_coef": 1.2, "final_bc_coef": 0.0, "bc_target": "q_soft",
+               "bc_q_temp": 0.25, "search_topk": 16, "search_anneal_frac": 0.55}
+# BC against the search's action where it was taken with a positive
+# advantage (a global weight sum every rank joins, rows or none).
+ADV_POS_SEARCH = {"rollout_search_frac": 0.5, "bc_coef": 0.7, "bc_filter": "adv_pos",
+                  "search_topk": 8}
 # 4 lanes x 2 steps in minibatches of 2, 2 epochs: 8 minibatches an update.
 ZERO_ROW_CFGS = {
     name: {"training": {"num_envs": 4, "rollout_steps": 2, "batch_size": 2,
                         "total_timesteps": 1 << 20},
-           "ppo": {"num_epochs": 2}, "network": net}
-    for name, net in (("cnn", TINY_CNN), ("cnn_no_batch_norm",
-                                          dict(TINY_CNN, use_batch_norm=False)),
-                      ("afterstate", TINY_AFTERSTATE))}
+           "ppo": {"num_epochs": 2, **ppo}, "network": net}
+    for name, net, ppo in (("cnn", TINY_CNN, {}),
+                           ("cnn_no_batch_norm", dict(TINY_CNN, use_batch_norm=False), {}),
+                           ("afterstate", TINY_AFTERSTATE, {}),
+                           ("afterstate_adv_pos_search", TINY_AFTERSTATE, ADV_POS_SEARCH))}
+# 16 lanes x 4 steps in minibatches of 16, 2 epochs; the anneal's horizon
+# (55% of 2**20 / 64 iterations) keeps every iteration searching.
+SEARCH_CFG = {"training": {"num_envs": 16, "rollout_steps": 4, "batch_size": 16,
+                           "total_timesteps": 1 << 20},
+              "ppo": {"num_epochs": 2, **RUN8_SEARCH}, "network": TINY_CNN}
+SEARCH_FIELDS = ("search_a", "search_used", "search_cand", "search_q")
 ZERO_ROW_SEED = 5
 SIGTERM_CFG = {
     "training": {"num_envs": 8, "rollout_steps": 4, "batch_size": 16,
@@ -110,17 +130,26 @@ def _refusal(make):
     return None
 
 
-def run_train(out):
-    trainer = PPOTrainer(MP_CFG, seed=3, device="cpu")
+def _save_resume(cfg, out, name):
+    """K_ITERS iterations of `cfg` (seed 3), a collective save, K_ITERS
+    more, then a fresh trainer (seed 999: the load must win) loaded from
+    the save for K_ITERS more: the series, the parameters' agreement after
+    every update, the checkpoint and the first trainer."""
+    trainer = PPOTrainer(cfg, seed=3, device="cpu")
     head, same_head = _iterate(trainer, K_ITERS)
-    path = trainer.save(out, "mp_resume")
+    path = trainer.save(out, name)
     cont, same_cont = _iterate(trainer, K_ITERS)
-    fresh = PPOTrainer(MP_CFG, seed=999, device="cpu")
+    fresh = PPOTrainer(cfg, seed=999, device="cpu")
     fresh.load(path)
     loaded_step = fresh.global_step
     res, same_res = _iterate(fresh, K_ITERS)
-    search = json.loads(json.dumps(MP_CFG))
-    search["ppo"]["rollout_search_frac"] = 0.5
+    return {"head": head, "cont": cont, "res": res, "path": path,
+            "lanes": list(trainer.lanes), "same": same_head + same_cont + same_res,
+            "loaded_step": loaded_step}, trainer
+
+
+def run_train(out):
+    result, trainer = _save_resume(MP_CFG, out, "mp_resume")
     refusals = {
         "num_envs": _refusal(lambda: PPOTrainer(
             {**MP_CFG, "training": {**MP_CFG["training"], "num_envs": 255}}, device="cpu")),
@@ -128,12 +157,33 @@ def run_train(out):
             {**MP_CFG, "mesh": {"num_model": 2}}, device="cpu")),
         "num_data": _refusal(lambda: PPOTrainer(
             {**MP_CFG, "mesh": {"num_data": 4}}, device="cpu")),
-        "search": _refusal(lambda: PPOTrainer(search, device="cpu")),
     }
-    return {"head": head, "cont": cont, "res": res, "path": path,
-            "lanes": list(trainer.lanes), "same": same_head + same_cont + same_res,
-            "loaded_step": loaded_step, "refusals": refusals,
-            "num_devices": trainer.mesh.num_devices()}
+    return result | {"refusals": refusals, "num_devices": trainer.mesh.num_devices()}
+
+
+def run_search(out):
+    """`SEARCH_CFG` as ``train`` runs `MP_CFG`; each rank's rows of the
+    first rollout's search fields, gathered to rank 0 in rank order."""
+    from bbx_torch.agent import ppo as P
+
+    rollout0, fields = P.rollout, []
+
+    def rollout(*args, **kwargs):
+        out = rollout0(*args, **kwargs)
+        if not fields:
+            # [T, N_local, ...] -> lanes first, so the gather concatenates lanes.
+            fields.append({k: out[1][k].transpose(0, 1).float() for k in SEARCH_FIELDS})
+        return out
+
+    P.rollout = rollout
+    try:
+        result, _ = _save_resume(SEARCH_CFG, out, "search_resume")
+    finally:
+        P.rollout = rollout0
+    got = gather_to_primary(fields[0])
+    if got is not None:
+        result["first_rollout"] = {k: v.tolist() for k, v in got.items()}
+    return result
 
 
 def run_zero_rows(out):
@@ -185,7 +235,7 @@ def main():
     assert initialize_multihost(f"127.0.0.1:{port}", int(world), int(rank),
                                 backend="gloo", device="cpu", timeout_s=300)
     try:
-        result = {"train": run_train, "zero_rows": run_zero_rows,
+        result = {"train": run_train, "zero_rows": run_zero_rows, "search": run_search,
                   "sigterm": run_sigterm, "bn": run_bn}[mode](out)
         if result is not None and dist.get_rank() == 0:
             print("RESULT " + json.dumps(result), flush=True)

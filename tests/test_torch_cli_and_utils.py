@@ -359,3 +359,97 @@ def test_kernel_flop_counts():
     assert F.k8b_flops(1, widths) == F.k8_flops(1, widths) + 2 * m * (
         64 * 24 * 96 + 2 * 64 * 9 * 24 * 24 + 64 * 18 * 24 + 96)
     assert F.k8w_flops(1, widths) == 2 * m * 96 * (64 * 24 + 3 + 32)
+
+
+# ---------------------------------------------------------------------------
+# The root launchers' counterparts: stable_train and quick_bench.
+# ---------------------------------------------------------------------------
+
+class _Built(Exception):
+    """Raised by the trainer stand-in once it has seen its arguments."""
+
+
+def _trainer_stand_in(monkeypatch, module):
+    """Replace `module.PPOTrainer` by a stand-in that records the config
+    and seed it is given and stops the launcher."""
+    seen = []
+
+    class StandIn:
+        def __init__(self, config, seed=42, **kwargs):
+            seen.append({"config": json.loads(json.dumps(config)), "seed": seed})
+            raise _Built
+
+    monkeypatch.setattr(module, "PPOTrainer", StandIn)
+    return seen
+
+
+@pytest.mark.parametrize("args", [[], ["--envs", "16", "--steps", "4096", "--extended"]])
+def test_stable_train_recipe_equals_the_root_script(args, monkeypatch, tmp_path):
+    """The config and seed `bbx-torch-stable-train` gives its trainer are
+    the ones the root `stable_train.py` gives bbx's; without --device it
+    asks for the card."""
+    import stable_train as root
+
+    from bbx.agent import trainer as JT
+    from bbx_torch.cli import stable_train as TS
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("sys.argv", ["stable_train.py", *args])
+    want = _trainer_stand_in(monkeypatch, JT)
+    with pytest.raises(_Built):
+        root.main()
+    got = _trainer_stand_in(monkeypatch, TS)
+    with pytest.raises(_Built):
+        TS.main([*args, "--device", "cpu"])
+    assert got == want and len(got) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TS.main(args)
+
+
+def test_stable_train_saves_and_resumes(monkeypatch, tmp_path, capsys):
+    """A tiny run on the CPU (the recipe at 8 lanes, with a tiny network)
+    saves `checkpoints/quick_trained`; a second run with more steps
+    resumes it at its step and trains on to its own end."""
+    from bbx_torch.cli import stable_train as TS
+
+    recipe0 = TS.recipe
+    monkeypatch.setattr(TS, "recipe", lambda envs: {
+        **recipe0(envs), "network": {"conv_channels": [4, 8], "fc_hidden": [16],
+                                     "compute_dtype": "float32"}})
+    monkeypatch.chdir(tmp_path)
+    assert TS.main(["--steps", "512", "--envs", "8", "--device", "cpu"]) == 0
+    assert "saved checkpoints/quick_trained at step 512" in capsys.readouterr().out
+    assert TS.main(["--steps", "1024", "--envs", "8", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed quick_trained at step 512" in out
+    assert "saved checkpoints/quick_trained at step 1,024" in out
+
+
+@pytest.mark.parametrize("outcome", ["pass", "fail", "unsteady"])
+def test_quick_bench_exit_codes(outcome, monkeypatch, capsys):
+    """PASS (0) at or above the gate, FAIL (1) under it, and "no steady
+    measurement" (2) when every attempt breaks the spread gate; a broken
+    measurement is taken again."""
+    from bbx_torch.cli import quick_bench as TQ
+
+    rates = {"pass": TQ.GATE_ENV_STEPS_PER_SEC, "fail": TQ.GATE_ENV_STEPS_PER_SEC - 1}
+    calls = []
+
+    def bench_engine(num_envs, steps, device):
+        calls.append((num_envs, steps, device))
+        result = {"env_steps_per_sec": float(rates.get(outcome, 1e8)),
+                  "rel_spread": 0.05, "device": "cpu"}
+        if outcome == "unsteady" or len(calls) == 1:
+            raise TB.SpreadError("spread", dict(result, rel_spread=0.5))
+        return result
+
+    monkeypatch.setattr(TQ, "bench_engine", bench_engine)
+    code = TQ.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert code == {"pass": 0, "fail": 1, "unsteady": 2}[outcome], out
+    assert TQ.NUM_ENVS == 16_384 and calls[0] == (16_384, 64, torch.device("cpu"))
+    if outcome == "unsteady":
+        assert len(calls) == TQ.ATTEMPTS and "no steady measurement" in out
+    else:
+        assert len(calls) == 2 and ("PASS" if outcome == "pass" else "FAIL") in out

@@ -236,6 +236,35 @@ def test_train_logs_search_and_evaluates_with_lookahead(tmp_path, monkeypatch):
 
 def test_ppo_config_refuses_unknown_bc_and_mu_values():
     for knob in ({"bc_filter": "best"}, {"bc_target": "soft"},
-                 {"adam_mu_dtype": "float16"}, {"adam_mu_dtype": "bfloat16"}):
+                 {"adam_mu_dtype": "float16"}):
         with pytest.raises(ValueError, match=next(iter(knob))):
             TP.PPOConfig(**knob)
+
+
+@pytest.mark.parametrize("name", list(BC))
+def test_bc_loss_over_row_parts_sums_to_the_batch(name, search_trajectory):
+    """`bc_loss_of` over two parts of a minibatch's rows, each as a rank's
+    rows of a global minibatch (`total`, and for ``adv_pos`` the global sum
+    of `bc_weights`), sums to the whole batch's loss, within float32
+    rounding; the parts' filter weights differ, so a rank's own count would
+    not do."""
+    traj, adv, _ = search_trajectory
+    cfg = TP.PPOConfig(**dict(SHAPE, **BC[name]))
+    rows = adv.size
+    batch = {k: (torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+                 if v.dtype == jnp.bfloat16 else torch.from_numpy(np.asarray(v)))
+             for k, v in traj.items()}
+    batch = {k: v.reshape(rows, *v.shape[2:]) for k, v in batch.items()}
+    batch["adv"] = torch.tensor(adv.reshape(rows))
+    rng = np.random.default_rng(47)
+    logits = torch.from_numpy(np.where(batch["mask"].numpy(),
+                                       rng.normal(size=(rows, NUM_ACTIONS)),
+                                       -1e9).astype(np.float32))
+    whole = TP.bc_loss_of(cfg, logits, batch)
+    parts = [slice(0, rows // 3), slice(rows // 3, rows)]
+    weights = [TP.bc_weights({k: v[p] for k, v in batch.items()}).sum() for p in parts]
+    assert weights[0] * 2 != weights[1] and sum(weights) > 0
+    got = sum(TP.bc_loss_of(cfg, logits[p], {k: v[p] for k, v in batch.items()},
+                            total=rows, weight_sum=sum(weights)) for p in parts)
+    assert float(whole) > 0
+    np.testing.assert_allclose(float(got), float(whole), rtol=1e-6)

@@ -258,3 +258,106 @@ def test_tiled_state_repeats_each_lane(lanes):
         if f.name != "rng":
             x = getattr(state, f.name)
             assert torch.equal(getattr(tiled, f.name)[3 * 2 + 1], x[2]), f.name
+
+
+def _fleet_of(state, n):
+    """The first `n` lanes of `state` as a fleet of their own."""
+    return state.replace(**{f.name: getattr(state, f.name)[:n]
+                            for f in dataclasses.fields(state) if f.name != "rng"}
+                         ).sharded(0, n)
+
+
+def _halves(state, rng_seed):
+    """`state` as two shards of its fleet, each with its own generator
+    seeded `rng_seed` (ranks seed theirs alike)."""
+    n = state.num_envs
+    return [state.replace(**{f.name: getattr(state, f.name)[base:base + n // 2]
+                             for f in dataclasses.fields(state) if f.name != "rng"},
+                          rng=TState.make_generator(rng_seed, "cpu")).sharded(base, n)
+            for base in (0, n // 2)]
+
+
+# Lanes at each top-k for the sharded search: both simulate 1,536 lanes.
+SHARD_LANES = {0: 8, 16: 96}
+
+
+@pytest.fixture(scope="module")
+def shard_lanes():
+    """96 mid-game lanes after 8 moves (two slots of the triple used, so a
+    simulated move that places the third draws new pieces), and masked
+    logits."""
+    n = SHARD_LANES[16]
+    rng = np.random.default_rng(33)
+    state = TState.reset(n, TState.make_generator(33, "cpu"), "cpu")
+    obs = observe(state)
+    for _ in range(8):
+        act = torch.tensor([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                            for m in obs["action_mask"].numpy()], dtype=torch.int32)
+        out = step(state, act, auto_reset=True)
+        state, obs = out.state, out.obs
+    logits = rng.normal(size=(n, NUM_ACTIONS)).astype(np.float32)
+    return state, np.where(obs["action_mask"].numpy(), logits, np.float32(-1e9))
+
+
+@pytest.mark.parametrize("topk", sorted(SHARD_LANES))
+def test_sharded_lookahead_equals_the_fleets_rows(topk, shard_lanes, monkeypatch):
+    """Each half of a fleet, as a shard (`EnvState.sharded`), searched with
+    its own generator seeded alike: its actions, candidates and Q are the
+    whole fleet's rows, bit for bit, and its tiled fleet is that shard of
+    the whole fleet's tiling (global lane (lane_base + i) * width + j)."""
+    _, net = _nets("cnn")
+    state, logits = shard_lanes
+    n, width = SHARD_LANES[topk], topk or NUM_ACTIONS
+    state = _fleet_of(state, n)
+    logits = torch.from_numpy(logits[:n])
+    whole = TL.lookahead_actions(net, state, TState.make_generator(5, "cpu"), topk=topk,
+                                 policy_logits=logits, return_q=True)
+    tiled = []
+
+    def recording_step(s, a, rc, auto_reset):
+        out = step(s, a, rc, auto_reset=auto_reset)
+        # Some simulated lanes draw new pieces: their draws hash the lane.
+        assert out.regen_attempts.any()
+        tiled.append((s.lane_base, s.global_lanes, s.num_envs))
+        return out
+
+    monkeypatch.setattr(TL, "step", recording_step)
+    for half in _halves(state, 5):
+        rows = slice(half.lane_base, half.lane_base + half.num_envs)
+        got = TL.lookahead_actions(net, half, half.rng, topk=topk,
+                                   policy_logits=logits[rows], return_q=True)
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w[rows])
+    assert tiled == [(base * width, n * width, n // 2 * width) for base in (0, n // 2)]
+
+
+def test_sharded_search_rollout_keeps_the_fleets_rows(shard_lanes, monkeypatch):
+    """A search rollout of each half of a fleet, as a rank of a 2-rank
+    mesh runs it, stores the whole fleet's rows of every field: the
+    search's actions, which lanes took them, the candidates and their Q
+    (the search/policy mix drawn at the fleet's shape).  The cross-rank
+    sums are the identity here: the episode statistics are not compared,
+    and the AfterstateNetwork has no batch statistics."""
+    from bbx_torch.agent import ppo as TP
+    from bbx_torch.parallel.mesh import Mesh
+
+    _, net = _nets("afterstate")
+    state, _ = shard_lanes
+    n = 8
+    state = _fleet_of(state, n)
+    cfg = TP.PPOConfig(rollout_steps=3, num_envs=n, rollout_search_frac=0.5, bc_coef=1.0,
+                       bc_target="q_soft", search_topk=TOPK)
+
+    def run(s, mesh=None):
+        return TP.rollout(net, cfg, RewardConfig(), s, TState.make_generator(2, "cpu"),
+                          search_rng=TState.make_generator(3, "cpu"), mesh=mesh)[1]
+
+    whole = run(state.replace(rng=TState.make_generator(4, "cpu")))
+    assert whole["search_used"].any() and not whole["search_used"].all()
+    monkeypatch.setattr(TP, "all_reduce_sum", lambda x: x)
+    monkeypatch.setattr(TP, "all_reduce_max", lambda x: x)
+    for r, half in enumerate(_halves(state, 4)):
+        got = run(half, Mesh(2, r, torch.device("cpu")))
+        rows = slice(half.lane_base, half.lane_base + half.num_envs)
+        for k, v in got.items():
+            assert torch.equal(v, whole[k][:, rows]), k

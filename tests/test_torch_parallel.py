@@ -17,8 +17,14 @@ at 256 envs).  Held here:
     against 1);
   * a rank that holds no row of a minibatch (4 lanes, minibatches of 2)
     still joins every draw and reduction, for a network whose forward
-    couples rows (BatchNorm), one that only draws (dropout) and one that
-    does neither;
+    couples rows (BatchNorm), one that only draws (dropout), one that
+    does neither, and one trained with the search and the ``adv_pos`` BC
+    term (its weights' global sum);
+  * search distillation (config/run8.yaml's knobs on the tiny flat CNN,
+    float32): 2 ranks against 1 under the same rule, the first rollout's
+    search fields (the search's actions, which lanes took them, the
+    candidates and their Q) equal to 1 rank's, the save/resume exact and
+    the 2-rank checkpoint resumed on 1 rank;
   * a SIGTERM to rank 1 alone stops both ranks at one boundary, each with
     rc 0, and `final` and `latest` are written; in one process an
     interrupt saves `final` and returns;
@@ -29,8 +35,8 @@ at 256 envs).  Held here:
     the whole batch (`tests/test_torch_network.py`'s train-mode
     tolerances);
   * the refusals: a fleet the world size does not divide, ``num_model``
-    2, ``num_data`` other than the world size, a search config, and
-    ``nccl`` with two ranks on one device.
+    2, ``num_data`` other than the world size, and ``nccl`` with two ranks
+    on one device.
 Every wait on a worker has its own timeout.
 """
 import json
@@ -50,6 +56,7 @@ import torch
 import _torch_parallel_worker as W
 from bbx.models import network as JN
 from bbx.parallel import distributed as JD
+from bbx_torch.agent import ppo as TP
 from bbx_torch.agent import trainer as TT
 from bbx_torch.agent.trainer import PPOTrainer
 from bbx_torch.models.convert import block_blast_state_dict_from_flax
@@ -128,8 +135,8 @@ def _flax_bn_net():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The train, zero-row and BatchNorm groups, run side by side."""
-    out = {m: tmp_path_factory.mktemp(m) for m in ("train", "zero_rows", "bn")}
+    """The train, zero-row, search and BatchNorm groups, run side by side."""
+    out = {m: tmp_path_factory.mktemp(m) for m in ("train", "zero_rows", "search", "bn")}
     net, params, stats = _flax_bn_net()
     torch.save(block_blast_state_dict_from_flax(params, stats),
                str(out["bn"] / "bn_state.pt"))
@@ -151,12 +158,13 @@ def _series(cfg, seed, n, load=None):
     return [{k: float(v) for k, v in trainer.iterate().items()} for _ in range(n)]
 
 
-def _assert_matches_one_rank(got, want, where):
+def _assert_matches_one_rank(got, want, where, close=CLOSE):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w), where
         for k in EXACT:
             assert g[k] == pytest.approx(w[k], abs=1e-4), f"{where} iter{i}.{k}"
-        for k in CLOSE:
+        for k in close:
             np.testing.assert_allclose(g[k], w[k], rtol=2e-3, atol=2e-4,
                                        err_msg=f"{where} iter{i}.{k}")
 
@@ -184,6 +192,53 @@ def test_two_rank_checkpoint_resumes_on_one_rank(runs):
     r = runs["train"]
     _assert_matches_one_rank(_series(MP_CFG, 999, K_ITERS, load=r["path"]), r["cont"],
                              "1 rank from a 2-rank checkpoint")
+
+
+def test_two_ranks_match_one_rank_with_search(runs, monkeypatch):
+    """Search distillation on 2 ranks: the first rollout's search fields
+    equal 1 rank's lane for lane, and the series (with `bc_loss`, the
+    search fraction and the BC coefficient) matches 1 rank's."""
+    r = runs["search"]
+    assert r["lanes"] == [0, W.SEARCH_CFG["training"]["num_envs"] // 2]
+    assert all(r["same"]), r["same"]
+    rollout0, first = TP.rollout, []
+
+    def rollout(*args, **kwargs):
+        out = rollout0(*args, **kwargs)
+        if not first:
+            first.append({k: out[1][k].transpose(0, 1).float().tolist()
+                          for k in W.SEARCH_FIELDS})
+        return out
+
+    monkeypatch.setattr(TP, "rollout", rollout)
+    want = _series(W.SEARCH_CFG, 3, 2 * K_ITERS)
+    for k in W.SEARCH_FIELDS:
+        assert r["first_rollout"][k] == first[0][k], k
+    assert all(0.8 < g["search_frac"] < 0.86 and g["bc_loss"] > 0
+               for g in r["head"] + r["cont"])
+    _assert_matches_one_rank(r["head"] + r["cont"], want, "search, 2 ranks vs 1",
+                             close=CLOSE + ("bc_loss", "search_frac", "bc_coef"))
+
+
+def test_two_rank_search_save_resume_exact(runs):
+    """A collective save in the middle of a search run carries the search
+    generator and the annealed schedules: the resumed run is the
+    uninterrupted one."""
+    r = runs["search"]
+    tr = W.SEARCH_CFG["training"]
+    assert r["loaded_step"] == K_ITERS * tr["num_envs"] * tr["rollout_steps"]
+    for i, (cont, res) in enumerate(zip(r["cont"], r["res"])):
+        assert set(cont) == set(res)
+        for k in cont:
+            assert res[k] == pytest.approx(cont[k], rel=1e-6, abs=1e-7), \
+                f"iter{i}.{k}: {res[k]} vs {cont[k]}"
+
+
+def test_two_rank_search_checkpoint_resumes_on_one_rank(runs):
+    r = runs["search"]
+    _assert_matches_one_rank(_series(W.SEARCH_CFG, 999, K_ITERS, load=r["path"]),
+                             r["cont"], "search, 1 rank from a 2-rank checkpoint",
+                             close=CLOSE + ("bc_loss", "search_frac", "bc_coef"))
 
 
 def _zero_row_minibatches(cfg, seed, iterations) -> int:
@@ -311,7 +366,6 @@ def test_the_refusals_in_a_group(runs):
     assert "not divisible by the world size 2" in refusals["num_envs"]
     assert "model axis must be 1" in refusals["num_model"]
     assert "has 2 rank(s)" in refusals["num_data"]
-    assert "search configs at world size > 1" in refusals["search"]
 
 
 def test_ranks_on_one_cpu_count_one_device(runs):

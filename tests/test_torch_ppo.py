@@ -237,6 +237,27 @@ def _assert_update_equal(ts, metrics, jts, jmetrics,
     assert ts.update_step == int(jts.update_step)
 
 
+def test_update_runs_under_deterministic_cudnn(trajectory, monkeypatch):
+    """Every forward and backward of the update runs with cuDNN's
+    deterministic algorithms (on the card a float32 weight gradient may
+    otherwise sum with atomics), and the flag is put back after it."""
+    traj, adv, ret = trajectory
+    net = _torch_net(_flax_params(5))
+    forward, seen = net.forward, []
+
+    def watched(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        out = forward(*args, **kwargs)
+        out[1].register_hook(lambda g: seen.append(torch.backends.cudnn.deterministic))
+        return out
+
+    monkeypatch.setattr(net, "forward", watched)
+    before = torch.backends.cudnn.deterministic
+    _torch_update(net, None, 0, traj, adv, ret)
+    assert len(seen) == 2 * T_CFG.num_epochs and all(seen)
+    assert torch.backends.cudnn.deterministic == before
+
+
 def test_update_matches_bbx_fresh_and_carried(trajectory):
     """One update from a fresh optimizer, then one more from the optax
     state bbx carried out of the first (`adam_state_from_optax`)."""
@@ -497,3 +518,115 @@ def test_flat_cnn_update_matches_bbx(trajectory):
     _assert_update_equal(ts1, m1, jts1, jm1, convert=block_blast_state_dict_from_flax,
                          zero_grad=conv_biases)
     _assert_stats_equal(ts1.network, jts1.params, jts1.batch_stats, atol=1e-6)
+
+
+# Adam with a bf16 first moment: parameters of a network's shapes (a
+# matrix, a conv kernel, vectors), gradients at two scales so that some
+# steps are clipped, and the lr schedule moving over the steps.
+MU_SHAPES = {"dense": (96, 32), "conv": (4, 4, 3, 3), "bias": (32,), "scale": (4,)}
+MU_CFG = dict(SHAPE, adam_mu_dtype="bfloat16", max_grad_norm=0.5)
+MU_STEPS = 12
+
+
+def _mu_grads(seed):
+    rng = np.random.default_rng(seed)
+    return [{k: (rng.normal(size=s) * (2.0 if i % 3 == 0 else 0.02)).astype(np.float32)
+             for k, s in MU_SHAPES.items()} for i in range(MU_STEPS)]
+
+
+def _mu_port(params, grads):
+    """The port's bf16-mu Adam as `update` steps it: the clip, the lr of
+    the optimizer's step count, the step."""
+    cfg = TP.PPOConfig(**MU_CFG)
+    net = torch.nn.ParameterDict({k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                                  for k, v in params.items()})
+    opt = TP.make_optimizer(cfg, net)
+    for g in grads:
+        for k, p in net.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        TP.clip_by_global_norm_([p.grad for p in net.values()], cfg.max_grad_norm)
+        for group in opt.param_groups:
+            group["lr"] = TP.learning_rate_at(cfg, TP.optimizer_steps(opt))
+        opt.step()
+    return net, opt
+
+
+def test_adam_bf16_mu_matches_optax():
+    """`adam_mu_dtype: bfloat16` against bbx's optimizer (optax's
+    ``clip_by_global_norm`` then ``adam(lr schedule, eps=1e-5,
+    mu_dtype=bfloat16)``), jitted as bbx's update runs it, on the same
+    gradients for 12 steps: mu is bf16 and nu float32, as bbx's
+    `test_adam_mu_dtype_bf16` checks; nu within 1e-6 relative; at most 1%
+    of mu's elements apart, each by one bf16 ulp (2**-7 of its value: a
+    float32 sum that XLA fuses otherwise lands on the other side of a
+    rounding boundary); the parameters within 1e-6 + 1e-2 x lr (a step
+    moves an element by about lr)."""
+    rng = np.random.default_rng(60)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in MU_SHAPES.items()}
+    grads = _mu_grads(61)
+    tx = JPPO.make_optimizer(JPPO.PPOConfig(**MU_CFG))
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    st = tx.init(jp)
+
+    @jax.jit
+    def apply(g, st, jp):
+        u, st = tx.update(g, st, jp)
+        return optax.apply_updates(jp, u), st
+
+    for g in grads:
+        jp, st = apply({k: jnp.asarray(v) for k, v in g.items()}, st, jp)
+    net, opt = _mu_port(params, grads)
+    adam = st[1][0]  # the chain's (clip, adam) -> adam's ScaleByAdamState
+    mu, nu = adam.mu, adam.nu
+    assert TP.optimizer_steps(opt) == MU_STEPS
+    for k, p in net.items():
+        s = opt.state[p]
+        assert mu[k].dtype == jnp.bfloat16 and s["exp_avg"].dtype == torch.bfloat16
+        assert nu[k].dtype == jnp.float32 and s["exp_avg_sq"].dtype == torch.float32
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=0,
+                                   atol=1e-6 + 1e-2 * MU_CFG["learning_rate"], err_msg=k)
+        np.testing.assert_allclose(s["exp_avg_sq"].numpy(), np.asarray(nu[k]),
+                                   rtol=1e-6, atol=0, err_msg=k)
+        want = np.asarray(mu[k].astype(jnp.float32))
+        got = s["exp_avg"].float().numpy()
+        assert (got != want).mean() <= 1e-2, k
+        assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want)).all(), k
+
+
+def test_adam_bf16_mu_state_resumes_exactly():
+    """The bf16-mu Adam's state through a checkpoint's round trip
+    (`torch.save`, a load with ``weights_only``) into a fresh optimizer:
+    mu stays bf16, and the next steps equal the uninterrupted run's bit
+    for bit."""
+    import io
+
+    rng = np.random.default_rng(62)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in MU_SHAPES.items()}
+    grads = _mu_grads(63)
+    half = MU_STEPS // 2
+    net_a, opt_a = _mu_port(params, grads[:half])
+    buf = io.BytesIO()
+    torch.save({"params": net_a.state_dict(), "optimizer": opt_a.state_dict()}, buf)
+    buf.seek(0)
+    saved = torch.load(buf, weights_only=True)
+    cfg = TP.PPOConfig(**MU_CFG)
+    net_b = torch.nn.ParameterDict({k: torch.nn.Parameter(torch.zeros(s))
+                                    for k, s in MU_SHAPES.items()})
+    net_b.load_state_dict(saved["params"])
+    opt_b = TP.make_optimizer(cfg, net_b)
+    opt_b.load_state_dict(saved["optimizer"])
+    for net, opt in ((net_a, opt_a), (net_b, opt_b)):
+        for g in grads[half:]:
+            for k, p in net.items():
+                p.grad = torch.from_numpy(g[k].copy())
+            TP.clip_by_global_norm_([p.grad for p in net.values()], cfg.max_grad_norm)
+            for group in opt.param_groups:
+                group["lr"] = TP.learning_rate_at(cfg, TP.optimizer_steps(opt))
+            opt.step()
+    assert TP.optimizer_steps(opt_b) == MU_STEPS
+    for k in MU_SHAPES:
+        assert torch.equal(net_a[k], net_b[k]), k
+        sa, sb = opt_a.state[net_a[k]], opt_b.state[net_b[k]]
+        assert sb["exp_avg"].dtype == torch.bfloat16
+        for name in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[name], sb[name]), (k, name)

@@ -176,6 +176,30 @@ def test_exact_resume(tmp_path):
     _assert_same_run(a, b)
 
 
+def test_exact_resume_with_bf16_adam_mu(tmp_path):
+    """``ppo.adam_mu_dtype: bfloat16`` trains with Adam's first moment in
+    bf16 and its second in float32, and (train k, save, train k) == (train
+    2k) with it, the saved moments bit for bit."""
+    cfg = json.loads(json.dumps(CFG))
+    cfg["ppo"]["adam_mu_dtype"] = "bfloat16"
+    a = PPOTrainer(cfg, seed=5, device="cpu")
+    a.iterate()
+    path = a.save(str(tmp_path), "mid")
+    moments = [(s["exp_avg"], s["exp_avg_sq"])
+               for s in a.train_state.optimizer.state.values()]
+    assert moments and all(mu.dtype == torch.bfloat16 and nu.dtype == torch.float32
+                           for mu, nu in moments)
+    cont = _floats(a.iterate())
+    b = PPOTrainer(cfg, seed=5, device="cpu")
+    b.load(path)
+    loaded = load_checkpoint(path)["optimizer"]["state"]
+    for i, s in b.train_state.optimizer.state_dict()["state"].items():
+        assert torch.equal(s["exp_avg"], loaded[i]["exp_avg"])
+        assert s["exp_avg"].dtype == torch.bfloat16
+    assert _floats(b.iterate()) == cont and all(np.isfinite(v) for v in cont.values())
+    _assert_same_run(a, b)
+
+
 _CHILD = """
 import json, sys
 import torch
