@@ -22,6 +22,7 @@ import torch
 from ..engine.state import EnvState
 from ..engine.step import RewardConfig, observe, step
 from ..engine.tables import NUM_ACTIONS
+from ..utils.profiling import span
 
 
 def tile_state(state: EnvState, width: int, generator: torch.Generator) -> EnvState:
@@ -78,14 +79,14 @@ def lookahead_actions(network: torch.nn.Module, state: EnvState,
     """
     rc = reward_config or RewardConfig()
     n, dev = state.num_envs, state.device
+    width = search_width(topk)
     was_training = network.training
     network.eval()
     try:
-        with torch.no_grad():
+        with torch.no_grad(), span("search.lookahead", lanes=n * width):
             if obs is None:
                 obs = observe(state)
             mask = obs["action_mask"]
-            width = search_width(topk)
             if width < NUM_ACTIONS:
                 if policy_logits is None:
                     policy_logits, _ = network(obs["board"], obs["pieces"], mask)

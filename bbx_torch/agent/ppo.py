@@ -72,6 +72,7 @@ from ..models.utils import clip_by_global_norm_
 from ..ops import build
 from ..parallel.collectives import all_reduce_max, all_reduce_sum, reduce_gradients
 from ..parallel.mesh import BatchShard, Mesh
+from ..utils.profiling import span
 from .lookahead import lookahead_actions, search_width
 
 ADV_EPS = 1e-8        # ppo.py:399
@@ -284,6 +285,13 @@ def bc_coef_at(config: PPOConfig, update_step: int) -> float:
                       update_step)
 
 
+def searches_at(config: PPOConfig, update_step: int) -> bool:
+    """Does the rollout of PPO iteration `update_step` run the search (on
+    every step: its share of actions or its BC coefficient is above 0)?"""
+    return config.uses_search and (search_frac_at(config, update_step) > 0.0
+                                   or bc_coef_at(config, update_step) > 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Rollout.
 # ---------------------------------------------------------------------------
@@ -349,6 +357,14 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     and dropout masks are drawn for the whole fleet, BatchNorm reduces over
     it, and `ep_stats` cover every rank's episodes.
     """
+    with span("ppo.rollout", device=True):
+        return _rollout(network, config, reward_config, env_state, generator, dropout_rng,
+                        update_step, search_rng, mesh)
+
+
+def _rollout(network, config, reward_config, env_state, generator, dropout_rng,
+             update_step, search_rng, mesh):
+    """`rollout`'s body, in its span."""
     shard = lane_shard(env_state) if mesh is not None and mesh.distributed else None
     kw = {} if shard is None else {"shard": shard}
     t_len, n, dev = config.rollout_steps, env_state.num_envs, env_state.device
@@ -358,7 +374,7 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     final = {k: torch.empty((t_len, n), dtype=dt, device=dev)
              for k, dt in _FINAL.items()}
     frac = search_frac_at(config, update_step)
-    searching = config.uses_search and (frac > 0.0 or bc_coef_at(config, update_step) > 0.0)
+    searching = searches_at(config, update_step)
     if searching and search_rng is None:
         raise ValueError("a search rollout needs search_rng")
     if not searching:
@@ -368,47 +384,61 @@ def rollout(network: torch.nn.Module, config: PPOConfig,
     network.train(config.rollout_train_mode)
     with torch.no_grad():
         for t in range(t_len):
-            logits, value = network(obs["board"], obs["pieces"],
-                                    obs["action_mask"], generator=dropout_rng, **kw)
-            action = D.sample(generator, logits, shard)
-            if searching:
-                search_a, cand, q = lookahead_actions(
-                    network, env_state, search_rng, reward_config,
-                    gamma=config.gamma, topk=config.search_topk,
-                    policy_logits=logits, return_q=True, obs=obs)
-                use = torch.rand(n if shard is None else shard.total,
-                                 generator=search_rng, device=dev)
-                use = (use if shard is None else shard.take(use)) < frac
-                action = torch.where(use, search_a, action)
-                traj["search_a"][t] = search_a
-                traj["search_used"][t] = use
-                if "search_q" in traj:
-                    traj["search_cand"][t] = cand
-                    traj["search_q"][t] = q
-            logp = D.log_prob(logits, action)
-            if config.uses_search:
-                # A search action the policy gives ~zero mass would store a
-                # logp near -1e9 and overflow the update's ratio.
-                logp = torch.clamp(logp, min=SEARCH_LOGP_FLOOR)
-            out = step(env_state, action, reward_config, auto_reset=True)
-            traj["board"][t] = env_state.board
-            traj["piece_ids"][t] = env_state.piece_ids
-            traj["used"][t] = env_state.used
-            traj["mask"][t] = obs["action_mask"]
-            traj["action"][t] = action
-            traj["logp"][t] = logp
-            traj["value"][t] = value
-            traj["reward"][t] = out.reward
-            traj["done"][t] = out.done
-            for k in final:
-                final[k][t] = out.info[k]
-            env_state, obs = out.state, out.obs
-        network.eval()
-        _, last_value = network(obs["board"], obs["pieces"],
-                                obs["action_mask"])
+            with span("ppo.rollout.step"):
+                with span("ppo.rollout.policy"):
+                    logits, value = network(obs["board"], obs["pieces"],
+                                            obs["action_mask"], generator=dropout_rng, **kw)
+                    action = D.sample(generator, logits, shard)
+                    if not searching:
+                        logp = _stored_logp(config, logits, action)
+                if searching:
+                    with span("ppo.rollout.search"):
+                        search_a, cand, q = lookahead_actions(
+                            network, env_state, search_rng, reward_config,
+                            gamma=config.gamma, topk=config.search_topk,
+                            policy_logits=logits, return_q=True, obs=obs)
+                        use = torch.rand(n if shard is None else shard.total,
+                                         generator=search_rng, device=dev)
+                        use = (use if shard is None else shard.take(use)) < frac
+                        action = torch.where(use, search_a, action)
+                        logp = _stored_logp(config, logits, action)
+                        traj["search_a"][t] = search_a
+                        traj["search_used"][t] = use
+                        if "search_q" in traj:
+                            traj["search_cand"][t] = cand
+                            traj["search_q"][t] = q
+                with span("ppo.rollout.env"):
+                    out = step(env_state, action, reward_config, auto_reset=True)
+                with span("ppo.rollout.record"):
+                    traj["board"][t] = env_state.board
+                    traj["piece_ids"][t] = env_state.piece_ids
+                    traj["used"][t] = env_state.used
+                    traj["mask"][t] = obs["action_mask"]
+                    traj["action"][t] = action
+                    traj["logp"][t] = logp
+                    traj["value"][t] = value
+                    traj["reward"][t] = out.reward
+                    traj["done"][t] = out.done
+                    for k in final:
+                        final[k][t] = out.info[k]
+                env_state, obs = out.state, out.obs
+        with span("ppo.rollout.last_value"):
+            network.eval()
+            _, last_value = network(obs["board"], obs["pieces"],
+                                    obs["action_mask"])
 
     return env_state, traj, last_value, _episode_stats(traj["done"], final,
                                                         shard is not None)
+
+
+def _stored_logp(config: PPOConfig, logits, action) -> torch.Tensor:
+    """The rollout's stored log-probability of `action`."""
+    logp = D.log_prob(logits, action)
+    if config.uses_search:
+        # A search action the policy gives ~zero mass would store a logp
+        # near -1e9 and overflow the update's ratio.
+        logp = torch.clamp(logp, min=SEARCH_LOGP_FLOOR)
+    return logp
 
 
 def lane_shard(env_state: EnvState) -> BatchShard:
@@ -472,9 +502,10 @@ def compute_gae(config: PPOConfig, rewards: torch.Tensor, dones: torch.Tensor,
     Returns:
       (advantages, returns), each [T, N] float32.
     """
-    if not rewards.is_cuda:
-        return compute_gae_plain(config, rewards, dones, values, last_value)
-    return _compute_gae_cuda(config, rewards, dones, values, last_value)
+    with span("ppo.gae", device=True):
+        if not rewards.is_cuda:
+            return compute_gae_plain(config, rewards, dones, values, last_value)
+        return _compute_gae_cuda(config, rewards, dones, values, last_value)
 
 
 def _compute_gae_cuda(config, rewards, dones, values, last_value):
@@ -651,6 +682,12 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
     over the global minibatches (module docstring); the metrics are then
     global, equal on every rank.
     """
+    with span("ppo.update", device=True):
+        return _update(config, ts, traj, advantages, returns, generator, dropout_rng, lanes)
+
+
+def _update(config, ts, traj, advantages, returns, generator, dropout_rng, lanes):
+    """`update`'s body, in its span."""
     total, mb = config.batch_size, config.minibatch_size
     if total % mb:
         raise ValueError(f"rollout batch {total} not divisible by minibatch {mb}")
@@ -675,37 +712,45 @@ def update(config: PPOConfig, ts: TrainState, traj, advantages, returns,
     for _ in range(config.num_epochs):
         perm = torch.randperm(total, generator=generator, device=adv.device)
         for i in range(num_mb):
-            idx = perm[i * mb:(i + 1) * mb]
-            kw = {}
-            if lanes is not None:
-                idx, kw["shard"] = _local_rows(idx, lanes, mb)
-            batch = {k: v[idx] for k, v in flat.items()}
-            batch["adv"], batch["ret"] = adv[idx], ret[idx]
-            ts.optimizer.zero_grad(set_to_none=True)
-            # adv_pos's BC term divides by its weights' global sum: every
-            # rank joins that sum, rows or none.
-            weight_sum = (all_reduce_sum(bc_weights(batch).sum())
-                          if lanes is not None and adv_pos_bc else None)
-            if idx.numel() or lockstep or lanes is None:
-                obs = _minibatch_obs(batch)
-                logits, value = ts.network(obs["board"], obs["pieces"],
-                                           obs["action_mask"], generator=dropout_rng,
-                                           **kw)
-                loss, aux = ppo_loss(config, logits, value, batch, ent_coef, bc_coef,
-                                     None if lanes is None else mb, weight_sum)
-                loss.backward()
-            else:
-                aux = {k: torch.zeros((), device=adv.device) for k in LOSS_METRICS}
-            if lanes is not None:
-                reduce_gradients(params)
-            clip_by_global_norm_([p.grad for p in params], config.max_grad_norm)
-            lr = learning_rate_at(config, optimizer_steps(ts.optimizer))
-            for group in ts.optimizer.param_groups:
-                group["lr"] = lr
-            ts.optimizer.step()
-            for k, v in aux.items():
-                v = v.detach()
-                sums[k] = sums[k] + v if k in sums else v
+            with span("ppo.update.minibatch"):
+                with span("ppo.update.forward", device=True):
+                    idx = perm[i * mb:(i + 1) * mb]
+                    kw = {}
+                    if lanes is not None:
+                        idx, kw["shard"] = _local_rows(idx, lanes, mb)
+                    batch = {k: v[idx] for k, v in flat.items()}
+                    batch["adv"], batch["ret"] = adv[idx], ret[idx]
+                    ts.optimizer.zero_grad(set_to_none=True)
+                    # adv_pos's BC term divides by its weights' global sum:
+                    # every rank joins that sum, rows or none.
+                    weight_sum = (all_reduce_sum(bc_weights(batch).sum())
+                                  if lanes is not None and adv_pos_bc else None)
+                    rows = idx.numel() or lockstep or lanes is None
+                    if rows:
+                        obs = _minibatch_obs(batch)
+                        logits, value = ts.network(obs["board"], obs["pieces"],
+                                                   obs["action_mask"],
+                                                   generator=dropout_rng, **kw)
+                        loss, aux = ppo_loss(config, logits, value, batch, ent_coef,
+                                             bc_coef, None if lanes is None else mb,
+                                             weight_sum)
+                    else:
+                        aux = {k: torch.zeros((), device=adv.device) for k in LOSS_METRICS}
+                if rows:
+                    with span("ppo.update.backward", device=True):
+                        loss.backward()
+                if lanes is not None:
+                    with span("ppo.update.allreduce", device=True):
+                        reduce_gradients(params)
+                with span("ppo.update.optimizer", device=True):
+                    clip_by_global_norm_([p.grad for p in params], config.max_grad_norm)
+                    lr = learning_rate_at(config, optimizer_steps(ts.optimizer))
+                    for group in ts.optimizer.param_groups:
+                        group["lr"] = lr
+                    ts.optimizer.step()
+                for k, v in aux.items():
+                    v = v.detach()
+                    sums[k] = sums[k] + v if k in sums else v
     ts.update_step += 1
     steps = config.num_epochs * num_mb
     if lanes is not None:

@@ -50,8 +50,10 @@ from ..parallel.distributed import host_env_slice
 from ..parallel.mesh import Mesh, mesh_from_config, replicate_tree, shard_batched_tree
 from ..utils.checkpoints import load_checkpoint, save_checkpoint
 from ..utils.logging import Logger, MetricsTracker, TensorBoardLogger
-from ..utils.profiling import PhaseTimer, trace
-from .ppo import PPOConfig, TrainState, make_optimizer, train_iteration
+from ..utils import profiling
+from ..utils.profiling import span, trace
+from .lookahead import search_width
+from .ppo import PPOConfig, TrainState, make_optimizer, searches_at, train_iteration
 
 
 # The trainer's generators, seeded seed + their index.
@@ -114,16 +116,24 @@ def reward_config_from(config: Dict[str, Any]) -> RewardConfig:
         rc, **{k: v for k, v in rewards.items() if hasattr(rc, k)})
 
 
-def iteration_flops(config: PPOConfig, network: torch.nn.Module) -> int:
-    """Matmul and convolution FLOPs of one train iteration, counted as
-    `bbx/agent/trainer.py:_iteration_flops` counts them: the rollout's
-    forward on `num_envs` observations times `rollout_steps`, plus the
-    minibatch gradient step (forward, the evaluator's recompute, backward;
-    `bbx_torch.models.flops`) times epochs times minibatches.  The last
-    value, the search, GAE, the engine and Adam are left out."""
-    return (network_flops(network, config.num_envs) * config.rollout_steps
-            + network_flops(network, config.minibatch_size, grad=True)
-            * config.num_epochs * config.num_minibatches)
+def iteration_flops(config: PPOConfig, network: torch.nn.Module, update_step: int = 0) -> int:
+    """Matmul and convolution FLOPs of PPO iteration `update_step`, the
+    work the model requires (`bbx_torch.models.flops`), as the benchmark's
+    `mfu.train` counts it: the rollout's forward on `num_envs`
+    observations on every step and the last value's, the search's value on
+    `num_envs` x its width simulated lanes on every step of an iteration
+    that searches, and each minibatch's gradient step (forward and
+    backward, not the evaluator's recompute) times epochs times
+    minibatches.  GAE, the engine and Adam are left out.  bbx's
+    `_iteration_flops` counts the recompute and neither the last value nor
+    the search (ROADMAP, Queue 3)."""
+    n, steps = config.num_envs, config.rollout_steps
+    total = network_flops(network, n) * (steps + 1)
+    if searches_at(config, update_step):
+        total += steps * network_flops(network, n * search_width(config.search_topk),
+                                       value_only=True)
+    return total + (network_flops(network, config.minibatch_size, grad=True, recompute=False)
+                    * config.num_epochs * config.num_minibatches)
 
 
 def device_peak_flops(device: torch.device, dtype: torch.dtype) -> Optional[float]:
@@ -217,10 +227,11 @@ class PPOTrainer:
     def iterate(self) -> Dict[str, torch.Tensor]:
         """Run one PPO iteration (rollout + update); returns its metrics as
         0-dim tensors on the device."""
-        _, self.env_state, metrics = train_iteration(
-            self.ppo, self.rewards, self.train_state, self.env_state,
-            self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"],
-            self.rngs["search"], self.mesh)
+        with span("train.iteration", device=True):
+            _, self.env_state, metrics = train_iteration(
+                self.ppo, self.rewards, self.train_state, self.env_state,
+                self.rngs["action"], self.rngs["shuffle"], self.rngs["dropout"],
+                self.rngs["search"], self.mesh)
         self.global_step += self.ppo.batch_size
         return metrics
 
@@ -315,12 +326,14 @@ def train(
     0's callback) is agreed by all at the iteration boundary, since a rank
     that stopped alone would leave the others waiting in the next
     collective; logging, TensorBoard and the console are rank 0's.
-    `profile=True` times the phases (each iteration up to its metrics on
-    the device), adds an `mfu` row (`iteration_flops` over an iteration's
-    wall time and the group's `PEAK_FLOPS`) to each log line, writes one
-    `torch.profiler` trace of the iteration after update
-    `TRACE_AT_UPDATE` into ``<log_dir>/trace`` and prints the phase
-    report at the end.
+    `profile=True` turns the program's tracer on
+    (`bbx_torch.utils.profiling`), adds an `mfu` row (`iteration_flops` of
+    the log window's iterations over its wall time and the group's
+    `PEAK_FLOPS`) to each log line, writes one `torch.profiler` trace of the
+    iteration after update `TRACE_AT_UPDATE` into ``<log_dir>/trace``, and
+    prints at the end the phase report of the spans (`span_report`: host
+    seconds by span path, device ms where the span has them) and the
+    traced iteration's device idle time by program span.
     """
     tr_cfg = config.get("training", {})
     log_cfg = config.get("logging", {})
@@ -342,7 +355,11 @@ def train(
     logger = Logger(log_dir, "ppo", console=primary, enabled=primary)
     tb = TensorBoardLogger(log_dir, "ppo", enabled=primary)
     tracker = MetricsTracker(window_size=100)
-    timer = PhaseTimer()
+    phases: Dict[tuple, list] = {}  # `profiling.span_totals`
+    traced = None
+    tracing_was_on = profiling.TRACER.enabled
+    if profile:
+        profiling.enable()
 
     say(f"device: {trainer.device}")
     if mesh.distributed:
@@ -372,7 +389,6 @@ def train(
     eval_interval = log_cfg.get("eval_interval", 0)  # 0 disables in-run eval
     eval_episodes = log_cfg.get("eval_episodes", 100)
 
-    flops_per_iter = iteration_flops(trainer.ppo, trainer.network) if profile else None
     dtype = trainer.network.compute_dtype
     dtype_name = str(dtype).removeprefix("torch.")
     peak_flops = device_peak_flops(trainer.device, dtype) if profile else None
@@ -380,14 +396,16 @@ def train(
         say(f"mfu: no peak known for the {device_name(trainer.device)} in "
             f"{dtype_name}: no mfu row")
     # Ranks that share a card share its peak.
-    num_devices = mesh.num_devices() if flops_per_iter and peak_flops else 1
+    num_devices = mesh.num_devices() if peak_flops else 1
+    flops_window = 0
 
     def _iterate():
-        """One iteration, timed to its metrics on the device."""
-        out = []
-        with timer.phase("train_iter", block_on=out if profile else None):
-            out.append(trainer.iterate())
-        return out[0]
+        """One iteration, its FLOPs counted where there is an mfu row."""
+        nonlocal flops_window
+        if peak_flops:
+            flops_window += iteration_flops(trainer.ppo, trainer.network,
+                                            trainer.train_state.update_step)
+        return trainer.iterate()
 
     def _extra():
         return {"best_score": best_score, "best_eval": best_eval,
@@ -426,7 +444,7 @@ def train(
 
             if profile and update_idx == TRACE_AT_UPDATE:
                 trace_dir = os.path.join(log_dir, "trace")
-                with trace(trace_dir):
+                with trace(trace_dir) as traced:
                     metrics = _iterate()
                 update_idx += 1
                 steps_window += trainer.ppo.batch_size
@@ -448,9 +466,8 @@ def train(
             if update_idx % log_interval == 0 or stop:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
-                fps = steps_window / max(now - t_window, 1e-9)
-                sec_per_iter = (now - t_window) / max(iter_window, 1)
-                t_window, steps_window, iter_window = now, 0, 0
+                seconds = max(now - t_window, 1e-9)
+                fps = steps_window / seconds
                 tracker.update({"score": metrics["mean_score"],
                                 "length": metrics["mean_length"]})
                 row = {
@@ -470,17 +487,17 @@ def train(
                 for key in ("search_frac", "bc_coef"):
                     if key in metrics:
                         row[key] = metrics[key]
-                if flops_per_iter and peak_flops:
+                if peak_flops:
                     # The FLOPs of the global batch over every device's peak.
-                    row["mfu"] = (flops_per_iter / sec_per_iter
-                                  / (peak_flops * num_devices))
+                    row["mfu"] = flops_window / seconds / (peak_flops * num_devices)
                     if not peak_shown:
                         peak_shown = True
-                        say(f"mfu: {flops_per_iter:,} matmul and convolution "
-                            f"FLOPs an iteration (recompute included) against "
+                        say(f"mfu: {flops_window // max(iter_window, 1):,} matmul and "
+                            f"convolution FLOPs an iteration (no recompute) against "
                             f"{peak_flops:.4g} FLOP/s on each of {num_devices} "
                             f"device(s), the dense {dtype_name} peak of the "
                             f"{device_name(trainer.device)}")
+                t_window, steps_window, iter_window, flops_window = now, 0, 0, 0
                 logger.log(row, step=trainer.global_step)
                 for k, v in row.items():
                     tag = ("performance/" if k in
@@ -503,7 +520,7 @@ def train(
                 (stop,) = _agreed(stop)
 
             if eval_interval and (update_idx % eval_interval == 0 or stop):
-                with timer.phase("eval"):
+                with span("eval"):
                     ev = trainer.evaluate(eval_episodes)
                 logger.log(ev, step=trainer.global_step)
                 for k, v in ev.items():
@@ -517,10 +534,12 @@ def train(
                     trainer.save(ckpt_dir, "best", extra=_extra())
 
             if save_interval and update_idx % save_interval == 0:
-                with timer.phase("checkpoint"):
+                with span("checkpoint"):
                     trainer.save(ckpt_dir, f"checkpoint_{trainer.global_step}",
                                  extra=_extra())
                     trainer.save(ckpt_dir, "latest", extra=_extra())
+            if profile:
+                profiling.span_totals(profiling.snapshot(clear=True)["spans"], phases)
     except BaseException as e:
         # An error or an interrupt one rank raised is not seen by the others
         # (which may be inside a collective): a collective save would wait
@@ -542,7 +561,12 @@ def train(
         logger.save_summary()
         tb.close()
         if profile:
-            say(timer.report())
+            profiling.span_totals(profiling.snapshot(clear=True)["spans"], phases)
+            if not tracing_was_on:
+                profiling.disable()
+            say(profiling.span_report(phases))
+            if traced is not None:
+                say(traced.report())
 
     elapsed = time.time() - t_start
     return {

@@ -27,6 +27,7 @@ from ..models import distributions as D
 from ..models import network_from_config
 from ..utils.checkpoints import load_checkpoint
 from ..utils.config import load_config, merge_config
+from ..utils.profiling import count, span
 
 
 def evaluate_policy(
@@ -51,7 +52,19 @@ def evaluate_policy(
     `lookahead` switches from the raw policy to policy+1-ply value search
     (`topk` bounds its candidates, 0 simulates all 192 actions; `gamma`
     discounts its bootstrap): label its results as search results.
+    With the tracer on (`bbx_torch.utils.profiling`) the job counts the
+    lanes times the steps it steps (`eval.lane_steps`) and those on lanes
+    whose game had not ended (`eval.live_lane_steps`: every lane's moves,
+    since a live lane's policy or search takes a valid action).
     """
+    with span("eval.job", lanes=num_episodes):
+        return _evaluate(network, num_episodes, deterministic, seed, max_steps, chunk,
+                         progress, lookahead, gamma, reward_config, topk, device)
+
+
+def _evaluate(network, num_episodes, deterministic, seed, max_steps, chunk, progress,
+              lookahead, gamma, reward_config, topk, device):
+    """`evaluate_policy`'s body, in its span."""
     dev = resolve_device(device)
     rc = reward_config or RewardConfig()
     network = network.to(dev).eval()
@@ -62,52 +75,58 @@ def evaluate_policy(
     with torch.inference_mode():
         obs = observe(state)
         while steps_done < max_steps:
-            for _ in range(chunk):
-                if lookahead:
-                    action = lookahead_actions(network, state, search_rng, rc,
-                                               gamma=gamma, topk=topk, obs=obs)
-                else:
-                    logits, _ = network(obs["board"], obs["pieces"],
-                                        obs["action_mask"])
-                    action = (D.mode(logits) if deterministic
-                              else D.sample(act_rng, logits))
-                out = step(state, action, rc, auto_reset=False)
-                state, obs = out.state, out.obs
+            with span("eval.chunk"):
+                for _ in range(chunk):
+                    if lookahead:
+                        action = lookahead_actions(network, state, search_rng, rc,
+                                                   gamma=gamma, topk=topk, obs=obs)
+                    else:
+                        logits, _ = network(obs["board"], obs["pieces"],
+                                            obs["action_mask"])
+                        action = (D.mode(logits) if deterministic
+                                  else D.sample(act_rng, logits))
+                    out = step(state, action, rc, auto_reset=False)
+                    state, obs = out.state, out.obs
             steps_done += chunk
-            done = state.done.cpu().numpy()
+            count("eval.lane_steps", num_episodes * chunk)
+            with span("eval.poll"):
+                done = state.done.cpu().numpy()
             if progress:
                 print(f"  eval: {done.sum()}/{num_episodes} episodes finished "
                       f"after {steps_done} steps", flush=True)
             if done.all():
                 break
 
-    # Aggregate over COMPLETED episodes only: a lane still alive at
-    # max_steps holds a lower bound on its final score.
-    done = state.done.cpu().numpy()
-    sel = done if done.any() else np.ones_like(done)
-    scores = state.score.cpu().numpy().astype(np.float64)[sel]
-    lengths = state.moves.cpu().numpy().astype(np.float64)[sel]
-    lines = state.lines_total.cpu().numpy().astype(np.float64)[sel]
-    combos = state.max_streak.cpu().numpy().astype(np.float64)[sel]
-    pct = {f"p{p}": float(np.percentile(scores, p))
-           for p in (10, 25, 50, 75, 90, 95, 99)}
-    return {
-        "num_episodes": num_episodes,
-        "deterministic": deterministic,
-        "lookahead": lookahead,
-        "completed": int(done.sum()),
-        "truncated": int((~done).sum()),
-        "score_mean": float(scores.mean()),
-        "score_std": float(scores.std()),
-        "score_min": float(scores.min()),
-        "score_max": float(scores.max()),
-        "score_median": float(np.median(scores)),
-        "length_mean": float(lengths.mean()),
-        "length_std": float(lengths.std()),
-        "lines_mean": float(lines.mean()),
-        "max_combo_mean": float(combos.mean()),
-        "percentiles": pct,
-    }
+    with span("eval.stats"):
+        # Aggregate over COMPLETED episodes only: a lane still alive at
+        # max_steps holds a lower bound on its final score.
+        done = state.done.cpu().numpy()
+        moves = state.moves.cpu().numpy()
+        count("eval.live_lane_steps", int(moves.sum()))
+        sel = done if done.any() else np.ones_like(done)
+        scores = state.score.cpu().numpy().astype(np.float64)[sel]
+        lengths = moves.astype(np.float64)[sel]
+        lines = state.lines_total.cpu().numpy().astype(np.float64)[sel]
+        combos = state.max_streak.cpu().numpy().astype(np.float64)[sel]
+        pct = {f"p{p}": float(np.percentile(scores, p))
+               for p in (10, 25, 50, 75, 90, 95, 99)}
+        return {
+            "num_episodes": num_episodes,
+            "deterministic": deterministic,
+            "lookahead": lookahead,
+            "completed": int(done.sum()),
+            "truncated": int((~done).sum()),
+            "score_mean": float(scores.mean()),
+            "score_std": float(scores.std()),
+            "score_min": float(scores.min()),
+            "score_max": float(scores.max()),
+            "score_median": float(np.median(scores)),
+            "length_mean": float(lengths.mean()),
+            "length_std": float(lengths.std()),
+            "lines_mean": float(lines.mean()),
+            "max_combo_mean": float(combos.mean()),
+            "percentiles": pct,
+        }
 
 
 def print_results(r: Dict[str, Any]) -> None:

@@ -35,8 +35,11 @@ def main(argv=None) -> int:
                     help="overrides training.seed from the config (default 42)")
     ap.add_argument("--total-timesteps", type=int, default=None)
     ap.add_argument("--profile", action="store_true",
-                    help="per-phase timing, an mfu row and one profiler "
-                         "trace (into <log_dir>/trace)")
+                    help="trace the program's spans: print the phase report "
+                         "(host seconds by span, device ms where marked) and "
+                         "the device's idle time by span in one profiled "
+                         "iteration (its trace into <log_dir>/trace), and "
+                         "add an mfu row to each log line")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda, or cuda:<LOCAL_RANK> "
                          "under torchrun; 'cpu' to run there)")

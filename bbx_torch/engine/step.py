@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import build
+from ..utils.profiling import span
 from . import kernel as K
 from . import solvability as S
 from .state import (EnvState, _launch_regen, fresh_pieces, regen_pieces_plain,
@@ -540,9 +541,10 @@ def step(state: EnvState, actions: torch.Tensor,
     Returns:
       StepOutput(state, obs, reward, done, info, regen_attempts).
     """
-    if not state.board.is_cuda:
-        return _step_plain(state, actions, reward_config, auto_reset)
-    return _step_cuda(state, actions, reward_config, auto_reset)
+    with span("engine.step"):
+        if not state.board.is_cuda:
+            return _step_plain(state, actions, reward_config, auto_reset)
+        return _step_cuda(state, actions, reward_config, auto_reset)
 
 
 def _step_plain(state, actions, reward_config, auto_reset) -> StepOutput:

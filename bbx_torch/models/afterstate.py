@@ -646,18 +646,21 @@ class AfterstateNetwork(nn.Module):
                     m.weight.copy_(w)
                     m.bias.zero_()
 
-    def flop_layers(self, batch: int) -> list:
+    def flop_layers(self, batch: int, value_only: bool = False) -> list:
         """The layers' matmul and convolution FLOPs on `batch`
         observations (`bbx_torch.models.flops`): the context embedding, the
         evaluator on the 192 afterstates (recomputed in a gradient step),
-        the value head."""
+        the value head (`value_only`: the value head alone, `value`)."""
         ev = self.evaluator
+        value = [*(conv_layer(batch, c, i > 0) for i, c in enumerate(self.value_convs)),
+                 linear_layer(batch, self.value_dense0), linear_layer(batch, self.value_dense1)]
+        if value_only:
+            return value
         return [(dense_flops(batch * NUM_SLOTS, BOARD * BOARD, self.ctx.out_features),
                  False, False),
                 *evaluator_layers(batch, [c.out_channels for c in ev.convs],
                                   ev.dense0.out_features, self.ctx.out_features),
-                *(conv_layer(batch, c, i > 0) for i, c in enumerate(self.value_convs)),
-                linear_layer(batch, self.value_dense0), linear_layer(batch, self.value_dense1)]
+                *value]
 
     def afterstates(self, board: torch.Tensor, pieces: torch.Tensor):
         """The evaluator's inputs: K4's planes [B, 192, 8, 8, 2] and

@@ -63,14 +63,20 @@ def evaluator_layers(lanes: int, channels: Sequence[int], hidden: int,
         (dense_flops(m, hidden, 1), True, False)]
 
 
-def network_flops(network, batch: int, grad: bool = False) -> int:
+def network_flops(network, batch: int, grad: bool = False, recompute: bool = True,
+                  value_only: bool = False) -> int:
     """FLOPs of one forward of `network` on `batch` observations, or with
-    `grad` of one gradient step (forward, recompute and backward)."""
+    `grad` of one gradient step (forward, recompute and backward; without
+    the recompute, which the model does not require, where `recompute` is
+    False).  `value_only`: the value alone, as the one-ply search reads it
+    (`network.value`)."""
+    layers = (network.flop_layers(batch, value_only=True) if value_only
+              else network.flop_layers(batch))
     total = 0
-    for fwd, input_grad, recomputed in network.flop_layers(batch):
+    for fwd, input_grad, recomputed in layers:
         total += fwd
         if grad:
-            total += fwd * (1 + int(input_grad) + int(recomputed))
+            total += fwd * (1 + int(input_grad) + int(recomputed and recompute))
     return total
 
 

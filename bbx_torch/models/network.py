@@ -200,18 +200,19 @@ class BlockBlastNetwork(nn.Module):
                 x = _dropout(x, self.dropout_rate, generator, shard)
         return x
 
-    def flop_layers(self, batch: int) -> list:
+    def flop_layers(self, batch: int, value_only: bool = False) -> list:
         """The layers' matmul and convolution FLOPs on `batch`
-        observations (`bbx_torch.models.flops`), in forward order."""
+        observations (`bbx_torch.models.flops`), in forward order
+        (`value_only`: the trunk and the value head, `value`)."""
         layers = []
         for i, conv in enumerate(self.convs):
             layers.append(conv_layer(batch, conv, i > 0))
             if i > 0 and self.blocks:
                 blk = self.blocks[i - 1]
                 layers += [conv_layer(batch, blk.conv0), conv_layer(batch, blk.conv1)]
+        heads = () if value_only else (self.policy_hidden, self.policy_out)
         return layers + [linear_layer(batch, m) for m in (
-            *self.fc, self.policy_hidden, self.policy_out, self.value_hidden,
-            self.value_out)]
+            *self.fc, *heads, self.value_hidden, self.value_out)]
 
     @property
     def lockstep_forward(self) -> bool:

@@ -291,7 +291,7 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     log_dir = str(tmp_path / "trace")
     with trace(log_dir) as d:
         torch.ones(64, 64) @ torch.ones(64, 64)
-    assert d == log_dir
+    assert d.log_dir == log_dir
     (name,) = os.listdir(log_dir)
     with open(os.path.join(log_dir, name)) as f:
         events = json.load(f)["traceEvents"]
@@ -329,6 +329,10 @@ def test_flop_count_equals_flop_counter_mode(index):
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         net(board, pieces, mask)
     assert F.network_flops(net, b) == fc.get_total_flops() > 0
+    if hasattr(net, "value"):  # the one-ply search's value alone
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            net.value(board, pieces)
+        assert F.network_flops(net, b, value_only=True) == fc.get_total_flops() > 0
     net.train()
     with FlopCounterMode(display=False) as fc:
         logits, value = net(board, pieces, mask, generator=torch.Generator().manual_seed(0))
@@ -337,15 +341,29 @@ def test_flop_count_equals_flop_counter_mode(index):
 
 
 def test_iteration_flops_counts_the_trip_counts():
-    """Rollout forwards x steps plus gradient steps x epochs x minibatches:
-    the count scales with each trip count, as bbx's `_iteration_flops`."""
+    """Rollout forwards x (steps + the last value) plus gradient steps
+    without the evaluator's recompute x epochs x minibatches, as the
+    benchmark's `mfu.train` counts; an iteration that searches adds the
+    search's value on every simulated lane of every step, until the
+    search anneals out (bbx's `_iteration_flops` counts the recompute and
+    neither the last value nor the search)."""
     net = network_from_config(TINY_NET)
     cfg = PPOConfig(num_envs=8, rollout_steps=16, minibatch_size=32, num_epochs=4)
-    f_roll, f_upd = F.network_flops(net, 8), F.network_flops(net, 32, grad=True)
-    assert iteration_flops(cfg, net) == 16 * f_roll + 4 * 4 * f_upd
+    f_roll = F.network_flops(net, 8)
+    f_upd = F.network_flops(net, 32, grad=True, recompute=False)
+    recompute = sum(f for f, _, again in net.flop_layers(32) if again)
+    assert f_upd == F.network_flops(net, 32, grad=True) - recompute < f_upd + recompute
+    assert iteration_flops(cfg, net) == 17 * f_roll + 4 * 4 * f_upd
     longer = PPOConfig(num_envs=8, rollout_steps=32, minibatch_size=32, num_epochs=4)
-    assert iteration_flops(longer, net) == 32 * f_roll + 4 * 8 * f_upd
+    assert iteration_flops(longer, net) == 33 * f_roll + 4 * 8 * f_upd
     assert iteration_flops(cfg, net) > 10 * (f_roll + f_upd)
+    search = PPOConfig(num_envs=8, rollout_steps=16, minibatch_size=32, num_epochs=4,
+                       rollout_search_frac=0.5, final_rollout_search_frac=0.0,
+                       search_topk=4, schedule_updates=10)
+    f_value = F.network_flops(net, 8 * 4, value_only=True)
+    assert 0 < f_value < F.network_flops(net, 8 * 4)
+    assert iteration_flops(search, net, update_step=0) == iteration_flops(cfg, net) + 16 * f_value
+    assert iteration_flops(search, net, update_step=10) == iteration_flops(cfg, net)
 
 
 def test_kernel_flop_counts():

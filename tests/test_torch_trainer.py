@@ -131,7 +131,8 @@ def test_profile_is_not_ported(tmp_path, monkeypatch, capsys):
     ``<log_dir>/trace``, an `mfu` row in every log line (the CPU has no
     peak, so one is patched in: `iteration_flops` over the iteration's
     seconds over it), the peak printed beside the first, and the phase
-    report at the end."""
+    report of the spans and the traced iteration's idle time by span at the
+    end."""
     from bbx_torch.agent import trainer as T
 
     assert T.device_peak_flops(torch.device("cpu"), torch.float32) is None
@@ -147,7 +148,8 @@ def test_profile_is_not_ported(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("against 1e+12 FLOP/s") == 1
     assert f"profiler trace written to {tmp_path / 'logs' / 'trace'}" in out
-    assert "phase timing:" in out and "train_iter" in out and "(21x, " in out
+    assert "phase timing:" in out and "train.iteration" in out and "(21x, " in out
+    assert "idle by span:" in out
     assert any(n.endswith(".json") for n in os.listdir(tmp_path / "logs" / "trace"))
     rows = [json.loads(line) for name in os.listdir(tmp_path / "logs")
             if name.endswith(".jsonl")
