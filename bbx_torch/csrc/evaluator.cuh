@@ -1,11 +1,8 @@
 // What K8 (evaluator.cu, the evaluator's forward) and its backward
 // (evaluator_backward.cu) share: the widths and the weight layout, the
-// kernel that lays the weights out, the product of one k16 step, conv1's
-// and conv2's rows, and the backward's forward of one tile of afterstates
-// -- planes into shared memory, conv1 and conv2 row by row, dense0
-// accumulated across the rows -- which it recomputes (bbx's nn.remat).
-// K8 walks the same rows with the same sums in the same order, in blocks
-// that stage the weights once and take many tiles (evaluator.cu), so that
+// kernel that lays the weights out, the product of one k16 step, and
+// conv1's and conv2's rows, from which K8 and the backward's recompute of
+// a tile (bbx's nn.remat) build the same sums in the same order, so that
 // the backward's ReLU decisions are K8's.
 //
 // The weight layout is written on the card at every call, from the
@@ -145,14 +142,15 @@ __device__ __forceinline__ void store2(S* p, S x, S y) {
     }
 }
 
-// One k16 step of a warp's tile: `bbx_mma_k16` (mma.cuh) in bf16; in
-// float32 the same contract as a scalar sum over k on the CUDA cores, into
-// float32 or float64 accumulators (A).
-template <int MT, int NT, bool B_LDM, typename S, typename A, class AF, class BF>
+// One k16 step of a warp's tile: `bbx_mma_k16` (mma.cuh; DEF: its skipped
+// fragments set to 0) in bf16; in float32 the same contract as a scalar sum
+// over k on the CUDA cores, into float32 or float64 accumulators (A).
+template <int MT, int NT, bool B_LDM, typename S, bool DEF = false, typename A, class AF,
+          class BF>
 __device__ __forceinline__ void tile_k16(A (&c)[MT][NT][4], const AF& a, const BF& b,
                                          int mt, int nt) {
     if constexpr (sizeof(S) == 2) {
-        bbx_mma_k16<MT, NT, B_LDM>(c, a, b, mt, nt);
+        bbx_mma_k16<MT, NT, B_LDM, DEF>(c, a, b, mt, nt);
     } else {
         const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
@@ -368,8 +366,9 @@ struct EvTake {
 // for one dy are the contiguous padded pixels (y + dy, x .. x + 3) (the
 // fourth's pair meets zero weights).  Warp `warp`'s n-tiles are afterstates
 // 4 warp .. + 3 (8 columns each), its m-tiles the c1m / 16 channel blocks.
-// `put(ch, x, a, v)` stores relu(sum + bias) rounded, for ch < c1p.
-template <typename S, int T, class Put>
+// `put(ch, x, a, v)` stores relu(sum + bias) rounded, for ch < c1p.  DEF:
+// tile_k16's.
+template <typename S, int T, bool DEF = false, class Put>
 __device__ __forceinline__ void ev_conv1_row(const S* s_in, const S* s_w1a, const S* s_zero,
                                              const float* bias, const EvDims& e, int y,
                                              const Put& put) {
@@ -385,7 +384,7 @@ __device__ __forceinline__ void ev_conv1_row(const S* s_in, const S* s_w1a, cons
             const int dy = 2 * s + half;
             return dy < 3 ? s_in + ((4 * warp + j) * 10 + y + dy) * 20 + col * 2 : s_zero;
         };
-        tile_k16<2, 4, false, S>(c, a, b, e.c1m / 16, 4);
+        tile_k16<2, 4, false, S, DEF>(c, a, b, e.c1m / 16, 4);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -410,7 +409,8 @@ __device__ __forceinline__ void ev_conv1_row(const S* s_in, const S* s_w1a, cons
 // 0-7: columns 0-7) and that + 1 (rows 8-15).  With Q_UNROLLED the loop
 // over channel groups is unrolled 4 times (K8: 5% faster on an H100;
 // the backward's kernel, at its register limit, 2% slower: PERF.md).
-template <typename S, int T, typename A, bool Q_UNROLLED = false>
+// DEF: tile_k16's.
+template <typename S, int T, typename A, bool Q_UNROLLED = false, bool DEF = false>
 __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int cinp,
                                              int cg, const S* w, int nt, const S* s_zero,
                                              int r) {
@@ -439,7 +439,7 @@ __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int
                 auto b = [&](int j, int half, int col) -> const S* {
                     return w + ((p * cg + q) * nt + j) * 128 + half * 64 + col * 8;
                 };
-                tile_k16<2, 4, true, S>(c, a, b, 2, nt);
+                tile_k16<2, 4, true, S, DEF>(c, a, b, 2, nt);
             }
         } else {
             for (int q = 0; q < cg; ++q) {
@@ -452,215 +452,8 @@ __device__ __forceinline__ void ev_conv3_row(A (&c)[2][4][4], const S* ring, int
                 auto b = [&](int j, int half, int col) -> const S* {
                     return w + ((p * cg + q) * nt + j) * 128 + half * 64 + col * 8;
                 };
-                tile_k16<2, 4, true, S>(c, a, b, 2, nt);
+                tile_k16<2, 4, true, S, DEF>(c, a, b, 2, nt);
             }
         }
     }
-}
-
-// The forward of the tile of T afterstates from `first` (one lane and
-// slot), up to dense0's output: leaves h = relu(dense0) rounded, as float,
-// in [T][hp + 1] at sm.ring, and the tile's features (float) at
-// s_f + sm.feats.  Its 8T threads, the block's first, call it and meet at
-// `sync()`, a barrier over exactly them.  After conv2's row r is in the
-// stage ([T][8 c2p + 8]) and they have synchronised,
-// `on_row(r, stage, sstr)` runs on every thread (the backward stores the
-// row there; K8 passes a no-op).
-template <typename S, int T, class OnRow, class Sync>
-__device__ __forceinline__ void ev_forward_tile(const S* __restrict__ planes,
-                                                const S* __restrict__ feats,
-                                                const S* __restrict__ ctx,
-                                                const S* __restrict__ lay, const EvDims& e,
-                                                const EvSmem& sm, unsigned char* smem,
-                                                size_t first, const OnRow& on_row,
-                                                const Sync& sync) {
-    constexpr int NTH = 8 * T, W = T / 4;
-    using Acc = typename EvAccT<S>::type;
-    S* s_in = (S*)(smem + sm.in);
-    S* s_zero = (S*)(smem + sm.zero);
-    S* s_w1a = (S*)(smem + sm.w1a);
-    S* s_w2 = (S*)(smem + sm.w2);
-    float* s_f = (float*)(smem + sm.f32);
-    Acc* s_ctx = (Acc*)(s_f + sm.ctx);
-    S* s_ring = (S*)(smem + sm.ring);
-    Acc* s_odd = (Acc*)(smem + sm.ring);
-    float* s_hid = (float*)(smem + sm.ring);
-    S* s_stage = (S*)(smem + sm.stage);
-
-    const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-    const int lane = (int)(first / EV_ACTIONS);
-    const int slot = (int)(first % EV_ACTIONS) / 64;
-    const int c1p = e.c1p, sstr = 8 * e.c2p + 8;
-
-    // The tile's planes into [T][10][10][2] with a zero halo: thread (a, y)
-    // copies image row y of afterstate a.
-    {
-        const int a = tid >> 3, y = tid & 7;
-        const uint4* src = (const uint4*)(planes + (first + a) * 128 + y * 16);
-        S* row = s_in + (a * 10 + y + 1) * 20;
-        if constexpr (sizeof(S) == 2) {
-            unsigned* d = (unsigned*)row;
-            const uint4 v0 = src[0], v1 = src[1];
-            d[0] = 0;
-            d[1] = v0.x;
-            d[2] = v0.y;
-            d[3] = v0.z;
-            d[4] = v0.w;
-            d[5] = v1.x;
-            d[6] = v1.y;
-            d[7] = v1.z;
-            d[8] = v1.w;
-            d[9] = 0;
-        } else {
-            row[0] = row[1] = row[18] = row[19] = 0.0f;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const uint4 v = src[q];
-                row[2 + 4 * q] = __uint_as_float(v.x);
-                row[3 + 4 * q] = __uint_as_float(v.y);
-                row[4 + 4 * q] = __uint_as_float(v.z);
-                row[5 + 4 * q] = __uint_as_float(v.w);
-            }
-        }
-        if (y == 0 || y == 7) {
-            S* edge = s_in + (a * 10 + (y == 0 ? 0 : 9)) * 20;
-            for (int i = 0; i < 20; ++i) edge[i] = 0;
-        }
-    }
-    if (tid < 32) {
-        s_zero[tid] = 0;
-        if (tid < 16) s_in[T * 200 + tid] = 0;
-    }
-    // The ring's zero columns.
-    for (int i = tid; i < 3 * T * 2 * c1p; i += NTH) {
-        const int row = i / (2 * c1p), side = (i / c1p) & 1;
-        s_ring[(row * 10 + side * 9) * c1p + i % c1p] = 0;
-    }
-    // Weights: conv1's A and conv2's B blocks (16 bytes a thread a pass),
-    // biases, dense0's feature rows and dense1 as float32; the features.
-    {
-        const uint4* src = (const uint4*)(lay + e.w1a);
-        uint4* dst = (uint4*)s_w1a;
-        for (int i = tid; i < e.c1m * EV_W1_STRIDE * (int)sizeof(S) / 16; i += NTH)
-            dst[i] = src[i];
-        src = (const uint4*)(lay + e.w2);
-        dst = (uint4*)s_w2;
-        for (int i = tid; i < e.ks2 * e.nt2 * 128 * (int)sizeof(S) / 16; i += NTH)
-            dst[i] = src[i];
-    }
-    for (int i = tid; i < c1p; i += NTH) s_f[sm.b1c + i] = to_f(lay[e.b1c + i]);
-    for (int i = tid; i < e.c2p; i += NTH) s_f[sm.b2 + i] = to_f(lay[e.b2 + i]);
-    for (int i = tid; i < e.hp; i += NTH) {
-        s_f[sm.b0 + i] = to_f(lay[e.b0 + i]);
-        s_f[sm.w1 + i] = to_f(lay[e.w1 + i]);
-    }
-    for (int i = tid; i < 3 * e.hp; i += NTH) s_f[sm.w0f + i] = to_f(lay[e.w0f + i]);
-    for (int i = tid; i < 3 * T; i += NTH) s_f[sm.feats + i] = to_f(feats[first * 3 + i]);
-    // The context's part of dense0, one [d] . [d, hp] product for the
-    // tile's (lane, slot), in the accumulator type.
-    for (int hh = tid; hh < e.hp; hh += NTH) {
-        const S* crow = ctx + ((size_t)lane * 3 + slot) * e.d;
-        Acc s4[4] = {0, 0, 0, 0};
-        int dd = 0;
-        for (; dd + 4 <= e.d; dd += 4) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-                s4[q] += (Acc)to_f(crow[dd + q]) * to_f(lay[e.w0x + (dd + q) * e.hp + hh]);
-        }
-        for (; dd < e.d; ++dd) s4[0] += (Acc)to_f(crow[dd]) * to_f(lay[e.w0x + dd * e.hp + hh]);
-        s_ctx[hh] = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-    }
-    sync();
-
-    // conv1 row y into ring row y % 3, columns 1-8.
-    auto conv1_row = [&](int y) {
-        S* out = s_ring + (y % 3) * T * 10 * c1p;
-        ev_conv1_row<S, T>(s_in, s_w1a, s_zero, s_f + sm.b1c, e, y,
-                           [&](int ch, int x, int a, S v) { out[(a * 10 + x + 1) * c1p + ch] = v; });
-    };
-    conv1_row(0);
-    conv1_row(1);
-    sync();
-
-    // dense0's accumulators: every m-tile (afterstates 16 i .. + 15, i <
-    // T / 16) by n-tiles n0, n0 + W / 2, ... (those below nt0, at most
-    // NT0 of the 16), over the k-steps of parity kq: the two halves of the
-    // warps split dense0's k, and their sums meet at the end, so that each
-    // k-step's activation rows are read by half the warps.
-    constexpr int NT0 = 32 / W;
-    const int kq = warp / (W / 2), n0 = warp % (W / 2);
-    const int nt0w = e.nt0 > n0 ? (e.nt0 - n0 + W / 2 - 1) / (W / 2) : 0;
-    Acc acc[T / 16][NT0][4];
-    zero(acc);
-
-    for (int r = 0; r < 8; ++r) {
-        // conv2, output row r, into the stage: dense0's k-slice of that row
-        // in the flatten order.
-        Acc c[2][4][4];
-        ev_conv3_row<S, T>(c, s_ring, c1p, e.cg1, s_w2, e.nt2, s_zero, r);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (j < e.nt2) {
-                    const int col = j * 8 + 2 * t;
-                    const float b0 = s_f[sm.b2 + col], b1 = s_f[sm.b2 + col + 1];
-                    S* o = s_stage + 2 * (warp + W * i) * sstr + g * e.c2p + col;
-                    store2(o, relu_to<S>(c[i][j][0] + b0), relu_to<S>(c[i][j][1] + b1));
-                    store2(o + sstr, relu_to<S>(c[i][j][2] + b0), relu_to<S>(c[i][j][3] + b1));
-                }
-            }
-        }
-        sync();
-        on_row(r, (const S*)s_stage, sstr);
-
-        // dense0 over row r's k-slice (8 c2p columns of the flatten order),
-        // then conv1 for row r + 2 into the ring row conv2 just finished.
-#pragma unroll 2
-        for (int s = kq; s < e.c2p / 2; s += 2) {
-            const size_t ks = (size_t)r * (e.c2p / 2) + s;
-            auto a = [&](int i, int row, int half) -> const S* {
-                return s_stage + (i * 16 + row) * sstr + s * 16 + half * 8;
-            };
-            auto b = [&](int j, int half, int col) -> const S* {
-                return lay + e.w0 + (ks * e.nt0 + n0 + (W / 2) * j) * 128 + half * 64 + col * 8;
-            };
-            tile_k16<T / 16, NT0, false, S>(acc, a, b, T / 16, nt0w);
-        }
-        if (r + 2 < 8) conv1_row(r + 2);
-        sync();
-    }
-
-    // dense0's epilogue: the odd k-steps' sums, in [T][hp + 1] over the
-    // ring, join the even ones'; + features' part + context's part + bias
-    // (all in the accumulator type), ReLU, rounded once, into [T][hp + 1]
-    // float32 there.
-    auto each_acc = [&](auto&& fn) {
-#pragma unroll
-        for (int i = 0; i < T / 16; ++i) {
-#pragma unroll
-            for (int j = 0; j < NT0; ++j) {
-                if (j < nt0w) {
-#pragma unroll
-                    for (int k = 0; k < 4; ++k)
-                        fn(acc[i][j][k], i * 16 + g + (k >> 1) * 8,
-                           (n0 + (W / 2) * j) * 8 + 2 * t + (k & 1));
-                }
-            }
-        }
-    };
-    if (kq == 1) each_acc([&](Acc& v, int a, int hh) { s_odd[a * (e.hp + 1) + hh] = v; });
-    sync();
-    if (kq == 0) {
-        each_acc([&](Acc& v, int a, int hh) {
-            const float* fa = s_f + sm.feats + a * 3;
-            const float* wf = s_f + sm.w0f + hh;
-            const Acc fsum = (Acc)fa[0] * wf[0] + (Acc)fa[1] * wf[e.hp] + (Acc)fa[2] * wf[2 * e.hp];
-            v = (v + s_odd[a * (e.hp + 1) + hh]) + (fsum + s_ctx[hh]) + (Acc)s_f[sm.b0 + hh];
-        });
-    }
-    sync();
-    if (kq == 0)
-        each_acc([&](Acc& v, int a, int hh) { s_hid[a * (e.hp + 1) + hh] = to_f(relu_to<S>(v)); });
-    sync();
 }

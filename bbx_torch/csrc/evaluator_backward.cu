@@ -31,35 +31,41 @@
 //  * bbx_evaluator_grad_tiles (K8b): the weight layout with the backward's
 //    operands (evaluator.cuh), then a grid of G blocks (SMs x resident
 //    blocks), block i taking tiles i, i + G, ... of T afterstates of one
-//    (lane, slot): T = 32 in bf16, 16 in float32, whose shared memory is
-//    twice as wide.  A block is two groups of warps, 8 each in bf16 (16 an
-//    SM: its products wait on shared memory and L2, and one group of 8 had
-//    too few warps to hide that), 4 in float32.  The data group recomputes
-//    K8's forward (ev_forward_tile) and writes x0 ([tile][kx][T], afterstate
-//    innermost) and dz0 ([tile][hk][T]) for K8w, 16 bytes a thread, the
-//    bf16 rows' 16-byte chunks permuted (evb_at) so that K8w's ldmatrix
-//    rows fall in distinct banks; dz0's sum over the tile for the context;
-//    and keeps in shared memory a2 > 0 as bits (a byte for each 8
-//    afterstates, no vote) and dz0.  Then it walks the image rows back, r
-//    = 7 .. 0, with rings of three rows in shared memory: conv1's row r - 1
-//    again (channel-major, afterstate innermost); da2's row r = dz0 . W0t_r
-//    on the tensor cores (W0t_r: W0's columns of row r, transposed by the
-//    layout kernel, read from L2), masked; da1's row r + 1 as the SAME
-//    convolution of da2's rows r .. r + 2 with the flipped, transposed
-//    weights (ev_conv3_row, as conv2's forward), masked, into [c1p][8][T].
-//    The weight group follows a row behind, its sums in registers for the
-//    block's life: dW2 += da2_r^T . patches(a1) on the tensor cores (k =
-//    the row's pixels, afterstate innermost, so each column's 8 k values
-//    are contiguous; a table gives each column's offset a row; a column of
-//    ones gives conv2's bias), and dW1 += da1_r . patches(planes), on the
-//    tensor cores in bf16 (k = the row's pixels, afterstate innermost; the
-//    tile's planes staged once, afterstate innermost, with strides that put
-//    an n8 tile's 8 columns in 8 banks; a column of ones gives conv1's
-//    bias), on the CUDA cores in float32.  The groups hand each other rows
-//    through named barriers.  The block writes one record of float32
-//    partial sums.  The forward's sums run in float64 in the float32
-//    instantiation, as in K8's (evaluator.cuh), so the recompute rounds
-//    each activation once and K8b's ReLU masks are K8's.
+//    (lane, slot): T = 32 in bf16, 16 in float32, whose shared memory is twice
+//    as wide.  A block is two groups of warps, 8 each in bf16 (16 an SM: its
+//    products wait on shared memory and L2, and one group of 8 had too few
+//    warps to hide that), 4 in float32.  Both groups recompute K8's forward
+//    (evb_forward_tile), each sum in K8's order so that K8b's ReLU masks are
+//    K8's: the data group computes conv1's and conv2's rows while the weight
+//    group, a row behind, stores each conv2 row into x0 and sums dense0 over
+//    it (two stages of conv2 rows pass between them).  They write x0
+//    ([tile][kx][T], afterstate innermost) and dz0 ([tile][hk][T]) for K8w, 16
+//    bytes a thread, the bf16 rows' 16-byte chunks permuted (evb_at) so that
+//    K8w's ldmatrix rows fall in distinct banks; the data group sums dz0 over
+//    the tile for the context; both keep in shared memory a2 > 0 as bits (a
+//    byte for each 8 afterstates, no vote) and dz0, and set up the walk.
+//    Where shared memory holds conv2's weights in both layouts (run9's widths,
+//    not the width limits), every weight is staged once a block; else conv2's
+//    transposed weights overwrite conv2's in each tile's set-up, and the
+//    forward stages the weights again.  Then the data group walks the image
+//    rows back, r = 7 .. 0, with rings of three rows in shared memory: conv1's
+//    row r - 1 again (channel-major, afterstate innermost); da2's row r = dz0
+//    . W0t_r on the tensor cores (W0t_r: W0's columns of row r, transposed by
+//    the layout kernel, read from L2), masked; da1's row r + 1 as the SAME
+//    convolution of da2's rows r .. r + 2 with the flipped, transposed weights
+//    (ev_conv3_row, as conv2's forward), masked, into [c1p][8][T].  The weight
+//    group follows a row behind, its sums in registers for the block's life:
+//    dW2 += da2_r^T . patches(a1) on the tensor cores (k = the row's pixels,
+//    afterstate innermost, so each column's 8 k values are contiguous; a table
+//    gives each column's offset a row; a column of ones gives conv2's bias),
+//    and dW1 += da1_r . patches(planes), on the tensor cores in bf16 (k = the
+//    row's pixels, afterstate innermost; the tile's planes staged once,
+//    afterstate innermost, with strides that put an n8 tile's 8 columns in 8
+//    banks; a column of ones gives conv1's bias), on the CUDA cores in
+//    float32.  The groups hand each other rows through named barriers.  The
+//    block writes one record of float32 partial sums.  The forward's sums run
+//    in float64 in the float32 instantiation, as in K8's (evaluator.cuh), so
+//    the recompute rounds each activation once and K8b's ReLU masks are K8's.
 //  * bbx_evaluator_grad_dense0 (K8w): dW0 = dz0^T . x0, bound by reading x0
 //    once.  A persistent grid: block (column tile of 128 x0 columns, split)
 //    for enough splits to fill every SM, each split a contiguous run of
@@ -146,7 +152,7 @@ __host__ __device__ inline int evb_max(int x, int y) { return x > y ? x : y; }
 // forward is done.
 struct EvbSmem {
     EvSmem f;
-    int one, a1t, da2, da2t, da1, dz0, mask, ds, cols, pt, total;
+    int one, a1t, da2, da2t, da1, dz0, mask, ds, cols, pt, w2t, total;
 };
 
 template <typename S, int T>
@@ -159,12 +165,12 @@ static EvbSmem evb_smem(const EvDims& e) {
     s.f.zero = take(32 * es);
     s.one = take(32 * es);  // a row of ones: the bias columns' B operand
     s.f.w1a = take(z.w1a);
-    s.f.w2 = take(z.w2);  // conv2's weights, then the transposed ones (as large)
+    s.f.w2 = take(z.w2);  // conv2's weights (and over them the transposed ones, as large)
     s.f.f32 = take(z.f32);
     // The forward's ring and dense0's output; then a1 [c1p][3 rows][10][T] (+8).
     s.f.ring = s.a1t = take(evb_max(z.ring, e.c1p * (30 * T + 8) * es));
-    // The forward's stage; then da2 [3 rows][T][10][c2p].
-    s.f.stage = s.da2 = take(evb_max(z.stage, 3 * T * 10 * e.c2p * es));
+    // The forward's two stages; then da2 [3 rows][T][10][c2p].
+    s.f.stage = s.da2 = take(evb_max(2 * z.stage, 3 * T * 10 * e.c2p * es));
     // da2's row channel-major [c2p][8][T] (+8).
     const int d1 = e.c1p * (8 * T + 8) * es;
     s.da2t = take(evb_max(e.c2p * (8 * T + 8) * es, d1));
@@ -183,6 +189,16 @@ static EvbSmem evb_smem(const EvDims& e) {
         take = apart;
     } else {
         s.da1 = s.da2t;
+    }
+    // conv2's transposed weights beside conv2's where they fit too, so that
+    // every weight is staged once a block; else over conv2's, and the
+    // weights staged again in every tile.
+    EvTake beside = take;
+    s.w2t = beside(z.w2);
+    if (beside.at <= EVB_SMEM_LIMIT) {
+        take = beside;
+    } else {
+        s.w2t = s.f.w2;
     }
     s.f.total = s.total = take.at;
     return s;
@@ -227,25 +243,318 @@ static EvbRecord evb_record(const EvDims& e) {
 // ---------------------------------------------------------------------------
 
 // The named barriers between K8b's two warp groups (and within each).
+// Both groups meet at the block's own barrier (__syncthreads) around the
+// tile's forward and in the walk's set-up.
 enum : int {
-    EVB_BAR_DATA = 1,      // the data group's own barrier
-    EVB_BAR_WEIGHTS = 2,   // the weight group's own
-    EVB_BAR_WALK = 3,      // the tile's walk is set up
-    EVB_BAR_ROW = 4,       // a1's row r - 1 and da2's row r are in shared memory
-    EVB_BAR_ROW_READ = 5,  // dW2 has read them
-    EVB_BAR_DA1 = 6,       // da1's row y is in shared memory
-    EVB_BAR_DA1_READ = 7,  // dW1 has read it
-    EVB_BAR_TILE = 8,      // the weight group is done with the tile
+    EVB_BAR_DATA = 1,       // the data group's own barrier
+    EVB_BAR_WEIGHTS = 2,    // the weight group's own
+    EVB_BAR_STAGE0 = 3,     // the forward: conv2's even row is in stage 0
+    EVB_BAR_ROW = 4,        // a1's row r - 1 and da2's row r are in shared memory
+    EVB_BAR_ROW_READ = 5,   // dW2 has read them
+    EVB_BAR_DA1 = 6,        // da1's row y is in shared memory
+    EVB_BAR_DA1_READ = 7,   // dW1 has read it
+    EVB_BAR_TILE = 8,       // both groups are done with the tile
+    EVB_BAR_STAGE1 = 9,     // the forward: conv2's odd row is in stage 1
+    EVB_BAR_STAGE0_READ = 10,  // dense0 has read stage 0
+    EVB_BAR_STAGE1_READ = 11,  // dense0 has read stage 1
 };
 
-// A block is two groups of G warps.  The data group (warps 0 .. G - 1)
-// recomputes the tile's forward, writes x0 and dz0, and walks the data
-// gradients back row by row: conv1's row r - 1 again, da2's row r, da1's
-// row r + 1.  The weight group (warps G .. 2G - 1) follows a step behind
-// with the weight gradients of the rows the data group has finished, dW2's
-// of row r and dW1's of row r + 1, holding their sums in its registers for
-// the block's life.  Each hands the other its rows through named barriers
-// (one arrives, the other waits), so that the two groups' products overlap.
+// The weights the forward reads from shared memory: conv1's A and conv2's
+// B blocks (16 bytes a thread a pass), the biases, dense0's feature rows
+// and dense1 as float32.  Threads tid of nth each take their share.
+template <typename S>
+__device__ __forceinline__ void evb_stage_weights(const S* __restrict__ lay, const EvDims& e,
+                                                  const EvSmem& sm, unsigned char* smem,
+                                                  int tid, int nth) {
+    float* s_f = (float*)(smem + sm.f32);
+    {
+        const uint4* src = (const uint4*)(lay + e.w1a);
+        uint4* dst = (uint4*)(smem + sm.w1a);
+        for (int i = tid; i < e.c1m * EV_W1_STRIDE * (int)sizeof(S) / 16; i += nth)
+            dst[i] = src[i];
+        src = (const uint4*)(lay + e.w2);
+        dst = (uint4*)(smem + sm.w2);
+        for (int i = tid; i < e.ks2 * e.nt2 * 128 * (int)sizeof(S) / 16; i += nth)
+            dst[i] = src[i];
+    }
+    for (int i = tid; i < e.c1p; i += nth) s_f[sm.b1c + i] = to_f(lay[e.b1c + i]);
+    for (int i = tid; i < e.c2p; i += nth) s_f[sm.b2 + i] = to_f(lay[e.b2 + i]);
+    for (int i = tid; i < e.hp; i += nth) {
+        s_f[sm.b0 + i] = to_f(lay[e.b0 + i]);
+        s_f[sm.w1 + i] = to_f(lay[e.w1 + i]);
+    }
+    for (int i = tid; i < 3 * e.hp; i += nth) s_f[sm.w0f + i] = to_f(lay[e.w0f + i]);
+}
+
+// The forward of tile `tile` (T afterstates of one lane and slot) again,
+// on both of K8b's groups, each sum in K8's order (evaluator.cu), so that
+// K8b's ReLU decisions are K8's.  Both groups stage the tile's planes
+// ([T][10][10][2] with a zero halo), features and context part of dense0
+// (and, with `stage_weights`, the weights), and write x0's feature and
+// context columns.  Then the data group computes conv1's rows into a ring
+// of three and conv2's rows into two stages ([T][8 c2p + 8]) in turn,
+// while the weight group, a row behind, stores each conv2 row into x0 and
+// its signs as bits, and accumulates dense0 over it.  Each group runs K8's
+// 8-warp map of its products (conv1 by afterstates, conv2 by m-tile pairs,
+// dense0 by n-tiles within its two k parities), and the stages pass
+// between them through named barriers, one for each stage (so that no
+// barrier is arrived at twice before it is waited on).  (A ring of four,
+// with conv1 on the weight group, made the forward 5% faster and K8b 4%
+// slower at run9's widths on an H100: its 15 KB more shared memory leave
+// the spills and L2 reads a smaller L1.)  The weight group's parities join
+// in dense0's epilogue:
+// h = relu(dense0) rounded, as float, in [T][hp + 1] over the ring.  Last,
+// dz0 = ds w1 where h > 0, rounded: [T][hk + 8] in shared memory, [hk][T]
+// into x0's twin for K8w; 8 afterstates a thread in the stores.  Ends at
+// the block's barrier.
+template <typename S, int T, int G>
+__device__ __forceinline__ void evb_forward_tile(const S* __restrict__ planes,
+                                                 const S* __restrict__ feats,
+                                                 const S* __restrict__ ctx,
+                                                 const S* __restrict__ lay,
+                                                 const S* __restrict__ dscores,
+                                                 S* __restrict__ x0, S* __restrict__ dz0g,
+                                                 const EvDims& e, const EvbSmem& sm,
+                                                 unsigned char* smem, int tile,
+                                                 bool stage_weights) {
+    constexpr int NTH = 32 * G, BOTH = 2 * NTH, Q = T / 8;
+    static_assert(G == T / 4, "each group is K8's T / 4 warps");
+    using Acc = typename EvAccT<S>::type;
+    const EvSmem& f = sm.f;
+    S* s_in = (S*)(smem + f.in);
+    S* s_zero = (S*)(smem + f.zero);
+    const S* s_w1a = (const S*)(smem + f.w1a);
+    const S* s_w2 = (const S*)(smem + f.w2);
+    float* s_f = (float*)(smem + f.f32);
+    Acc* s_ctx = (Acc*)(s_f + f.ctx);
+    S* s_ring = (S*)(smem + f.ring);
+    Acc* s_odd = (Acc*)(smem + f.ring);
+    float* s_hid = (float*)(smem + f.ring);
+    S* s_dz0 = (S*)(smem + sm.dz0);
+    unsigned char* s_mask = smem + sm.mask;
+    float* s_ds = (float*)(smem + sm.ds);
+    const int bt = threadIdx.x, g = (bt & 31) >> 2, t = bt & 3;
+    const int c1p = e.c1p, c2p = e.c2p, sstr = 8 * c2p + 8, DZS = e.hk + 8;
+    const size_t first = (size_t)tile * T;
+    const int ls = (int)(first / 64);  // lane * 3 + slot
+    S* xt = x0 + (size_t)tile * e.kx * T;
+    auto stage_of = [&](int r) { return (S*)(smem + f.stage) + (r & 1) * T * sstr; };
+
+    for (int i = bt; i < 8 * T; i += BOTH) {  // item (a, y): image row y of afterstate a
+        const int a = i >> 3, y = i & 7;
+        const uint4* src = (const uint4*)(planes + (first + a) * 128 + y * 16);
+        S* row = s_in + (a * 10 + y + 1) * 20;
+        if constexpr (sizeof(S) == 2) {
+            unsigned* d = (unsigned*)row;
+            const uint4 v0 = src[0], v1 = src[1];
+            d[0] = 0;
+            d[1] = v0.x;
+            d[2] = v0.y;
+            d[3] = v0.z;
+            d[4] = v0.w;
+            d[5] = v1.x;
+            d[6] = v1.y;
+            d[7] = v1.z;
+            d[8] = v1.w;
+            d[9] = 0;
+        } else {
+            row[0] = row[1] = row[18] = row[19] = 0.0f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const uint4 v = src[q];
+                row[2 + 4 * q] = __uint_as_float(v.x);
+                row[3 + 4 * q] = __uint_as_float(v.y);
+                row[4 + 4 * q] = __uint_as_float(v.z);
+                row[5 + 4 * q] = __uint_as_float(v.w);
+            }
+        }
+        if (y == 0 || y == 7) {
+            S* edge = s_in + (a * 10 + (y == 0 ? 0 : 9)) * 20;
+            for (int k = 0; k < 20; ++k) edge[k] = 0;
+        }
+    }
+    if (bt < 32) {
+        s_zero[bt] = 0;
+        if (bt < 16) s_in[T * 200 + bt] = 0;
+    }
+    for (int i = bt; i < 3 * T * 2 * c1p; i += BOTH) {  // the ring's zero columns
+        const int row = i / (2 * c1p), side = (i / c1p) & 1;
+        s_ring[(row * 10 + side * 9) * c1p + i % c1p] = 0;
+    }
+    if (stage_weights) evb_stage_weights<S>(lay, e, f, smem, bt, BOTH);
+    for (int i = bt; i < 3 * T; i += BOTH) s_f[f.feats + i] = to_f(feats[first * 3 + i]);
+    for (int i = bt; i < T; i += BOTH) s_ds[i] = to_f(dscores[first + i]);
+    // The context's part of dense0, one [d] . [d, hp] product for the
+    // tile's (lane, slot), in the accumulator type.
+    for (int hh = bt; hh < e.hp; hh += BOTH) {
+        const S* crow = ctx + (size_t)ls * e.d;
+        Acc s4[4] = {0, 0, 0, 0};
+        int dd = 0;
+        for (; dd + 4 <= e.d; dd += 4) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                s4[q] += (Acc)to_f(crow[dd + q]) * to_f(lay[e.w0x + (dd + q) * e.hp + hh]);
+        }
+        for (; dd < e.d; ++dd) s4[0] += (Acc)to_f(crow[dd]) * to_f(lay[e.w0x + dd * e.hp + hh]);
+        s_ctx[hh] = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    }
+    // x0's feature and context columns (and the zero columns to kx).
+    for (int i = bt; i < (e.kx - 64 * c2p) * Q; i += BOTH) {
+        const int j = i / Q, q = i % Q;
+        S v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const size_t a = first + 8 * q + u;
+            v[u] = j < 3 ? feats[a * 3 + j] : (j < 3 + e.d ? ctx[(size_t)ls * e.d + j - 3] : (S)0);
+        }
+        store8(xt + evb_at<S, T>(64 * c2p + j, 8 * q), v);
+    }
+    __syncthreads();
+
+    if (bt < NTH) {
+        // The data group: conv1's rows into the ring, conv2's into the
+        // stages; a stage is written again once dense0 has read it.
+        const int warp = bt >> 5;
+        auto sync = [] { bbx_bar_sync(EVB_BAR_DATA, NTH); };
+        auto conv1_row = [&](int y) {
+            S* out = s_ring + (y % 3) * T * 10 * c1p;
+            ev_conv1_row<S, T, true>(s_in, s_w1a, s_zero, s_f + f.b1c, e, y,
+                                     [&](int ch, int x, int a, S v) {
+                                         out[(a * 10 + x + 1) * c1p + ch] = v;
+                                     });
+        };
+        conv1_row(0);
+        conv1_row(1);
+        sync();
+        for (int r = 0; r < 8; ++r) {
+            if (r >= 2) bbx_bar_sync(r & 1 ? EVB_BAR_STAGE1_READ : EVB_BAR_STAGE0_READ, BOTH);
+            S* stage = stage_of(r);
+            Acc c[2][4][4];
+            ev_conv3_row<S, T, Acc, false, true>(c, s_ring, c1p, e.cg1, s_w2, e.nt2, s_zero, r);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    if (j < e.nt2) {
+                        const int col = j * 8 + 2 * t;
+                        const float b0 = s_f[f.b2 + col], b1 = s_f[f.b2 + col + 1];
+                        S* o = stage + 2 * (warp + G * i) * sstr + g * c2p + col;
+                        store2(o, relu_to<S>(c[i][j][0] + b0), relu_to<S>(c[i][j][1] + b1));
+                        store2(o + sstr, relu_to<S>(c[i][j][2] + b0), relu_to<S>(c[i][j][3] + b1));
+                    }
+                }
+            }
+            sync();  // the row is in, and conv2 has read the ring's row r - 1
+            bbx_bar_arrive(r & 1 ? EVB_BAR_STAGE1 : EVB_BAR_STAGE0, BOTH);
+            if (r + 2 < 8) {
+                conv1_row(r + 2);
+                sync();
+            }
+        }
+    } else {
+        // The weight group: each conv2 row into x0 and its signs, then
+        // dense0 over it.  dense0's accumulators: every m-tile (afterstates
+        // 16 i .. + 15) by n-tiles n0, n0 + G / 2, ... (at most NT0), over
+        // the k-steps of parity kq.
+        const int wt = bt - NTH, warp = wt >> 5;
+        constexpr int NT0 = 32 / G;
+        const int kq = warp / (G / 2), n0 = warp % (G / 2);
+        const int nt0w = e.nt0 > n0 ? (e.nt0 - n0 + G / 2 - 1) / (G / 2) : 0;
+        Acc acc[T / 16][NT0][4];
+        zero(acc);
+        for (int r = 0; r < 8; ++r) {
+            bbx_bar_sync(r & 1 ? EVB_BAR_STAGE1 : EVB_BAR_STAGE0, BOTH);
+            const S* stage = stage_of(r);
+            for (int i = wt; i < 8 * c2p * Q; i += NTH) {
+                const int k = i / Q, q = i % Q;  // k = x c2p + c
+                const int col = r * 8 * c2p + k;
+                S v[8];
+                unsigned bits = 0;
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    v[u] = stage[(8 * q + u) * sstr + k];
+                    bits |= (to_f(v[u]) > 0.0f ? 1u : 0u) << u;
+                }
+                store8(xt + evb_at<S, T>(col, 8 * q), v);
+                s_mask[col * 4 + q] = (unsigned char)bits;
+            }
+            for (int s = kq; s < c2p / 2; s += 2) {
+                const size_t ks = (size_t)r * (c2p / 2) + s;
+                auto a = [&](int i, int row, int half) -> const S* {
+                    return stage + (i * 16 + row) * sstr + s * 16 + half * 8;
+                };
+                auto b = [&](int j, int half, int col) -> const S* {
+                    return lay + e.w0 + (ks * e.nt0 + n0 + (G / 2) * j) * 128 + half * 64 +
+                        col * 8;
+                };
+                tile_k16<T / 16, NT0, false, S, true>(acc, a, b, T / 16, nt0w);
+            }
+            if (r < 6) bbx_bar_arrive(r & 1 ? EVB_BAR_STAGE1_READ : EVB_BAR_STAGE0_READ, BOTH);
+        }
+        // dense0's epilogue (the data group is done with the ring): the odd
+        // k-steps' sums, in [T][hp + 1] over the ring, join the even ones';
+        // + features' part + context's part + bias (all in the accumulator
+        // type), ReLU, rounded once, into [T][hp + 1] float32 there.
+        auto each_acc = [&](auto&& fn) {
+#pragma unroll
+            for (int i = 0; i < T / 16; ++i) {
+#pragma unroll
+                for (int j = 0; j < NT0; ++j) {
+                    if (j < nt0w) {
+#pragma unroll
+                        for (int k = 0; k < 4; ++k)
+                            fn(acc[i][j][k], i * 16 + g + (k >> 1) * 8,
+                               (n0 + (G / 2) * j) * 8 + 2 * t + (k & 1));
+                    }
+                }
+            }
+        };
+        auto wsync = [] { bbx_bar_sync(EVB_BAR_WEIGHTS, NTH); };
+        if (kq == 1) each_acc([&](Acc& v, int a, int hh) { s_odd[a * (e.hp + 1) + hh] = v; });
+        wsync();
+        if (kq == 0) {
+            each_acc([&](Acc& v, int a, int hh) {
+                const float* fa = s_f + f.feats + a * 3;
+                const float* wf = s_f + f.w0f + hh;
+                const Acc fsum =
+                    (Acc)fa[0] * wf[0] + (Acc)fa[1] * wf[e.hp] + (Acc)fa[2] * wf[2 * e.hp];
+                v = (v + s_odd[a * (e.hp + 1) + hh]) + (fsum + s_ctx[hh]) + (Acc)s_f[f.b0 + hh];
+            });
+        }
+        wsync();
+        if (kq == 0)
+            each_acc([&](Acc& v, int a, int hh) {
+                s_hid[a * (e.hp + 1) + hh] = to_f(relu_to<S>(v));
+            });
+    }
+    __syncthreads();
+
+    for (int i = bt; i < e.hk * Q; i += BOTH) {
+        const int hh = i / Q, q = i % Q;
+        S v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int a = 8 * q + u;
+            S x = 0;
+            if (hh < e.hp && s_hid[a * (e.hp + 1) + hh] > 0.0f)
+                x = from_f<S>(s_ds[a] * s_f[f.w1 + hh]);
+            v[u] = x;
+            s_dz0[a * DZS + hh] = x;
+        }
+        store8(dz0g + (size_t)tile * e.hk * T + evb_at<S, T>(hh, 8 * q), v);
+    }
+    __syncthreads();
+}
+
+// A block is two groups of G warps.  Both groups recompute the tile's
+// forward, write x0 and dz0 and set up the walk.  Then the data group
+// (warps 0 .. G - 1) walks the data gradients back row by row: conv1's row
+// r - 1 again, da2's row r, da1's row r + 1.  The weight group (warps G ..
+// 2G - 1) follows a step behind with the weight gradients of the rows the
+// data group has finished, dW2's of row r and dW1's of row r + 1, holding
+// their sums in its registers for the block's life.  Each hands the other
+// its rows through named barriers (one arrives, the other waits), so that
+// the two groups' products overlap.
 template <typename S, int T, int G>
 __global__ void __launch_bounds__(64 * G)
 evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ feats,
@@ -260,13 +569,13 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
     // of each row's 16.
     constexpr bool TC1 = sizeof(S) == 2;
     static_assert(!TC1 || T == 32, "bf16 K8b: tiles of 32 afterstates");
-    static_assert(G == T / 4, "the data group runs the forward's 8T threads (evaluator.cuh)");
+    static_assert(G == T / 4, "each group runs K8's maps of T / 4 warps (evaluator.cuh)");
     BBX_DYNAMIC_SHARED(smem);
     const S* s_in = (const S*)(smem + sm.f.in);
     const S* s_zero = (const S*)(smem + sm.f.zero);
     S* s_one = (S*)(smem + sm.one);
     const S* s_w1a = (const S*)(smem + sm.f.w1a);
-    S* s_w = (S*)(smem + sm.f.w2);
+    S* s_w2t = (S*)(smem + sm.w2t);
     const float* s_f = (const float*)(smem + sm.f.f32);
     const float* s_hid = (const float*)(smem + sm.f.ring);
     S* s_a1t = (S*)(smem + sm.a1t);
@@ -279,137 +588,107 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
     int* s_cols = (int*)(smem + sm.cols);
     S* s_pt = (S*)(smem + sm.pt);
 
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const int bt = threadIdx.x;  // the thread in the block (both groups)
+    const int g = (bt & 31) >> 2, t = bt & 3;
     const int c1p = e.c1p, c2p = e.c2p;
     const int A1S = 30 * T + 8, D2S = 8 * T + 8, DZS = e.hk + 8;
     // da1 over da2t (at the width limits): each row's da1 waits for dW2's
     // reads of da2t, and the next da2 for dW1's reads of da1.
     const bool da1_apart = sm.da1 != sm.da2t;
+    // conv2's transposed weights beside conv2's: every weight stays in
+    // shared memory for the block's life (else conv2's are staged again,
+    // with the rest, in every tile's forward, and the transposed ones over
+    // them in every tile's set-up).
+    const bool once = sm.w2t != sm.f.w2;
     float* out = part + (size_t)blockIdx.x * rec.stride;
 
-    if (threadIdx.x < NTH) {
+    auto stage_w2t = [&] {
+        const uint4* src = (const uint4*)(lay + e.w2t);
+        uint4* dst = (uint4*)s_w2t;
+        for (int i = bt; i < 5 * e.cg2 * e.cg1 * 128 * (int)sizeof(S) / 16; i += BOTH)
+            dst[i] = src[i];
+    };
+    // Once a block, on both groups: the row of ones, dW2's B column n =
+    // (tap, c1) of each row r -- its offset in the a1 ring (its pixels k
+    // follow), or -1 where the tap's input row lies outside the image --
+    // and, where they fit, the weights.  The first tile's forward meets at
+    // the block's barrier before any of them is read.
+    if (bt < 32) s_one[bt] = from_f<S>(1.0f);
+    for (int i = bt; i < 8 * 9 * c1p; i += BOTH) {
+        const int r = i / (9 * c1p), n = i % (9 * c1p);
+        const int tap = n / c1p, c = n % c1p, yy = r + tap / 3 - 1;
+        s_cols[i] = yy < 0 || yy > 7 ? -1 : c * A1S + ((yy % 3) * 10 + tap % 3) * T;
+    }
+    if (once) {
+        evb_stage_weights<S>(lay, e, sm.f, smem, bt, BOTH);
+        stage_w2t();
+    }
+
+    // The tile's forward again and dz0 (evb_forward_tile); `dense1()` (the
+    // data group's sums of the tile) between dz0 and the walk's set-up:
+    // conv2's transposed weights (unless staged once), the rings' zero
+    // columns, the planes as dW1's B operand (bf16).
+    auto forward = [&](int tile, const auto& dense1) {
+        evb_forward_tile<S, T, G>(planes, feats, ctx, lay, dscores, x0, dz0g, e, sm, smem, tile,
+                                  !once);
+        dense1();
+        __syncthreads();  // the walk overwrites dense0's output
+
+        if (!once) stage_w2t();
+        for (int i = bt; i < c1p * 6 * T; i += BOTH) {
+            const int c = i / (6 * T), rem = i % (6 * T);
+            const int slot = rem / (2 * T), side = (rem / T) & 1;
+            s_a1t[c * A1S + (slot * 10 + side * 9) * T + rem % T] = 0;
+        }
+        for (int i = bt; i < 3 * T * 2 * c2p; i += BOTH) {
+            const int row = i / (2 * c2p), side = (i / c2p) & 1;
+            s_da2[(row * 10 + side * 9) * c2p + i % c2p] = 0;
+        }
+        if constexpr (TC1) {
+            // s_in [a][10][10][2] -> s_pt [ci][10][10][a].
+            for (int i = bt; i < 200 * Q; i += BOTH) {
+                const int p = i / Q, q = i % Q;  // p = (row * 10 + column) * 2 + ci
+                const int yx = p >> 1;
+                S v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) v[u] = s_in[(8 * q + u) * 200 + p];
+                store8(s_pt + (p & 1) * EVB_PT_CS + (yx / 10) * EVB_PT_YS +
+                           (yx % 10) * EVB_PT_XS + 8 * q,
+                       v);
+            }
+        }
+        __syncthreads();  // the walk is set up
+    };
+
+    if (bt < NTH) {
         // The data group.
-        const int tid = threadIdx.x, warp = tid >> 5;
+        const int tid = bt, warp = tid >> 5;
         auto sync = [] { bbx_bar_sync(EVB_BAR_DATA, NTH); };
-        if (tid < 32) s_one[tid] = from_f<S>(1.0f);
         float acc_db0 = 0.0f, acc_dwd1 = 0.0f, acc_dbd1 = 0.0f;
         for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-            const size_t first = (size_t)tile * T;
-            const int ls = (int)(first / 64);  // lane * 3 + slot
-            S* xt = x0 + (size_t)tile * e.kx * T;
-            for (int i = tid; i < T; i += NTH) s_ds[i] = to_f(dscores[first + i]);
-            // x0's feature and context columns (and the zero columns to kx),
-            // 8 afterstates a thread.
-            for (int i = tid; i < (e.kx - 64 * c2p) * Q; i += NTH) {
-                const int j = i / Q, q = i % Q;
-                S v[8];
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    const size_t a = first + 8 * q + u;
-                    v[u] = j < 3 ? feats[a * 3 + j]
-                                 : (j < 3 + e.d ? ctx[(size_t)ls * e.d + j - 3] : (S)0);
-                }
-                store8(xt + evb_at<S, T>(64 * c2p + j, 8 * q), v);
-            }
-
-            // The forward, storing each row of a2 into x0 and its signs as
-            // bits, 8 afterstates a thread.
-            ev_forward_tile<S, T>(
-                planes, feats, ctx, lay, e, sm.f, smem, first,
-                [&](int r, const S* stage, int sstr) {
-                    for (int i = tid; i < 8 * c2p * Q; i += NTH) {
-                        const int k = i / Q, q = i % Q;  // k = x c2p + c
-                        const int col = r * 8 * c2p + k;
-                        S v[8];
-                        unsigned bits = 0;
-#pragma unroll
-                        for (int u = 0; u < 8; ++u) {
-                            v[u] = stage[(8 * q + u) * sstr + k];
-                            bits |= (to_f(v[u]) > 0.0f ? 1u : 0u) << u;
-                        }
-                        store8(xt + evb_at<S, T>(col, 8 * q), v);
-                        ((unsigned char*)s_mask)[col * 4 + q] = (unsigned char)bits;
+            forward(tile, [&] {
+                // dense1's gradients, dense0's bias and the tile's dz0 sum
+                // (the context's gradient), float32 in the afterstates' order.
+                if (tid < e.hp) {
+                    float sh = 0.0f, sz = 0.0f;
+                    for (int a = 0; a < T; ++a) {
+                        sh += s_ds[a] * s_hid[a * (e.hp + 1) + tid];
+                        sz += to_f(s_dz0[a * DZS + tid]);
                     }
-                },
-                sync);
+                    acc_dwd1 += sh;
+                    acc_db0 += sz;
+                    stile[(size_t)tile * e.hp + tid] = sz;
+                }
+                if (tid == 0) {
+                    float s = 0.0f;
+                    for (int a = 0; a < T; ++a) s += s_ds[a];
+                    acc_dbd1 += s;
+                }
+            });
 
-            // dz0 = ds w1 where h > 0, rounded: [T][hk + 8] here, [hk][T] for K8w.
-            for (int i = tid; i < e.hk * Q; i += NTH) {
-                const int hh = i / Q, q = i % Q;
-                S v[8];
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    const int a = 8 * q + u;
-                    S x = 0;
-                    if (hh < e.hp && s_hid[a * (e.hp + 1) + hh] > 0.0f)
-                        x = from_f<S>(s_ds[a] * s_f[sm.f.w1 + hh]);
-                    v[u] = x;
-                    s_dz0[a * DZS + hh] = x;
-                }
-                store8(dz0g + (size_t)tile * e.hk * T + evb_at<S, T>(hh, 8 * q), v);
-            }
-            sync();
-            // dense1's gradients, dense0's bias and the tile's dz0 sum (the
-            // context's gradient), float32 in the afterstates' order.
-            if (tid < e.hp) {
-                float sh = 0.0f, sz = 0.0f;
-                for (int a = 0; a < T; ++a) {
-                    sh += s_ds[a] * s_hid[a * (e.hp + 1) + tid];
-                    sz += to_f(s_dz0[a * DZS + tid]);
-                }
-                acc_dwd1 += sh;
-                acc_db0 += sz;
-                stile[(size_t)tile * e.hp + tid] = sz;
-            }
-            if (tid == 0) {
-                float s = 0.0f;
-                for (int a = 0; a < T; ++a) s += s_ds[a];
-                acc_dbd1 += s;
-            }
-            sync();  // the walk overwrites dense0's output
-
-            // The walk's set-up: conv2's transposed weights over conv2's,
-            // the rings' zero columns, dW2's B column table for rows 0-7,
-            // the planes as dW1's B operand (bf16), conv1's row 7.
-            {
-                const uint4* src = (const uint4*)(lay + e.w2t);
-                uint4* dst = (uint4*)s_w;
-                for (int i = tid; i < 5 * e.cg2 * e.cg1 * 128 * (int)sizeof(S) / 16; i += NTH)
-                    dst[i] = src[i];
-            }
-            for (int i = tid; i < c1p * 6 * T; i += NTH) {
-                const int c = i / (6 * T), rem = i % (6 * T);
-                const int slot = rem / (2 * T), side = (rem / T) & 1;
-                s_a1t[c * A1S + (slot * 10 + side * 9) * T + rem % T] = 0;
-            }
-            for (int i = tid; i < 3 * T * 2 * c2p; i += NTH) {
-                const int row = i / (2 * c2p), side = (i / c2p) & 1;
-                s_da2[(row * 10 + side * 9) * c2p + i % c2p] = 0;
-            }
-            // dW2's B column n = (tap, c1) of row r: its offset in the a1
-            // ring (its pixels k follow), or -1 where the tap's input row
-            // lies outside the image.
-            for (int i = tid; i < 8 * 9 * c1p; i += NTH) {
-                const int r = i / (9 * c1p), n = i % (9 * c1p);
-                const int tap = n / c1p, c = n % c1p, yy = r + tap / 3 - 1;
-                s_cols[i] = yy < 0 || yy > 7 ? -1 : c * A1S + ((yy % 3) * 10 + tap % 3) * T;
-            }
-            if constexpr (TC1) {
-                // s_in [a][10][10][2] -> s_pt [ci][10][10][a], 8 afterstates a thread.
-                for (int i = tid; i < 200 * Q; i += NTH) {
-                    const int p = i / Q, q = i % Q;  // p = (row * 10 + column) * 2 + ci
-                    const int yx = p >> 1;
-                    S v[8];
-#pragma unroll
-                    for (int u = 0; u < 8; ++u) v[u] = s_in[(8 * q + u) * 200 + p];
-                    store8(s_pt + (p & 1) * EVB_PT_CS + (yx / 10) * EVB_PT_YS +
-                               (yx % 10) * EVB_PT_XS + 8 * q,
-                           v);
-                }
-            }
-            bbx_bar_arrive(EVB_BAR_WALK, BOTH);
+            // The walk: conv1's row 7 first.
             auto conv1_row = [&](int y) {
-                ev_conv1_row<S, T>(s_in, s_w1a, s_zero, s_f + sm.f.b1c, e, y,
+                ev_conv1_row<S, T, true>(s_in, s_w1a, s_zero, s_f + sm.f.b1c, e, y,
                                       [&](int ch, int x, int a, S v) {
                                           s_a1t[ch * A1S + ((y % 3) * 10 + x + 1) * T + a] = v;
                                       });
@@ -459,7 +738,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                                 (((size_t)r * (e.hk / 16) + ks) * c2p + warp + G * j) * 128 +
                                 half * 64 + col * 8;
                         };
-                        tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);
+                        tile_k16<MTB, NTB, false, S, true>(cb, a, b, MTB, ntb);
                     }
 #pragma unroll
                     for (int i = 0; i < MTB; ++i) {
@@ -486,7 +765,8 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                     // .. r + 2, masked by a1 > 0, rounded, into [c1p][8][T].
                     sync();  // da2's row r is in the ring
                     float cd[2][4][4];
-                    ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);
+                    ev_conv3_row<S, T, float, false, true>(cd, s_da2, c2p, e.cg2, s_w2t, e.cg1,
+                                                           s_zero, y);
                     wait_da1_read(y + 1);
                     if (!da1_apart) wait_row_read(r);
 #pragma unroll
@@ -510,7 +790,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                     bbx_bar_arrive(EVB_BAR_DA1, BOTH);
                 }
             }
-            bbx_bar_sync(EVB_BAR_TILE, BOTH);  // the weight group is done with the tile
+            bbx_bar_sync(EVB_BAR_TILE, BOTH);
         }
         if (tid < e.h) {
             out[rec.b0 + tid] = acc_db0;
@@ -543,7 +823,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
         for (int q = 0; q < 10; ++q) acc1s[u][q] = 0.0f;
 
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        bbx_bar_sync(EVB_BAR_WALK, BOTH);
+        forward(tile, [] {});
         for (int r = 7; r >= -1; --r) {
             const int y = r + 1;
             if (r >= 0) {
@@ -562,7 +842,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                         const int at = cols[jn * 8 + col];
                         return at < 0 ? s_zero : s_a1t + at + ks * 16 + half * 8;
                     };
-                    tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);
+                    tile_k16<2, NTW, true, S, true>(acc2, a, b, mt2, ntw);
                 }
                 bbx_bar_arrive(EVB_BAR_ROW_READ, BOTH);
             }
@@ -587,7 +867,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                             }
                             return n == 18 ? s_one : s_zero;
                         };
-                        tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);
+                        tile_k16<1, 3, true, S, true>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);
                     }
                 } else {
                     // dW1 [c1][ci][dy][dx] += sum over the row's pixels of da1
@@ -616,7 +896,7 @@ evaluator_grad_tiles_kernel(const S* __restrict__ planes, const S* __restrict__ 
                 if (y >= 1) bbx_bar_arrive(EVB_BAR_DA1_READ, BOTH);
             }
         }
-        bbx_bar_arrive(EVB_BAR_TILE, BOTH);
+        bbx_bar_sync(EVB_BAR_TILE, BOTH);
     }
 
     // The weight group's part of the record.  dW1's parts join in a fixed
@@ -1012,8 +1292,9 @@ static const float* const* evb_params(const void* const* p) { return (const floa
 // [6] the gradients' floats; and the plan: [7] K8b's threads a block, [8]
 // its resident blocks an SM, [9] its grid, [10] K8w's ring stages, [11] its
 // resident blocks an SM, [12] its splits, [13] K8b's shared memory bytes,
-// [14] 1 where da1 has its own shared memory.  Returns an error beyond the
-// limits.
+// [14] 1 where da1 has its own shared memory, [15] the warps that run the
+// tile's forward, [16] 1 where the weights stay in shared memory for the
+// block's life.  Returns an error beyond the limits.
 extern "C" int bbx_evaluator_grad_sizes(int b, int c1, int c2, int h, int d, int elem,
                                         long long* out) {
     if ((elem != 2 && elem != 4) || !ev_widths_ok(c1, c2, h, d) || b < 0)
@@ -1040,6 +1321,8 @@ extern "C" int bbx_evaluator_grad_sizes(int b, int c1, int c2, int h, int d, int
                                  : evb_smem<float, EvbTile<float>::T>(e);
     out[13] = sm.total;
     out[14] = sm.da1 != sm.da2t;
+    out[15] = p.threads / 32;
+    out[16] = sm.w2t != sm.f.w2;
     return (int)cudaGetLastError();
 }
 

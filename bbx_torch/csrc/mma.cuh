@@ -15,7 +15,12 @@
 //     4-byte aligned.
 //
 // On the card the operands are loaded with ldmatrix (A; B with B_LDM) or a
-// 4-byte load a lane, then multiplied with `mma.sync.m16n8k16`.  Under
+// 4-byte load a lane, then multiplied with `mma.sync.m16n8k16`.  With DEF
+// the fragments of the tiles past mt and nt are set to 0 rather than left
+// unwritten: ptxas cannot see that their products are skipped by the same
+// bounds, and keeps an unwritten fragment's register live from the
+// kernel's entry (the backward's kernel, at its register limit, spills for
+// it).  Under
 // BBX_EMULATE the CPU emulation computes the same sums from the same
 // addresses in float32 (tests/cuda_emulation/mma_emulation.h): it checks
 // the addressing of the operands but not mma's register fragments, which
@@ -29,7 +34,7 @@ __device__ __forceinline__ unsigned bbx_smem_addr(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
 }
 
-template <int MT, int NT, bool B_LDM, class AF, class BF>
+template <int MT, int NT, bool B_LDM, bool DEF = false, class AF, class BF>
 __device__ __forceinline__ void bbx_mma_k16(float (&c)[MT][NT][4], const AF& a, const BF& b,
                                             int mt, int nt) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -44,6 +49,8 @@ __device__ __forceinline__ void bbx_mma_k16(float (&c)[MT][NT][4], const AF& a, 
                 : "=r"(ar[i][0]), "=r"(ar[i][1]), "=r"(ar[i][2]), "=r"(ar[i][3])
                 : "r"(bbx_smem_addr(a(i, lane & 15, lane >> 4)))
                 : "memory");
+        } else if constexpr (DEF) {
+            ar[i][0] = ar[i][1] = ar[i][2] = ar[i][3] = 0;
         }
     }
     // B: b0 = (k 2t, 2t + 1; column g), b1 = (k 8 + 2t, 9 + 2t; column g).
@@ -81,6 +88,8 @@ __device__ __forceinline__ void bbx_mma_k16(float (&c)[MT][NT][4], const AF& a, 
                 br[j][0] = *(const unsigned*)(b(j, 0, g) + 2 * t);
                 br[j][1] = *(const unsigned*)(b(j, 1, g) + 2 * t);
             }
+        } else if constexpr (DEF) {
+            br[j][0] = br[j][1] = 0;
         }
     }
 #pragma unroll

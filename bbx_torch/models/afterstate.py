@@ -382,11 +382,13 @@ class _GradWork:
     block records and K8w's split partials in float32), the outputs, and
     the launch plan (`plan`: K8b's threads a block, resident blocks an SM
     and grid; K8w's ring stages, resident blocks an SM and splits; K8b's
-    shared memory, and whether da1 has its own there)."""
+    shared memory, whether da1 has its own there, the warps that run a
+    tile's forward, and whether the weights stay in shared memory for a
+    block's life)."""
 
     PLAN = ("k8b_threads", "k8b_resident_blocks_per_sm", "k8b_blocks",
             "k8w_stages", "k8w_resident_blocks_per_sm", "k8w_splits",
-            "k8b_smem_bytes", "k8b_da1_apart")
+            "k8b_smem_bytes", "k8b_da1_apart", "k8b_forward_warps", "k8b_weights_once")
 
     def __init__(self, evaluator, planes, feats, ctx, dscores, dtype):
         b, d = _require_inputs("evaluator backward", planes, feats, ctx, dtype)

@@ -851,7 +851,8 @@ def kernel_phase(device, report):
     k8b = k8b_case(device, RUN9_EVAL_WIDTHS, *k8_in[b2], bf16)
     log(f"  K8's backward at B = {b2}, bf16: plan {k8b['plan']} (K8b's threads a block, "
         f"resident blocks an SM, grid; K8w's ring stages, resident blocks an SM, splits; "
-        f"K8b's shared memory bytes, da1 in its own)")
+        f"K8b's shared memory bytes, da1 in its own, the warps of a tile's forward, the "
+        f"weights staged once a block)")
     red = k8b["kernels"]["reduction"]
     log(f"  the reduction at B = {b2}: {red['ms']:.4f} ms, device {red['device_ms']} "
         f"(by kernel: {red['device_ms_by_kernel']}), plain {red['plain_ms']:.4f} ms, library "
@@ -871,6 +872,7 @@ def kernel_phase(device, report):
                                              fast=False)}
     equal = (k8b["equal"] and all(c["equal"] for c in others.values())
              and k8b["plan"]["k8b_da1_apart"] == 1
+             and k8b["plan"]["k8b_forward_warps"] == 16
              and all(others[k]["plan"]["k8b_da1_apart"] == 0
                      for k in ("limits_512_bfloat16", "limits_512_float32")))
     summary = "; ".join(

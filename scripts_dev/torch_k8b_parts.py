@@ -13,18 +13,26 @@ B = 512 and 2048 lanes between CUDA events, in turns (the list, then the
 list reversed).  Each K8b variant drops one stage of the backward walk --
 da2's product, dW2's product, da1's convolution, conv1's weight gradient,
 x0's stores -- or all four products at once, or the whole walk (what is
-left is the recompute, the epilogues and the record); a stage's time is
+left is the recompute, the epilogues and the record), or one of the
+recompute's products (conv2's, dense0's); a stage's time is
 about the full kernel's less the variant's without it (their gradients
 are wrong by design).  The K8w variants drop its products (the bulk
 copies' ring alone) or dz0's copies, or hold 8 stages or 8 consumer warps
 in place of 5 and 16.  `k8b_da1_shared` builds K8b as if shared memory
 were short, with da1's row over da2t's (the layout of the width limits).
 `reduce_fused` launches the reduction's dctx blocks with its sums' blocks,
-in one launch in place of two.  With `--parent DIR` (a checkout of another commit, e.g. unpacked
-from `git archive`) its `evaluator_backward.cu` joins the list as the
-variant `parent`, its three kernels timed.  The edits are exact strings of
-this tree's source; the script stops when one is missing.  Needs a CUDA
-card.
+in one launch in place of two.  With `--parent DIR` (a checkout of another
+commit, e.g. unpacked from `git archive`) its `evaluator_backward.cu` joins
+the list as the variant `parent`, its three kernels timed; first, on
+`chip_smoke.py`'s K8b cases (run9 widths at 2048 and 512 lanes, the tiny,
+ragged and limit widths, bf16 and float32, on its mid-game boards, network
+and upstream gradient), every output of the parent's three kernels is
+compared with this tree's, bit for bit: the block records, the tiles' dz0
+sums, K8w's partials, x0 and dz0 (as `_GradWork.x0_matrix` /
+`dz0_matrix` read them), dctx and the eight gradients, with the count of
+differing elements of each and each side's plan; this tree's run twice
+gives the same bits too.  The edits are exact strings of this tree's
+source; the script stops when one is missing.  Needs a CUDA card.
 """
 import argparse
 import ctypes
@@ -46,12 +54,20 @@ from bbx_torch.ops import build  # noqa: E402
 # Each variant: the kernel it times and the (string, replacement) pairs
 # that make it from this tree's source.
 STAGES = {
-    "da2": ("k8b", [("tile_k16<MTB, NTB, false, S>(cb, a, b, MTB, ntb);", ";")]),
-    "dw2": ("k8b", [("tile_k16<2, NTW, true, S>(acc2, a, b, mt2, ntw);", ";")]),
+    "da2": ("k8b", [("tile_k16<MTB, NTB, false, S, true>(cb, a, b, MTB, ntb);", ";")]),
+    "dw2": ("k8b", [("tile_k16<2, NTW, true, S, true>(acc2, a, b, mt2, ntw);", ";")]),
     "da1": ("k8b", [
-        ("ev_conv3_row<S, T>(cd, s_da2, c2p, e.cg2, s_w, e.cg1, s_zero, y);", "zero(cd);")]),
-    "dw1": ("k8b", [("tile_k16<1, 3, true, S>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);", ";")]),
+        ("ev_conv3_row<S, T, float, false, true>(cd, s_da2, c2p, e.cg2, s_w2t, e.cg1,\n"
+         "                                                           s_zero, y);",
+         "zero(cd);")]),
+    "dw1": ("k8b", [("tile_k16<1, 3, true, S, true>(acc1, a, b, mi < e.c1m / 16 ? 1 : 0, 3);", ";")]),
     "x0_stores": ("k8b", [("store8(xt + evb_at<S, T>(col, 8 * q), v);", ";")]),
+    # The recompute's products (evb_forward_tile).
+    "fwd_conv2": ("k8b", [(
+        "ev_conv3_row<S, T, Acc, false, true>(c, s_ring, c1p, e.cg1, s_w2, e.nt2, s_zero, r);",
+        "zero(c);")]),
+    "fwd_dense0": ("k8b", [("tile_k16<T / 16, NT0, false, S, true>(acc, a, b, T / 16, nt0w);",
+                            ";")]),
     "walk": ("k8b", [("for (int r = 7; r >= -1; --r) {", "for (int r = 7; r >= 8; --r) {")]),
     "k8w_products": ("k8w", [("tile_k16<EV_MAX_H / 32, NQ, true, S>(acc, a, b, mtw, ntw);", ";")]),
     "k8w_dz0": ("k8w", [
@@ -133,7 +149,7 @@ def compile_all(sources):
         if proc.returncode:
             raise SystemExit(f"{name} does not compile:\n{log}")
         ptxas[name] = [line.strip() for line in log.splitlines()
-                       if "registers" in line or "spill" in line]
+                       if "registers" in line or "spill" in line or "Compiling entry" in line]
         lib = ctypes.CDLL(os.path.join(work, f"lib{name}.so"))
         pair = {}
         for kernel, entry in (("k8b", "evaluator_grad_tiles"), ("k8w", "evaluator_grad_dense0"),
@@ -144,6 +160,102 @@ def compile_all(sources):
             pair[kernel] = fn
         fns[name] = pair
     return fns, ptxas
+
+
+def run_side(pair, ev, planes, feats, ctx, ds, dt):
+    """K8b, K8w and the reduction of one build (`pair`'s entry points) on
+    buffers sized by its own `bbx_evaluator_grad_sizes`: every output,
+    and the plan it reports."""
+    params = [p.detach().float().contiguous() for p in ev.parameters()]
+    b, d = planes.shape[0], ctx.shape[-1]
+    c1, c2 = ev.convs[0].out_channels, ev.convs[1].out_channels
+    h = ev.dense0.out_features
+    widths = (b, c1, c2, h, d, dt.itemsize)
+    sizes = torch.zeros(32, dtype=torch.int64)
+    build.check("sizes", pair["sizes"](*widths, sizes.data_ptr()))
+    n = sizes.tolist()
+    dev = planes.device
+    f32 = torch.float32
+    layout = torch.empty(n[0], dtype=dt, device=dev)
+    x0 = torch.empty(n[1], dtype=dt, device=dev)
+    dz0 = torch.empty(n[2], dtype=dt, device=dev)
+    stile = torch.empty(n[3], dtype=f32, device=dev)
+    part = torch.empty(n[4], dtype=f32, device=dev)
+    partw = torch.empty(n[5], dtype=f32, device=dev)
+    flat = torch.zeros(n[6], dtype=f32, device=dev)
+    dctx = torch.zeros(ctx.shape, dtype=dt, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    build.check("k8b", pair["k8b"](planes.data_ptr(), feats.data_ptr(), ctx.data_ptr(),
+                                   ds.data_ptr(), *(p.data_ptr() for p in params),
+                                   layout.data_ptr(), x0.data_ptr(), dz0.data_ptr(),
+                                   stile.data_ptr(), part.data_ptr(), *widths, stream))
+    build.check("k8w", pair["k8w"](x0.data_ptr(), dz0.data_ptr(), partw.data_ptr(), *widths,
+                                   stream))
+    build.check("reduce", pair["reduce"](part.data_ptr(), partw.data_ptr(), stile.data_ptr(),
+                                         layout.data_ptr(), flat.data_ptr(), dctx.data_ptr(),
+                                         *widths, stream))
+    torch.cuda.synchronize()
+    m = b * 192
+    # The records to their size: the stride's padding is never written.
+    size = 19 * c1 + c2 * (9 * c1 + 1) + 2 * h + 1
+    out = {"records": part.view(n[9], -1)[:, :size], "tile_dz0_sums": stile, "k8w_partials": partw,
+           "x0": A.grad_tile_matrix(x0, m), "dz0": A.grad_tile_matrix(dz0, m), "dctx": dctx}
+    names = [name for name, _ in ev.named_parameters()]
+    for name, g in zip(names, flat.split([p.numel() for p in params])):
+        out[name] = g
+    plan = dict(zip(A._GradWork.PLAN, n[7:7 + len(A._GradWork.PLAN)]))
+    return {k: v.clone() for k, v in out.items()}, plan
+
+
+def differing(a, b) -> int:
+    """Elements whose bits differ (all of them where the shapes do)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel())
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.view(ints) != b.view(ints)).sum())
+
+
+def compare_parent(fns):
+    """Every output of the parent's K8b, K8w and reduction against this
+    tree's on `chip_smoke.py`'s K8b cases, and this tree's twice."""
+    import chip_smoke as C
+
+    dev = torch.device("cuda")
+    _, obs, _, _ = C.midgame_boards(dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"2048_bfloat16": (C.RUN9_EVAL_WIDTHS, 2048, bf16),
+             "512_bfloat16": (C.RUN9_EVAL_WIDTHS, 512, bf16),
+             "512_float32": (C.RUN9_EVAL_WIDTHS, 512, f32),
+             "tiny_512_bfloat16": (((4, 4), 8, 6), 512, bf16),
+             "tiny_512_float32": (((4, 4), 8, 6), 512, f32),
+             "ragged_3_bfloat16": (((5, 12), 20, 7), 3, bf16),
+             "ragged_3_float32": (((5, 12), 20, 7), 3, f32),
+             "limits_512_bfloat16": (C.K8_LIMIT_WIDTHS, 512, bf16),
+             "limits_512_float32": (C.K8_LIMIT_WIDTHS, 512, f32)}
+    rows = {}
+    for case, (widths, b, dt) in cases.items():
+        net = C.k8_net(dev, widths, dt)
+        board, pieces = obs["board"][:b].float().contiguous(), obs["pieces"][:b].contiguous()
+        g = torch.Generator(device=dev).manual_seed(C.SEED + b)
+        with torch.no_grad():
+            planes, feats, ctx = net.afterstates(board, pieces)
+            ds = torch.randn(b * 192, generator=g, device=dev).to(dt)
+            got, plan = run_side(fns["full"], net.evaluator, planes, feats, ctx, ds, dt)
+            again, _ = run_side(fns["full"], net.evaluator, planes, feats, ctx, ds, dt)
+            want, plan_parent = run_side(fns["parent"], net.evaluator, planes, feats, ctx, ds,
+                                         dt)
+        row = {"differing": {k: differing(got[k], want[k]) for k in got},
+               "elements": {k: got[k].numel() for k in got},
+               "differing_run_to_run": sum(differing(got[k], again[k]) for k in got),
+               "plan": plan, "plan_parent": plan_parent}
+        row["bit_equal"] = (not any(row["differing"].values())
+                            and row["differing_run_to_run"] == 0)
+        rows[case] = row
+        print(json.dumps({"case": case, "bit_equal": row["bit_equal"],
+                          "differing": sum(row["differing"].values()),
+                          "differing_run_to_run": row["differing_run_to_run"],
+                          "plan": plan, "plan_parent": plan_parent}), flush=True)
+    return rows
 
 
 def timed(call, reps=10):
@@ -168,6 +280,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     fns, ptxas = compile_all(variants(args.parent))
+    compared = compare_parent(fns) if args.parent else None
     # (variant, kernel timed): the full and the parent's builds time all three.
     order = []
     for name in fns:
@@ -237,9 +350,9 @@ def main() -> int:
         print(name, lines)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi.strip(), "ptxas": ptxas,
-                       "rows": rows}, f, indent=2)
-    return 0
+            json.dump({"device": smi.strip(), "ptxas": ptxas, "rows": rows,
+                       "parent_compare": compared}, f, indent=2)
+    return 0 if compared is None or all(r["bit_equal"] for r in compared.values()) else 1
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ inline float bbx_emulated_bf16(unsigned short bits) {
     return f;
 }
 
-template <int MT, int NT, bool B_LDM, class AF, class BF>
+template <int MT, int NT, bool B_LDM, bool DEF = false, class AF, class BF>
 inline void bbx_mma_k16(float (&c)[MT][NT][4], const AF& a, const BF& b, int mt, int nt) {
     const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     for (int i = 0; i < MT && i < mt; ++i) {

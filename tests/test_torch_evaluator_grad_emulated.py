@@ -53,6 +53,9 @@ from test_torch_ppo import (  # noqa: F401  (fixture)
 torch.set_num_threads(1)
 
 K8W_REL = 1e-5
+# Widths at which conv1 has one m16 tile of channels and dense0's 5 n8
+# tiles (hidden 40) fall unevenly on the weight group's warps.
+WIDTHS = dict(EVAL_WIDTHS, narrow=((8, 16), 40, 5))
 PARAM_NAMES = ("convs.0.weight", "convs.0.bias", "convs.1.weight", "convs.1.bias",
                "dense0.weight", "dense0.bias", "dense1.weight", "dense1.bias")
 GRAD_COUNTERS = (A._evaluator_grad_tiles, A._evaluator_grad_dense0, A._evaluator_grad_reduce)
@@ -84,7 +87,7 @@ def _assert_grad_close(got, want, rel, name):
     ("tiny", 1, torch.float32), ("tiny", 1, torch.bfloat16),
     ("tiny", 3, torch.float32), ("tiny", 3, torch.bfloat16),
     ("ragged", 3, torch.float32), ("ragged", 3, torch.bfloat16),
-    ("run9", 1, torch.bfloat16)])
+    ("run9", 1, torch.bfloat16), ("run9", 1, torch.float32), ("narrow", 1, torch.bfloat16)])
 def test_emulated_evaluator_grads_match_plain_autograd(kernels, widths, lanes, dtype):
     """K8b, K8w and the reduction (emulated) against the plain evaluator's
     autograd and against their plain version (`evaluator_grads_plain`) on
@@ -92,9 +95,11 @@ def test_emulated_evaluator_grads_match_plain_autograd(kernels, widths, lanes, d
     context's gradient and all eight parameters', within the module
     docstring's tolerances; one launch of each; a second run gives the
     same bits.  Tiny and ragged widths (partial k and n tiles) on 1
-    and 3 lanes in both dtypes, and run9's widths on one lane in bf16 (the
-    update's)."""
-    net = _evaluator_net(EVAL_WIDTHS[widths], dtype, seed=lanes + 20)
+    and 3 lanes in both dtypes, run9's widths on one lane in bf16 (the
+    update's) and float32 (the weights staged once a block), and narrow
+    widths on one lane in bf16 (one m16 tile of conv1 channels, dense0's
+    n-tiles uneven over the weight group's warps)."""
+    net = _evaluator_net(WIDTHS[widths], dtype, seed=lanes + 20)
     planes, feats, ctx = _evaluator_inputs(net, lanes, seed=8 + lanes)
     rng = np.random.default_rng(lanes)
     ds = torch.from_numpy(rng.normal(size=lanes * 192).astype(np.float32)).to(dtype)
@@ -237,23 +242,37 @@ def _backward_with_smem_limit(tmp_path, limit):
     return fns
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype,short", [
+    pytest.param(torch.bfloat16, "da1_and_weights", id="dtype0"),
+    pytest.param(torch.float32, "da1_and_weights", id="dtype1"),
+    pytest.param(torch.bfloat16, "weights", id="dtype0-weights"),
+    pytest.param(torch.float32, "weights", id="dtype1-weights")])
 def test_emulated_evaluator_grads_with_da1_over_da2t(emulated, kernels, monkeypatch, tmp_path,
-                                                     dtype):
-    """K8b's layout for widths whose shared memory is short (at the width
-    limits), reached at tiny widths by building the library with less
-    shared memory: da1's row over da2t's, where the data group waits for
-    dW2's reads before it writes da1, and for dW1's before the next da2.
-    The same bits as the full layout's (the same sums in the same order),
-    the context's and all eight parameters' gradients, one lane."""
+                                                     dtype, short):
+    """K8b's layouts for widths whose shared memory is short, reached at
+    tiny widths by building the library with less shared memory: at the
+    width limits ("da1_and_weights") da1's row over da2t's, where the data
+    group waits for dW2's reads before it writes da1, and for dW1's before
+    the next da2, and conv2's transposed weights over conv2's, so that the
+    weights are staged again in every tile; with a byte less than the full
+    layout ("weights") only the latter.  The same bits as the full
+    layout's (the same sums in the same order), the context's and all
+    eight parameters' gradients, one lane; each tile's forward on both
+    groups (16 warps in bf16, 8 in float32) in every layout."""
     net = _evaluator_net(EVAL_WIDTHS["tiny"], dtype, seed=31)
     planes, feats, ctx = _evaluator_inputs(net, 1, seed=9)
     ds = torch.from_numpy(np.random.default_rng(5).normal(size=192).astype(np.float32)).to(dtype)
-    assert A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan["k8b_da1_apart"] == 1
+    warps = 16 if dtype == torch.bfloat16 else 8
+    plan = A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan
+    assert plan["k8b_da1_apart"] == 1 and plan["k8b_weights_once"] == 1
+    assert plan["k8b_forward_warps"] == warps
     want_ctx, want = A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds, dtype)
-    fns = _backward_with_smem_limit(tmp_path, 1)
+    limit = 1 if short == "da1_and_weights" else plan["k8b_smem_bytes"] - 1
+    fns = _backward_with_smem_limit(tmp_path, limit)
     monkeypatch.setattr(build, "function", lambda name: fns.get(name) or emulated[name])
-    assert A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan["k8b_da1_apart"] == 0
+    plan = A._GradWork(net.evaluator, planes, feats, ctx, ds, dtype).plan
+    assert plan["k8b_da1_apart"] == (short == "weights") and plan["k8b_weights_once"] == 0
+    assert plan["k8b_forward_warps"] == warps
     got_ctx, got = A._evaluator_grads_cuda(net.evaluator, planes, feats, ctx, ds, dtype)
     assert torch.equal(got_ctx, want_ctx)
     assert all(torch.equal(g, w) for g, w in zip(got, want))

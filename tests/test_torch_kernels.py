@@ -730,11 +730,16 @@ def test_evaluator_grads_at_the_width_limits(cuda, dtype):
     """K8's backward at the width limits (32 channels, hidden 128, context
     256) on 512 lanes, where K8b's rings leave da1 no shared memory of its
     own: its row lies over da2t's, and the data group waits for dW2's
-    reads before it writes da1 and for dW1's before the next da2."""
+    reads before it writes da1 and for dW1's before the next da2; conv2's
+    transposed weights lie over conv2's, so the weights are staged again
+    in every tile.  Both groups run each tile's forward: 16 warps in bf16,
+    8 in float32."""
     net, inputs = _k8_case(cuda, ((32, 32), 128, 256), 512, dtype)
     g = torch.Generator(device=cuda).manual_seed(7)
     ds = torch.randn(512 * 192, generator=g, device=cuda).to(dtype)
-    assert A._GradWork(net.evaluator, *inputs, ds, dtype).plan["k8b_da1_apart"] == 0
+    plan = A._GradWork(net.evaluator, *inputs, ds, dtype).plan
+    assert plan["k8b_da1_apart"] == 0 and plan["k8b_weights_once"] == 0
+    assert plan["k8b_forward_warps"] == (16 if dtype == torch.bfloat16 else 8)
     _assert_grads_close(net, inputs, ds, dtype)
 
 
@@ -745,7 +750,9 @@ def test_evaluator_grad_dense0_matches_float64(cuda, b):
     widths in bf16 at B = 512 and the update minibatch's 2048, on the x0
     and dz0 that K8b writes: its splits' partials summed against dz0^T x0
     in float64 within 1e-5 of the largest element; two runs give the same
-    bits.  The plan: K8b 16 warps an SM or more, K8w at least 3 stages."""
+    bits.  The plan: K8b 16 warps an SM or more, all 16 in each tile's
+    forward, its weights in shared memory for the block's life; K8w at
+    least 3 stages."""
     net, inputs = _k8_case(cuda, ((24, 24), 96, 32), b, torch.bfloat16)
     g = torch.Generator(device=cuda).manual_seed(b)
     ds = torch.randn(b * 192, generator=g, device=cuda).to(torch.bfloat16)
@@ -761,6 +768,7 @@ def test_evaluator_grad_dense0_matches_float64(cuda, b):
     total = first.view(-1, 96, x0.shape[1]).double().sum(0)
     assert (total - exact).abs().max() <= 1e-5 * exact.abs().max()
     assert w.plan["k8b_threads"] * w.plan["k8b_resident_blocks_per_sm"] >= 16 * 32
+    assert w.plan["k8b_forward_warps"] == 16 and w.plan["k8b_weights_once"] == 1
     assert w.plan["k8w_stages"] >= 3 and w.plan["k8w_resident_blocks_per_sm"] >= 1
 
 
